@@ -1,0 +1,534 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Runs from a checkout of the repository (it imports ``src/repro_torch`` and
+nothing of JAX or of the JAX package) and needs one CUDA device. Phases,
+one line each (details indented), any failure exits non-zero:
+
+1. env    — card name and power limit, CUDA and nvcc versions
+2. build  — nvcc builds both kernels from ``src/repro_torch/csrc`` in parallel
+3. msb_matmul vs its plain version at the main path's shapes, with times
+4. paged_attention_decode vs its plain version on a full-width bf16 pool
+5. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
+   the card, pack, ContinuousEngine at decode_horizon 8 and 1; both
+   kernels' launch counters are zeroed just before the horizon-8 run and
+   must be non-zero after it
+6. kernel path vs plain path — smoke internlm2 served on the card and on
+   the CPU from the same weights
+
+The second-to-last line is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
+stream is timed cold (L2 flushed before every launch), as decode meets it.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 SIMT
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def fail(msg):
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
+        f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+# ---------------------------------------------------------------------------
+# timing helpers
+# ---------------------------------------------------------------------------
+
+class Timer:
+    """Mean milliseconds of ``fn()`` over ``reps`` launches, each timed with
+    CUDA events; ``cold`` flushes L2 (a 128 MB write) before every launch."""
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.flush = torch.empty(32 << 20, dtype=torch.float32, device=device)
+
+    def __call__(self, fn, reps=10, cold=True, warmup=2):
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        total = 0.0
+        for _ in range(reps):
+            if cold:
+                self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / reps
+
+
+def bound(nbytes, flops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_env(torch):
+    log(f"[env] {smi_line()}")
+    nvcc = subprocess.run(["bash", "-lc", "nvcc --version || "
+                           "/usr/local/cuda/bin/nvcc --version"],
+                          capture_output=True, text=True).stdout
+    nvcc_line = [l for l in nvcc.splitlines() if "release" in l]
+    log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
+        f" | nvcc: {nvcc_line[0].strip() if nvcc_line else 'not found'}")
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    secs = _build.build_all()
+    wall = time.perf_counter() - t0
+    log(f"[build] {wall:.2f} s wall for {len(secs)} sources, in parallel: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    for name, text in _build.BUILD_LOGS.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+
+def rand_packed(torch, gen, k, n, kblocked, device):
+    """Random packed codes and sorted positive f32 codebooks."""
+    packed = torch.randint(0, 256, (k, n // 2), generator=gen,
+                           device=device, dtype=torch.int32).to(torch.uint8)
+    shape = (k // 64, n, 8) if kblocked else (k, n // 64, 8)
+    scales = torch.rand(shape, generator=gen, device=device)
+    scales = torch.sort(scales * 0.05, dim=-1).values.contiguous()
+    return packed, scales
+
+
+def phase_msb_matmul(torch, timer, device):
+    from repro_torch.kernels.msb_matmul import ops, ref
+    gen = torch.Generator(device=device).manual_seed(1)
+    cases = [(k, n, False, torch.bfloat16) for k, n in
+             ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))]
+    cases.append((2048, 92672, True, torch.float32))
+    rows, worst = [], 0.0
+    for k, n, kb, xdt in cases:
+        packed, scales = rand_packed(torch, gen, k, n, kb, device)
+        w = ref.dequant_ref(packed, scales, kblocked=kb).to(xdt)
+        for m in (1, 8, 128, 512):
+            x = torch.randn((m, k), generator=gen, device=device).to(xdt)
+            bias = (torch.randn((n,), generator=gen, device=device)
+                    if (k, n, m) == (2048, 1024, 8) else None)
+            y = ops.msb_matmul(x, packed, scales, bias, kblocked=kb)
+            y_ref = ref.msb_matmul_ref(x, packed, scales, bias, kblocked=kb)
+            torch.cuda.synchronize()
+            err = (y.float() - y_ref.float()).abs().max().item()
+            scale = y_ref.float().abs().max().item()
+            tol = (1e-2 if xdt == torch.bfloat16 else 1e-5) * scale
+            if not err <= tol:
+                fail(f"msb_matmul M={m} K={k} N={n} kblocked={kb}: max err "
+                     f"{err} > {tol}")
+            worst = max(worst, err / max(scale, 1e-30))
+            ms = timer(lambda: ops.msb_matmul(x, packed, scales, bias,
+                                              kblocked=kb))
+            plain = timer(lambda: ref.msb_matmul_ref(x, packed, scales, bias,
+                                                     kblocked=kb), reps=3)
+            lib = timer(lambda: torch.matmul(x, w))
+            xb = x.element_size()
+            nbytes = (m * k * xb + k * n // 2 + scales.numel() * 4
+                      + m * n * xb + (n * 4 if bias is not None else 0))
+            b_ms, b_by = bound(nbytes, 2.0 * m * k * n, str(xdt)[6:])
+            row = dict(shape=f"M={m} K={k} N={n} "
+                       f"{'k-blocked f32' if kb else 'n-blocked bf16'}"
+                       f"{' +bias' if bias is not None else ''}",
+                       m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
+                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            log(f"  msb_matmul {row['shape']}: err {err:.3g} (tol {tol:.3g}) "
+                f"kernel {ms:.4f} ms | plain {plain:.4f} | library "
+                f"{lib:.4f} | bound {b_ms:.4f} ({b_by})")
+        del packed, scales, w
+    log(f"[msb_matmul] {len(rows)} shapes agree with the plain version "
+        f"(worst err/max|ref| {worst:.3g})")
+    return rows
+
+
+def phase_paged_attention(torch, timer, device):
+    from repro_torch.kernels.paged_attention import ops, ref
+    gen = torch.Generator(device=device).manual_seed(2)
+    h, kv, d, ps = 16, 8, 128, 16
+    rows = []
+    for lens in ([2048], [0, 1, 17, 100, 513, 1000, 1999, 2048]):
+        b = len(lens)
+        max_pages = 2048 // ps
+        n_pages = 1 + b * max_pages
+        k_pool = torch.randn((n_pages, ps, kv, d), generator=gen,
+                             device=device).to(torch.bfloat16)
+        v_pool = torch.randn((n_pages, ps, kv, d), generator=gen,
+                             device=device).to(torch.bfloat16)
+        perm = torch.randperm(n_pages - 1, generator=gen, device=device) + 1
+        bt = perm[:b * max_pages].reshape(b, max_pages).to(torch.int32)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=device)
+        q = torch.randn((b, h, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        for softcap in (0.0, 30.0):
+            out = ops.paged_attention_decode(q, k_pool, v_pool, bt, kv_lens,
+                                             softcap=softcap)
+            out_ref = ref.paged_attention_decode_ref(q, k_pool, v_pool, bt,
+                                                     kv_lens, softcap=softcap)
+            torch.cuda.synchronize()
+            err = (out.float() - out_ref.float()).abs().max().item()
+            if not err <= 2e-2:
+                fail(f"paged_attention B={b} lens={lens} softcap={softcap}: "
+                     f"max err {err} > 2e-2")
+            zero = [i for i, n in enumerate(lens) if n == 0]
+            if zero and out[zero].abs().max().item() != 0.0:
+                fail("paged_attention: zero-length rows are not exactly 0")
+        ms = timer(lambda: ops.paged_attention_decode(q, k_pool, v_pool, bt,
+                                                      kv_lens))
+        plain = timer(lambda: ref.paged_attention_decode_ref(
+            q, k_pool, v_pool, bt, kv_lens), reps=3)
+        # library yardstick: one SDPA call on the pre-gathered cache
+        s = max(lens)
+        kg = k_pool[bt.long()].reshape(b, -1, kv, d)[:, :s].transpose(1, 2)
+        vg = v_pool[bt.long()].reshape(b, -1, kv, d)[:, :s].transpose(1, 2)
+        kg, vg = kg.contiguous(), vg.contiguous()
+        mask = (torch.arange(s, device=device)[None, :]
+                < kv_lens[:, None])[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = timer(lambda: sdpa(q[:, :, None], kg, vg, attn_mask=mask,
+                                 enable_gqa=True))
+        tokens = sum(lens)
+        nbytes = (2 * tokens * kv * d * 2 + q.numel() * 2 * 2
+                  + sum(-(-n // ps) for n in lens) * 4 + b * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * tokens * h * d, "bfloat16")
+        row = dict(shape=f"B={b} H={h} KV={kv} d={d} ps={ps} bf16 "
+                   f"kv_lens={lens}", max_abs_err=err, ms=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                   bound_by=b_by)
+        rows.append(row)
+        log(f"  paged_attention {row['shape']}: err {err:.3g} kernel "
+            f"{ms:.4f} ms | plain {plain:.4f} | library {lib:.4f} | bound "
+            f"{b_ms:.4f} ({b_by})")
+    log(f"[paged_attention] {len(rows)} cases agree with the plain version "
+        "(tol 2e-2 abs; zero-length rows exactly 0)")
+    return rows
+
+
+def next_logits(torch, model, params, tokens, device, ps=16):
+    """Last-position logits of one plain prefill of ``tokens`` on fresh
+    pools (for the near-tie gap of a divergence)."""
+    n = len(tokens)
+    pages = -(-n // ps)
+    pools = model.init_paged_pools(pages + 1, ps, device=device)
+    bt = torch.arange(1, pages + 1, dtype=torch.int32, device=device)[None]
+    tok = torch.tensor(np.asarray(tokens)[None], dtype=torch.int32,
+                       device=device)
+    q_pos = torch.arange(n, dtype=torch.int32, device=device)[None]
+    kv = torch.tensor([n], dtype=torch.int32, device=device)
+    logits, _ = model.paged_step(params, pools, tok, q_pos, kv, bt)
+    return logits[0].float().cpu()
+
+
+def top2_gap(logits):
+    top = logits.topk(2).values
+    return float(top[0] - top[1])
+
+
+def compare_tokens(torch, name, a, b, prompts, model, params, device):
+    """Fail unless outputs agree, or diverge only at a near tie (top-2
+    logit gap < 1e-2 at the first divergent step)."""
+    for rid in sorted(a):
+        if np.array_equal(a[rid], b[rid]):
+            continue
+        i = int(np.argmax(a[rid] != b[rid]))
+        ctx = np.concatenate([prompts[rid], a[rid][:i]])
+        gap = top2_gap(next_logits(torch, model, params, ctx, device))
+        log(f"  {name}: request {rid} diverges at step {i} "
+            f"({a[rid][i]} vs {b[rid][i]}), top-2 logit gap {gap:.3g}")
+        if not gap < 1e-2:
+            fail(f"{name}: request {rid} diverges at step {i} with top-2 "
+                 f"gap {gap} >= 1e-2")
+    log(f"  {name}: tokens identical or near-tie only")
+
+
+def run_engine(engine, prompts, first_alone, max_new):
+    """Submit ``prompts[0]`` alone, step until its prompt is cached (so the
+    prompt sharing its prefix can hit), then the rest; run to the end.
+    Returns (outputs, prefill seconds, decode seconds)."""
+    import torch
+    times = {"prefill": 0.0, "decode": 0.0}
+    rid0 = engine.submit(prompts[0], max_new)
+    out = {}
+
+    def step():
+        t0 = time.perf_counter()
+        worked = engine.step()
+        torch.cuda.synchronize()
+        kind = ("decode" if engine.last_step_kind == "decode" else "prefill")
+        times[kind] += time.perf_counter() - t0
+        out.update(engine.collect())
+        return worked
+
+    if first_alone:
+        while engine._seqs[rid0].state != "decode" and step():
+            pass
+    for p in prompts[1:]:
+        engine.submit(p, max_new)
+    while engine.has_work and step():
+        pass
+    out.update(engine.collect())
+    return out, times["prefill"], times["decode"]
+
+
+def phase_serve(torch, device):
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy, pack_params, quantize_params
+    from repro_torch.kernels.msb_matmul import ops as mm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import Model
+    from repro_torch.serve import ContinuousEngine
+    cfg = get_config("internlm2-1.8b")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, report = quantize_params(
+        params, QuantPolicy(bits=4, block=64, solver="dp"))
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    del params
+    packed, _ = pack_params(qparams)
+    del qparams
+    torch.cuda.synchronize()
+    pbytes = 0
+    for path, leaf in _leaves(packed):
+        pbytes += sum(t.numel() * t.element_size() for t in _tensors(leaf))
+    log(f"[serve] internlm2-1.8b full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab_padded}): init {t_init:.2f} s, "
+        f"DP quantize of {len(report)} tensors on the card {t_quant:.2f} s, "
+        f"packed params {pbytes / 1e9:.3f} GB")
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, 256)
+    lens = [320, 300, 64, 384, 128, 200, 96, 256]
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                    lens[0] - 256)]),
+               np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                    lens[1] - 256)])]
+    prompts += [rng.integers(0, cfg.vocab_size, n) for n in lens[2:]]
+    prompts = [p.astype(np.int32) for p in prompts]
+    max_new = 32
+    results = {}
+    counts = {}
+    engine_kw = dict(max_batch=8, page_size=16, num_pages=1024,
+                     prefill_chunk=128, max_seq=1024)
+    # one short untimed request first: lazy CUDA/library set-up stays out
+    # of the timed runs
+    warm = ContinuousEngine(model, packed, **engine_kw)
+    run_engine(warm, prompts[2:3], False, 2)
+    del warm
+    for horizon in (8, 1):
+        eng = ContinuousEngine(model, packed, decode_horizon=horizon,
+                               **engine_kw)
+        if horizon == 8:
+            mm_ops.msb_matmul.launches = 0
+            pa_ops.paged_attention_decode.launches = 0
+        t0 = time.perf_counter()
+        out, t_pre, t_dec = run_engine(eng, prompts, True, max_new)
+        wall = time.perf_counter() - t0
+        if horizon == 8:
+            counts = {"msb_matmul": mm_ops.msb_matmul.launches,
+                      "paged_attention_decode":
+                          pa_ops.paged_attention_decode.launches}
+        if sorted(out) != list(range(len(prompts))) or any(
+                len(t) != max_new for t in out.values()):
+            fail(f"serve H={horizon}: not every request returned {max_new} "
+                 "tokens")
+        hits = eng.n_prefix_hits
+        saved = eng.n_prefix_positions_saved
+        eng.close()
+        eng.cache.check_invariants(expect_idle=True)
+        if hits < 1:
+            fail(f"serve H={horizon}: no prefix-cache hit")
+        pre_tok = sum(len(p) for p in prompts) - saved
+        dec_tok = len(prompts) * (max_new - 1)
+        log(f"  H={horizon}: {wall:.2f} s wall, prefill {pre_tok} tokens in "
+            f"{t_pre:.3f} s = {pre_tok / t_pre:.1f} tok/s, decode {dec_tok} "
+            f"tokens in {t_dec:.3f} s = {dec_tok / t_dec:.1f} tok/s, prefix "
+            f"hits {hits} ({saved} positions saved), decode dispatches "
+            f"{eng.n_decode_steps}")
+        results[horizon] = out
+        del eng
+    log(f"  launches in the H=8 run: {counts}")
+    if not all(v > 0 for v in counts.values()):
+        fail(f"serve: a kernel of the main path never launched: {counts}")
+    compare_tokens(torch, "H=8 vs H=1", results[8], results[1], prompts,
+                   model, packed, device)
+    profile_decode(torch, ContinuousEngine(model, packed, **engine_kw),
+                   prompts, max_new)
+    log(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.3f} GB in "
+        f"use, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    log("[serve] ok: all requests 32 tokens, prefix hit, clean page audit")
+    return counts
+
+
+def profile_decode(torch, engine, prompts, max_new, n_steps=4):
+    """Where a full-batch decode step's time goes: torch.profiler over
+    ``n_steps`` H=1 decode steps once all 8 requests decode. Prints device
+    time by kernel, the device-busy share of the steps' wall time, and
+    the wall time per step."""
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts:
+        engine.submit(p, max_new)
+    while engine.scheduler.waiting or any(
+            s.state != "decode" for s in engine.scheduler.running):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_steps * 1e3
+    by_name = {}
+    for evt in prof.key_averages():
+        dev = getattr(evt, "self_device_time_total",
+                      getattr(evt, "self_cuda_time_total", 0))
+        if dev > 0 and evt.device_type.name == "CUDA":
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + dev / 1e3
+    busy = sum(by_name.values()) / n_steps
+    log(f"  decode step profile (B=8, H=1, {n_steps} steps): wall "
+        f"{wall:.2f} ms/step, device busy {busy:.2f} ms/step "
+        f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {ms / n_steps:8.3f} ms/step  {name[:90]}")
+    while engine.has_work:
+        engine.step()
+    engine.close()
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def _tensors(leaf):
+    import torch
+    if isinstance(leaf, torch.Tensor):
+        return [leaf]
+    return [leaf.packed if hasattr(leaf, "packed") else leaf.codes,
+            leaf.scales]
+
+
+def phase_paths(torch):
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import QuantPolicy, quantize_params
+    from repro_torch.models import Model
+    from repro_torch.serve import ContinuousEngine
+    cfg = smoke_config("internlm2-1.8b")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    qparams, _ = quantize_params(params, QuantPolicy(min_size=1024),
+                                 device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 9, 17, 30)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ContinuousEngine(model, qparams, max_batch=4, page_size=4,
+                               num_pages=96, max_seq=64, decode_horizon=4,
+                               device=dev)
+        for p in prompts:
+            eng.submit(p, 16)
+        outs[dev] = eng.run()
+        eng.close()
+    from repro_torch.core import pack_params
+    packed_cpu, _ = pack_params(qparams, device="cpu")
+    compare_tokens(torch, "cuda vs cpu", outs["cuda"], outs["cpu"], prompts,
+                   model, packed_cpu, "cpu")
+    log("[paths] smoke internlm2 on the kernel path (cuda) and the plain "
+        "path (cpu): greedy tokens agree")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs one "
+             "CUDA device")
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    phase_env(torch)
+    phase_build()
+    timer = Timer(torch, device)
+    mm_rows = phase_msb_matmul(torch, timer, device)
+    pa_rows = phase_paged_attention(torch, timer, device)
+    del timer
+    counts = phase_serve(torch, device)
+    phase_paths(torch)
+    # representative rows: the decode shapes of the main path
+    mm = next(r for r in mm_rows if (r["m"], r["k"], r["n"]) == (8, 2048,
+                                                                   8192))
+    pa = pa_rows[-1]
+    kernels = [
+        dict(name="msb_matmul", route="cuda",
+             source="src/repro_torch/csrc/msb_matmul.cu",
+             replaces="src/repro/kernels/msb_matmul/msb_matmul.py:117",
+             launches=counts["msb_matmul"],
+             max_abs_err=max(r["max_abs_err"] for r in mm_rows),
+             ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
+             bound_by=mm["bound_by"], library_ms=mm["library_ms"],
+             shape=mm["shape"]),
+        dict(name="paged_attention_decode", route="cuda",
+             source="src/repro_torch/csrc/paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention/"
+                      "paged_attention.py:198",
+             launches=counts["paged_attention_decode"],
+             max_abs_err=max(r["max_abs_err"] for r in pa_rows),
+             ms=pa["ms"], plain_ms=pa["plain_ms"], bound_ms=pa["bound_ms"],
+             bound_by=pa["bound_by"], library_ms=pa["library_ms"],
+             shape=pa["shape"]),
+    ]
+    log(f"[done] {time.perf_counter() - t_start:.1f} s total")
+    print(smi_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

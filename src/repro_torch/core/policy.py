@@ -1,0 +1,121 @@
+"""Quantization policy: apply block-wise MSB PTQ to a params tree.
+
+Port of the block-wise part of ``repro.core.policy``. A params tree is a
+nested dict of tensors; paths are the ``/``-joined dict keys, exactly as in
+the reference, so ``QuantPolicy`` regexes select the same leaves. Stacked
+per-layer params (leading ``L`` dim) quantize as one batch of blocks —
+blocks never straddle rows, so the grouping equals per-layer quantization.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+
+import torch
+
+from ..device import resolve_device
+from .quantize import (PackedQTensor, QTensor, dequantize, map_tensors,
+                       pack_qtensor, quantize_blockwise)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    bits: int = 4
+    block: int = 64              # the port has block-wise only (no -1)
+    solver: str = "dp"           # the port has the exact DP only
+    lam: float = 0.0
+    include: str = r".*"
+    exclude: str = (r".*(norm|scale_param|bias|ln|rope|router|conv_w|"
+                    r"dt_bias|a_log|d_skip|f_bias|w_rec).*")
+    min_size: int = 1 << 12      # skip tiny leaves (norm scales etc.)
+
+    def selects(self, path: str, leaf) -> bool:
+        if (not isinstance(leaf, torch.Tensor) or leaf.dim() < 2
+                or leaf.numel() < self.min_size):
+            return False
+        if re.match(self.exclude, path, re.I):
+            return False
+        if leaf.shape[-1] % self.block:
+            return False
+        return re.match(self.include, path, re.I) is not None
+
+
+def _walk(tree, visit, path=""):
+    if isinstance(tree, dict):
+        return {k: _walk(v, visit, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    return visit(path, tree)
+
+
+def quantize_params(params, policy: QuantPolicy = QuantPolicy(), *,
+                    device=None, verbose=False):
+    """Rewrite matching leaves of ``params`` as ``QTensor``, solving on
+    ``device`` (``None`` = the card). Every tensor of the returned tree
+    lies on that device. Returns (tree, report)."""
+    if policy.block == -1:
+        raise NotImplementedError(
+            "per-tensor MSB: ROADMAP item 7 brings quantize_pertensor")
+    dev = resolve_device(device)
+    report = {}
+
+    def visit(path, leaf):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.to(dev)
+        if isinstance(leaf, (QTensor, PackedQTensor)) or not policy.selects(
+                path, leaf):
+            return map_tensors(lambda t: t.to(dev), leaf)
+        q = quantize_blockwise(leaf, bits=policy.bits, block=policy.block,
+                               solver=policy.solver, lam=policy.lam)
+        report[path] = (tuple(leaf.shape), policy.bits)
+        if verbose:
+            print(f"  quantized {path}: {tuple(leaf.shape)} -> "
+                  f"{policy.bits}b/{policy.block}")
+        return q
+
+    return _walk(params, visit), report
+
+
+def pack_params(params, *, device=None, verbose=False):
+    """QTensor leaves -> PackedQTensor, once at load (packed execution).
+
+    The ``unembed`` table packs *transposed* (k-blocked scales) so the
+    unembedding projection runs through the msb_matmul kernel; ``embed``
+    packs in natural orientation for the row-gather path. Leaves the pass
+    cannot pack (other bit-widths, plain tensors) stay as they are. The
+    tree lands on ``device`` (``None`` = the card). Returns (tree, report).
+    """
+    dev = resolve_device(device)
+    report = {}
+
+    def visit(path, leaf):
+        leaf = map_tensors(lambda t: t.to(dev), leaf)
+        if not isinstance(leaf, QTensor):
+            return leaf
+        if leaf.bits != 4 or leaf.block != 64:
+            return leaf
+        transpose = path == "unembed" and leaf.codes.dim() == 2
+        pq = pack_qtensor(leaf, transpose=transpose)
+        report[path] = (leaf.shape, "kblocked" if transpose else "nblocked")
+        if verbose:
+            print(f"  packed {path}: {leaf.shape} -> "
+                  f"{'transposed/kblocked' if transpose else 'nblocked'} "
+                  f"uint8 {tuple(pq.packed.shape)}")
+        return pq
+
+    return _walk(params, visit), report
+
+
+def dequantize_params(params, dtype=None):
+    """Materialize all quantized leaves back to dense tensors. Packed
+    leaves come back in their original orientation."""
+    def visit(_path, leaf):
+        if isinstance(leaf, PackedQTensor):
+            w = leaf.dequantize()
+            if leaf.kblocked:
+                w = w.t()
+        elif isinstance(leaf, QTensor):
+            w = dequantize(leaf)
+        else:
+            return leaf
+        return w.to(dtype) if dtype is not None else w
+    return _walk(params, visit)

@@ -1,0 +1,235 @@
+"""MSB quantized-tensor formats and the block-wise quantize/dequantize API.
+
+Port of ``repro.core.quantize`` (the 4-bit block-wise storage path). The
+byte formats match the reference exactly:
+
+* ``QTensor``: ``codes`` int8 in the weight's shape, ``code = sign *
+  (level + 1)`` (0 for exact zeros); ``scales`` ``(..., last // block, g)``
+  — one codebook row of ``g = 2^(bits-1)`` positive scales per block.
+* ``PackedQTensor``: two 4-bit codes per byte in matmul orientation
+  ``(..., K, N_pad // 2)``, nibble ``(sign << 3) | level``, element ``2i``
+  in the low nibble; scales n-blocked ``(..., K, N_pad // 64, 8)`` or
+  k-blocked ``(K // 64, N_pad, 8)`` (the transposed unembedding). Exact
+  zeros pack as ``+alpha_0``, as in the reference.
+
+Leaves are plain dataclasses holding torch tensors; ``map_tensors`` walks a
+params tree of dicts, tensors and these leaves.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from . import grouping
+
+PACK_BLOCK = 64      # MSB block size — matches the msb_matmul kernel
+PACK_LEVELS = 8      # 2^(4-1) codebook entries per block
+
+
+@dataclasses.dataclass(frozen=True)
+class QTensor:
+    """MSB-quantized tensor: int8 codes + per-block codebooks."""
+    codes: torch.Tensor       # int8, logical shape of w
+    scales: torch.Tensor      # (..., n_blocks_in_row, n_levels) f32
+    bits: int                 # target bit-width b
+    block: int                # block size (64)
+    dtype: object             # dequantized dtype
+    shard: Optional[str] = None
+
+    @property
+    def shape(self):
+        return tuple(self.codes.shape)
+
+    @property
+    def n_levels(self):
+        return self.scales.shape[-1]
+
+    def dequantize(self):
+        return dequantize(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedQTensor:
+    """Kernel-layout MSB tensor: 4-bit codes two per byte + 3-D codebooks
+    (see the module docstring for the two scale layouts). ``n`` is the
+    logical width before the last dim was padded to a multiple of 64;
+    padded columns carry zero scales and dequantize to exact 0."""
+    packed: torch.Tensor      # uint8 (..., K, N_pad // 2)
+    scales: torch.Tensor
+    bits: int
+    block: int
+    dtype: object
+    n: int
+    kblocked: bool = False
+    shard: Optional[str] = None
+
+    @property
+    def shape(self):
+        return tuple(self.packed.shape[:-1]) + (self.n,)
+
+    @property
+    def n_pad(self):
+        return self.packed.shape[-1] * 2
+
+    def dequantize(self):
+        return packed_dequantize(self)
+
+
+def map_tensors(fn, tree):
+    """Apply ``fn`` to every tensor of a params tree (nested dicts of
+    tensors, ``QTensor`` and ``PackedQTensor`` leaves); returns a new tree."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return dataclasses.replace(tree, codes=fn(tree.codes),
+                                   scales=fn(tree.scales))
+    if isinstance(tree, PackedQTensor):
+        return dataclasses.replace(tree, packed=fn(tree.packed),
+                                   scales=fn(tree.scales))
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return tree
+
+
+def quantize_blockwise(w, bits=4, block=64, solver="dp", lam=0.0,
+                       scale_dtype=torch.float32):
+    """Block-wise MSB quantization along the last axis (64-element groups
+    per row), solved on ``w``'s device. Last axis must divide by ``block``.
+    """
+    if w.shape[-1] % block:
+        raise ValueError(f"last dim {w.shape[-1]} not divisible by block "
+                         f"{block}")
+    g = 2 ** (bits - 1)
+    blocks = w.reshape(-1, block).to(torch.float32)
+    levels, scales = grouping.solve_blocks(blocks, g, method=solver, lam=lam)
+    signs = torch.sign(blocks).to(torch.int8)
+    codes = (signs * (levels.to(torch.int8) + 1)).reshape(w.shape)
+    scales = scales.reshape(*w.shape[:-1], w.shape[-1] // block, g)
+    return QTensor(codes, scales.to(scale_dtype), bits, block, w.dtype)
+
+
+def dequantize(q: QTensor):
+    """w_hat = sign(code) * scales[block, |code| - 1]; exact 0 for code 0."""
+    g = q.scales.shape[-1]
+    rows = q.scales.numel() // g
+    blocks = q.codes.reshape(rows, -1)
+    lv = torch.abs(blocks.to(torch.int64))
+    scales2d = q.scales.reshape(rows, g).to(torch.float32)
+    mag = torch.gather(scales2d, 1, torch.clamp(lv - 1, min=0))
+    mag = torch.where(lv > 0, mag, torch.zeros_like(mag))
+    out = torch.sign(blocks).to(torch.float32) * mag
+    return out.reshape(q.codes.shape).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int4 packing
+# ---------------------------------------------------------------------------
+
+def pack_codes_int4(codes):
+    """Pack 4-bit MSB codes two per byte: nibble ``(sign_bit << 3) |
+    level``; element 2i -> low nibble, 2i+1 -> high nibble. Exact zeros
+    pack as level 0, sign + (they come back as +alpha_0)."""
+    flat = codes.reshape(-1).to(torch.int32)
+    if flat.shape[0] % 2:
+        raise ValueError("packing requires an even element count")
+    lv = torch.clamp(torch.abs(flat) - 1, min=0)
+    sign_bit = (flat < 0).to(torch.int32)
+    nib = (sign_bit << 3) | lv
+    lo, hi = nib[0::2], nib[1::2]
+    return ((hi << 4) | lo).to(torch.uint8)
+
+
+def unpack_codes_int4(packed, shape):
+    p = packed.to(torch.int32)
+    nib = torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-1).reshape(-1)
+    lv = (nib & 0x7).to(torch.int8) + 1
+    sign = torch.where(((nib >> 3) & 1) > 0, -1, 1).to(torch.int8)
+    return (sign * lv).reshape(shape)
+
+
+def _pad_last(a, to):
+    pad = (-a.shape[-1]) % to
+    if not pad:
+        return a
+    return torch.nn.functional.pad(a, (0, pad))
+
+
+def pack_qtensor(q: QTensor, *, transpose=False) -> PackedQTensor:
+    """QTensor -> kernel storage layout, once at load time.
+
+    ``transpose=True`` packs a 2-D ``(V, D)`` table as its transpose
+    ``(D, V)`` with k-blocked scales (unembedding orientation). Requires
+    4-bit block-64 quantization; N not divisible by 64 is padded with
+    zero-scale columns."""
+    if q.bits != 4 or q.block != PACK_BLOCK:
+        raise ValueError(f"packing needs 4-bit block-{PACK_BLOCK} "
+                         f"quantization, got {q.bits}-bit block {q.block}")
+    codes, scales = q.codes, q.scales
+    if transpose:
+        if codes.dim() != 2:
+            raise ValueError("transpose packing is for 2-D tables")
+        v = codes.shape[0]
+        codes = _pad_last(codes.t().contiguous(), PACK_BLOCK)    # (D, V_pad)
+        n = v
+        scales = scales.transpose(0, 1)                  # (D//64, V, 8)
+        pad = codes.shape[-1] - v
+        if pad:
+            scales = torch.nn.functional.pad(scales, (0, 0, 0, pad))
+    else:
+        n = codes.shape[-1]
+        codes = _pad_last(codes, PACK_BLOCK)
+        pad_blocks = (codes.shape[-1] - n) // PACK_BLOCK
+        if pad_blocks:
+            scales = torch.nn.functional.pad(scales, (0, 0, 0, pad_blocks))
+    n_pad = codes.shape[-1]
+    packed = pack_codes_int4(codes).reshape(*codes.shape[:-1], n_pad // 2)
+    return PackedQTensor(packed, scales.contiguous(), q.bits, q.block,
+                         q.dtype, n, kblocked=transpose)
+
+
+def _unpack_nibbles(packed):
+    """uint8 (..., half) -> (level int64, sign f32), both (..., 2*half)."""
+    p = packed.to(torch.int32)
+    nib = torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-1).reshape(
+        *packed.shape[:-1], packed.shape[-1] * 2)
+    level = (nib & 0x7).to(torch.int64)
+    sign = (1 - 2 * ((nib >> 3) & 1)).to(torch.float32)
+    return level, sign
+
+
+def packed_dequantize(pq: PackedQTensor):
+    """Dense weights in matmul orientation ``(..., K, n)``, with the same
+    f32 gather math as ``dequantize``."""
+    level, sign = _unpack_nibbles(pq.packed)        # (..., K, N_pad)
+    n_pad = level.shape[-1]
+    sc = pq.scales.to(torch.float32)
+    if pq.kblocked:
+        k = level.shape[-2]
+        lv = level.reshape(*level.shape[:-2], k // PACK_BLOCK, PACK_BLOCK,
+                           n_pad)
+        lvb = lv.transpose(-1, -2)                  # (..., K//64, N_pad, 64)
+        magb = torch.gather(sc, -1, lvb)
+        mag = magb.transpose(-1, -2).reshape(level.shape)
+    else:
+        lv = level.reshape(*level.shape[:-1], n_pad // PACK_BLOCK,
+                           PACK_BLOCK)
+        mag = torch.gather(sc, -1, lv).reshape(level.shape)
+    w = sign * mag
+    return w[..., :pq.n].to(pq.dtype)
+
+
+def packed_gather(pq: PackedQTensor, idx):
+    """Rows ``idx`` of a natural-orientation packed table, dequantized —
+    only the gathered rows are unpacked (the embedding lookup)."""
+    if pq.kblocked:
+        raise ValueError("packed_gather needs natural (n-blocked) layout")
+    idx = idx.to(torch.int64)
+    rows = pq.packed[idx]                            # (..., N_pad//2)
+    srow = pq.scales[idx].to(torch.float32)          # (..., N_pad//64, 8)
+    level, sign = _unpack_nibbles(rows)
+    n_pad = level.shape[-1]
+    lv = level.reshape(*level.shape[:-1], n_pad // PACK_BLOCK, PACK_BLOCK)
+    mag = torch.gather(srow, -1, lv).reshape(level.shape)
+    return (sign * mag)[..., :pq.n].to(pq.dtype)

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+msb_matmul       — fused MSB 4-bit dequantize + matmul (every packed
+                   projection and the k-blocked unembedding)
+paged_attention  — decode attention streaming KV pages via block tables
+                   (paged decode, and packed prefill one token per row)
+
+Sources are CUDA C++ in ``repro_torch/csrc``, built by ``_build`` at first
+use. Each wrapper (``ops.py``) takes the plain version (``ref.py``) for CPU
+tensors and launches the kernel for CUDA tensors.
+"""

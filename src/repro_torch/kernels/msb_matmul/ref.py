@@ -1,0 +1,29 @@
+"""Plain PyTorch version of the msb_matmul kernel (the CPU path, and what
+the kernel is held against on the card). Port of
+``repro.kernels.msb_matmul.ref``: the nibble decode and per-block scale
+gather are the storage format's own ``packed_dequantize``."""
+from __future__ import annotations
+
+import torch
+
+from ...core.quantize import PACK_BLOCK, PackedQTensor, packed_dequantize
+
+
+def dequant_ref(packed, scales, kblocked=False):
+    """uint8 (K, N/2) + codebooks -> (K, N) f32 weights.
+
+    scales: (K, N/64, 8) n-blocked, or (K/64, N, 8) k-blocked."""
+    n = packed.shape[-1] * 2
+    pq = PackedQTensor(packed, scales, 4, PACK_BLOCK, torch.float32, n,
+                       kblocked=kblocked)
+    return packed_dequantize(pq)
+
+
+def msb_matmul_ref(x, packed, scales, bias=None, kblocked=False):
+    """y = x @ dequant(W) (+ bias): weights rounded to x's type, products
+    summed in f32, output in x's type. x (M, K); returns (M, N)."""
+    w = dequant_ref(packed, scales, kblocked=kblocked).to(x.dtype)
+    y = x.to(torch.float32) @ w.to(torch.float32)
+    if bias is not None:
+        y = y + bias.reshape(1, -1).to(torch.float32)
+    return y.to(x.dtype)

@@ -1,0 +1,64 @@
+"""Plain PyTorch version of the paged-attention decode kernel.
+
+Port of ``repro.kernels.paged_attention.ref`` and of the gather attention
+it wraps (``repro.models.attention.paged_attention`` / ``_attend_gathered``):
+the pages are gathered into a (B, S_max, KV, d) copy and attended with a
+masked softmax. One deliberate difference from the reference: a row with
+``kv_len == 0`` (a pad row, all keys masked) returns exactly 0, as the
+kernel does, where the reference returns the mean of V.
+"""
+from __future__ import annotations
+
+import torch
+
+_NEG_INF = -2.0e38
+
+
+def attend_gathered(q, k, v, q_pos, kv_lens, *, window=0, softcap=0.0,
+                    scale=None):
+    """Masked softmax attention over materialized per-sequence K/V.
+
+    q: (B, T, H, d); k/v: (B, S, KV, d) with absolute position ``kpos = s``;
+    q_pos (B, T) (-1 = pad); kv_lens (B,). Key s is visible to a query at
+    q_pos when ``s <= q_pos``, ``s < kv_lens`` and (with ``window > 0``)
+    ``s > q_pos - window``. Scores and sums in f32; out in q's type."""
+    b, t, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    qh = q.reshape(b, t, kv, rep, d).to(k.dtype)
+    s = torch.einsum("btkrd,bskd->btkrs", qh.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = q_pos.to(torch.int64)
+    valid = kpos[None, None, :] <= q_pos[:, :, None]
+    valid &= kpos[None, None, :] < kv_lens.to(torch.int64)[:, None, None]
+    if window > 0:
+        valid &= kpos[None, None, :] > q_pos[:, :, None] - window
+    s = torch.where(valid[:, :, None, None, :], s,
+                    torch.full_like(s, _NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1)
+    out = torch.einsum("btkrs,bskd->btkrd", p.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    out = out / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, kv_lens, *,
+                               softcap=0.0, scale=None):
+    """q: (B, H, d), one query token per row at position ``kv_len - 1``;
+    pools (n_pages, ps, KV, d); block_tables (B, max_pages); kv_lens (B,).
+    Returns (B, H, d); rows with ``kv_len == 0`` are 0."""
+    bt = block_tables.to(torch.int64)
+    b = q.shape[0]
+    k = k_pool[bt].reshape(b, -1, k_pool.shape[2], k_pool.shape[3])
+    v = v_pool[bt].reshape(k.shape)
+    q_pos = (kv_lens.to(torch.int64) - 1).reshape(-1, 1)
+    out = attend_gathered(q[:, None], k, v, q_pos, kv_lens, softcap=softcap,
+                          scale=scale)[:, 0]
+    return torch.where((kv_lens > 0)[:, None, None], out,
+                       torch.zeros_like(out))

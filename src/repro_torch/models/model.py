@@ -1,0 +1,186 @@
+"""Top-level Model API for paged serving.
+
+Port of the serving half of ``repro.models.model``: embedding and logits,
+paged K/V pools, one paged step (decode or chunked prefill), packed ragged
+prefill, and the decode horizon with on-device greedy sampling.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.quantize import PackedQTensor, QTensor, packed_gather
+from ..device import resolve_device
+from ..kernels.msb_matmul.ops import packed_matmul
+from .layers import rms_norm
+from .transformer import (_require_dense, forward_stack, init_params,
+                          layer_plan, n_periods)
+
+
+def _require_kv16(kv_bits):
+    if int(kv_bits) != 16:
+        raise NotImplementedError(
+            f"kv_bits={kv_bits}: quantized KV pools are ROADMAP item 8")
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    # -- params ------------------------------------------------------------
+    def init(self, generator, device=None):
+        """Random params on ``device`` (``None`` = the card)."""
+        return init_params(self.cfg, generator, device)
+
+    # -- shared pieces -----------------------------------------------------
+    def _embed(self, params, tokens):
+        cfg = self.cfg
+        table = params["embed"]
+        tokens = tokens.to(torch.int64)
+        if isinstance(table, PackedQTensor):
+            # only the gathered rows are unpacked and dequantized
+            e = packed_gather(table, tokens).to(cfg.dtype)
+        else:
+            if isinstance(table, QTensor):
+                table = table.dequantize()
+            e = table[tokens].to(cfg.dtype)
+        return e * torch.tensor(cfg.embed_scale, dtype=cfg.dtype,
+                                device=e.device)
+
+    def _unembed_vd(self, params):
+        table = params.get("unembed", params["embed"])
+        if isinstance(table, PackedQTensor):
+            w = table.dequantize()
+            return w.t() if table.kblocked else w
+        if isinstance(table, QTensor):
+            table = table.dequantize()
+        return table
+
+    def _logits(self, params, hidden):
+        """Unembedding projection in f32 + softcap + vocab mask. A
+        k-blocked packed table runs the msb_matmul kernel (hidden in f32,
+        as the reference's kernel path takes it)."""
+        cfg = self.cfg
+        table = params.get("unembed", params["embed"])
+        hidden = hidden.to(torch.float32)
+        if isinstance(table, PackedQTensor) and table.kblocked:
+            logits = packed_matmul(hidden, table)
+        else:
+            logits = hidden @ self._unembed_vd(params).to(torch.float32).t()
+        if cfg.logit_softcap > 0:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        vp = logits.shape[-1]
+        if cfg.vocab_size < vp:
+            keep = torch.arange(vp, device=logits.device) < cfg.vocab_size
+            logits = torch.where(keep, logits,
+                                 torch.full_like(logits, -float("inf")))
+        return logits
+
+    # -- paged serving -------------------------------------------------------
+    def supports_paged(self):
+        """Paged serving covers decoder-only attention stacks."""
+        cfg = self.cfg
+        return (not cfg.is_encdec and cfg.frontend == "none"
+                and all(m == "attn" for m, _ in layer_plan(cfg, "dec")))
+
+    def init_paged_pools(self, num_pages, page_size, kv_bits=16,
+                         max_seqs=None, device=None):
+        """Global K/V page pools on ``device`` (``None`` = the card):
+        leaves (n_periods, num_pages, page_size, KV, head_dim) in
+        ``cfg.dtype``, nested like the reference's. Page 0 is the
+        allocator's scratch page. The serving steps update them in place."""
+        _require_kv16(kv_bits)
+        cfg = self.cfg
+        if not self.supports_paged():
+            raise ValueError(f"{cfg.name}: not a paged-servable arch")
+        _require_dense(cfg)
+        dev = resolve_device(device)
+        shape = (n_periods(cfg), num_pages, page_size, cfg.n_kv_heads,
+                 cfg.head_dim_)
+        layers = {f"s{slot}": {"attn": {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}}
+            for slot, _ in enumerate(layer_plan(cfg, "dec"))}
+        return {"layers": layers}
+
+    def paged_step(self, params, pools, tokens, q_pos, kv_lens, block_tables,
+                   kv_bits=16, slots=None):
+        """One serving step over a batch with a paged KV cache.
+
+        tokens (B, T) int (T=1 decode, T=chunk chunked prefill); q_pos
+        (B, T) absolute positions, -1 for padding; kv_lens (B,) cache length
+        including this chunk; block_tables (B, max_pages) int32. Writes the
+        new K/V into ``pools`` in place and returns (logits at each row's
+        last valid token (B, V) f32, pools). Pad rows give garbage logits
+        the caller discards. ``slots`` is unused at kv_bits=16."""
+        _require_kv16(kv_bits)
+        cfg = self.cfg
+        x = self._embed(params, torch.clamp(tokens, min=0))
+        paged = {"block_tables": block_tables, "q_pos": q_pos,
+                 "kv_lens": kv_lens}
+        x, layer_pools = forward_stack(params["dec"], x, cfg,
+                                       cache=pools["layers"], paged=paged)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        last = torch.clamp((q_pos >= 0).sum(dim=1) - 1, min=0)
+        hidden = x[torch.arange(x.shape[0], device=x.device), last]
+        return self._logits(params, hidden), {"layers": layer_pools}
+
+    def paged_prefill_packed(self, params, pools, tokens, seg_ids, q_pos,
+                             kv_lens, block_tables, slots, last_idx, seg_off,
+                             kv_bits=16):
+        """Packed ragged prefill: several sequences' chunks in one step.
+
+        tokens/seg_ids/q_pos (T,): the concatenated segments, padded to the
+        bucket length (seg_ids = q_pos = -1 on pads). Per-segment (S,):
+        kv_lens (0 = pad segment), block_tables (S, max_pages), last_idx
+        (packed index of the segment's last token, where its logits are
+        read). ``slots``/``seg_off`` serve quantized pools only. Returns
+        (logits (S, V), pools), pools updated in place."""
+        _require_kv16(kv_bits)
+        cfg = self.cfg
+        x = self._embed(params, torch.clamp(tokens, min=0)[None])
+        paged = {"block_tables": block_tables, "q_pos": q_pos[None],
+                 "kv_lens": kv_lens, "seg_ids": seg_ids[None]}
+        x, layer_pools = forward_stack(params["dec"], x, cfg,
+                                       cache=pools["layers"], paged=paged)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        hidden = x[0][torch.clamp(last_idx.to(torch.int64), min=0)]
+        return self._logits(params, hidden), {"layers": layer_pools}
+
+    def paged_decode_horizon(self, params, pools, tokens, start_pos,
+                             block_tables, n_left, eos_ids, horizon,
+                             kv_bits=16, slots=None):
+        """``horizon`` decode iterations with greedy sampling on the device.
+
+        Each iteration is one ``paged_step`` over a (B, 1) batch: it writes
+        the fed token's K/V, takes the argmax of its own logits on the
+        device and feeds it back. Rows that sample ``eos_ids[b]`` or exhaust
+        ``n_left[b]`` carry ``q_pos = -1`` from then on (writes land on the
+        scratch page, attention sees nothing). Only the (B, H) tokens and
+        masks are ever read back by the caller — never (B, vocab) logits.
+
+        tokens (B,) last sampled, not-yet-cached token; start_pos (B,) its
+        position (-1 = pad row); block_tables must cover the whole lease;
+        n_left/eos_ids (B,). Returns (tokens (B, H) int32, valid (B, H)
+        bool prefix masks, pools)."""
+        tok = tokens.to(torch.int32)
+        pos = start_pos.to(torch.int32)
+        active = (start_pos >= 0) & (n_left > 0)
+        out_tok, out_valid = [], []
+        for i in range(int(horizon)):
+            q_pos = torch.where(active, pos, torch.full_like(pos, -1))[:, None]
+            kv_lens = torch.clamp(pos, min=0) + 1
+            logits, pools = self.paged_step(params, pools, tok[:, None], q_pos,
+                                            kv_lens, block_tables,
+                                            kv_bits=kv_bits, slots=slots)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            hit_eos = (eos_ids >= 0) & (nxt == eos_ids)
+            valid = active
+            active = active & ~hit_eos & (i + 1 < n_left)
+            tok = torch.where(valid, nxt, tok)
+            pos = pos + valid.to(torch.int32)
+            out_tok.append(torch.where(valid, nxt, torch.zeros_like(nxt)))
+            out_valid.append(valid)
+        return torch.stack(out_tok, 1), torch.stack(out_valid, 1), pools

@@ -45,6 +45,10 @@ def pytest_configure(config):
         "named capability ('axis_type' = jax.sharding.AxisType explicit "
         "mesh axis types; 'dict_cost_analysis' = dict-shaped "
         "Compiled.cost_analysis())")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device and the CUDA toolkit (the PyTorch port's "
+        "kernels); the test skips with a reason where there is none")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,141 @@
+"""Rules of the PyTorch port (src/repro_torch): no JAX, explicit devices,
+device-only kernel dispatch, and named refusals for what is not ported."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import smoke_config
+from repro_torch.core import QuantPolicy, pack_params, quantize_params
+from repro_torch.device import resolve_device
+from repro_torch.kernels.msb_matmul import ops as mm_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.models import Model
+from repro_torch.serve import ContinuousEngine
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden_imports(path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:                  # relative: inside the package
+                continue
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top == "jax" or top.startswith("jax") or top == "repro":
+                bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {name}")
+    return bad
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    assert len(PORT_FILES) > 20
+    bad = [b for p in PORT_FILES for b in _forbidden_imports(p)]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = "
+            "None\nimport repro_torch.serve, repro_torch.convert, "
+            "repro_torch.core, repro_torch.kernels._build\nprint('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _tiny():
+    cfg = smoke_config("internlm2-1.8b")
+    return Model(cfg)
+
+
+ENTRY_POINTS = {
+    "resolve_device": lambda: resolve_device(None),
+    "Model.init": lambda: _tiny().init(torch.Generator()),
+    "Model.init_paged_pools": lambda: _tiny().init_paged_pools(4, 2),
+    "quantize_params": lambda: quantize_params(
+        {"w": torch.zeros(64, 64)}, QuantPolicy(min_size=1)),
+    "pack_params": lambda: pack_params({"w": torch.zeros(2)}),
+    "ContinuousEngine": lambda: ContinuousEngine(_tiny(), {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_device_none_means_cuda_and_raises_without_it(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    before = (mm_ops.msb_matmul.launches,
+              pa_ops.paged_attention_decode.launches)
+    x = torch.ones(2, 64)
+    packed = torch.zeros(64, 32, dtype=torch.uint8)
+    scales = torch.ones(64, 1, 8)
+    y = mm_ops.msb_matmul(x, packed, scales)
+    assert torch.equal(y, torch.full((2, 64), 64.0))
+    q = torch.ones(1, 2, 4)
+    pool = torch.ones(2, 2, 1, 4)
+    out = pa_ops.paged_attention_decode(
+        q, pool, pool, torch.ones(1, 1, dtype=torch.int32),
+        torch.tensor([2], dtype=torch.int32))
+    assert torch.allclose(out, torch.ones(1, 2, 4))
+    assert (mm_ops.msb_matmul.launches,
+            pa_ops.paged_attention_decode.launches) == before
+
+
+UNPORTED = {
+    "kv_bits=8": (dict(kv_bits=8), "item 8"),
+    "mesh": (dict(mesh=object()), "item 11"),
+    "simulated": (dict(execution="simulated"), "item 6"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_unported_engine_options_name_their_roadmap_item(name):
+    kwargs, item = UNPORTED[name]
+    with pytest.raises(NotImplementedError, match=item):
+        ContinuousEngine(_tiny(), {}, device="cpu", **kwargs)
+
+
+def test_warmup_names_its_roadmap_item():
+    model = _tiny()
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    eng = ContinuousEngine(model, params, num_pages=8, page_size=4,
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        eng.warmup()
+
+
+def test_window_attention_names_its_roadmap_item():
+    from repro_torch.models.attention import paged_attention
+    q = torch.zeros(1, 1, 2, 4)
+    pool = torch.zeros(2, 2, 1, 4)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        paged_attention(q, pool, pool, torch.ones(1, 1, dtype=torch.int32),
+                        torch.zeros(1, 1, dtype=torch.int32),
+                        torch.ones(1, dtype=torch.int32), window=4)
+
+
+def test_package_version_and_plain_init_is_seeded():
+    assert repro_torch.__version__
+    model = _tiny()
+    a = model.init(torch.Generator().manual_seed(3), device="cpu")
+    b = model.init(torch.Generator().manual_seed(3), device="cpu")
+    assert torch.equal(a["dec"]["s0"]["attn"]["wq"], b["dec"]["s0"]["attn"]["wq"])
+    assert np.isfinite(a["embed"].numpy()).all()
