@@ -7,15 +7,21 @@ nothing of JAX or of the JAX package) and needs one CUDA device. Phases,
 one line each (details indented), any failure exits non-zero:
 
 1. env    — card name and power limit, CUDA and nvcc versions
-2. build  — nvcc builds both kernels from ``src/repro_torch/csrc`` in parallel
+2. build  — nvcc builds the kernel sources of ``src/repro_torch/csrc`` in
+   parallel (msb_matmul; paged_attention, which holds kernels B and C)
 3. msb_matmul vs its plain version at the main path's shapes, with times
 4. paged_attention_decode vs its plain version on a full-width bf16 pool
-5. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
-   the card, pack, ContinuousEngine at decode_horizon 8 and 1; both
-   kernels' launch counters are zeroed just before the horizon-8 run and
-   must be non-zero after it
-6. kernel path vs plain path — smoke internlm2 served on the card and on
-   the CPU from the same weights
+5. paged_attention_decode_quant vs its plain version on full-width 8- and
+   4-bit quantized pools
+6. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
+   the card, pack, ContinuousEngine at decode_horizon 8 and 1 over kv16
+   pools; the kernels' launch counters are zeroed just before the
+   horizon-8 run and those of its path must be non-zero after it
+7. serve kv8/kv4 — the same packed weights and requests over MSB-quantized
+   KV pools (kv_bits 8, then 4) at decode_horizon 8 and 1, counters zeroed
+   before each horizon-8 run; commit cost and a kv4 decode-step profile
+8. kernel path vs plain path — smoke internlm2 served on the card and on
+   the CPU from the same weights, at kv_bits 16, 8 and 4
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
@@ -239,6 +245,109 @@ def phase_paged_attention(torch, timer, device):
     return rows
 
 
+def rand_quant_pools(torch, gen, bits, n_pages, n_hot, ps, kv, d, device):
+    """Random codes and codebooks of quantized pools in the layout of
+    ``KVQuantSpec`` (sorted positive bf16 codebooks at 4 bits, positive
+    f32 absmax at 8), and random bf16 hot rows."""
+    from repro_torch.core.quantize import KVQuantSpec
+    spec = KVQuantSpec(bits, ps, kv, d)
+    out = []
+    for _ in ("k", "v"):
+        codes = torch.randint(0, 256, (n_pages,) + spec.codes_tail,
+                              generator=gen, device=device,
+                              dtype=torch.int32).to(torch.uint8)
+        codes = codes.view(spec.code_dtype)
+        if bits == 8:
+            codes = torch.clamp(codes, min=-127)
+        sc = torch.rand((n_pages,) + spec.scales_tail, generator=gen,
+                        device=device) * 3.0
+        sc = torch.sort(sc, dim=-1).values.to(spec.scale_dtype)
+        out += [codes.contiguous(), sc.contiguous()]
+    for _ in ("k", "v"):
+        out.append(torch.randn((n_hot, ps, kv, d), generator=gen,
+                               device=device).to(torch.bfloat16))
+    return out, spec
+
+
+def phase_paged_attention_quant(torch, timer, device):
+    from repro_torch.kernels.paged_attention import ops, ref
+    gen = torch.Generator(device=device).manual_seed(3)
+    h, kv, d, ps = 16, 8, 128, 16
+    lens = [0, 1, 17, 100, 513, 1000, 1999, 2048]
+    b = len(lens)
+    max_pages = 2048 // ps
+    n_pages = 1 + b * max_pages
+    rows = []
+    for bits in (8, 4):
+        (kc, ks, vc, vs, kh, vh), spec = rand_quant_pools(
+            torch, gen, bits, n_pages, b + 1, ps, kv, d, device)
+        perm = torch.randperm(n_pages - 1, generator=gen, device=device) + 1
+        bt = perm[:b * max_pages].reshape(b, max_pages).to(torch.int32)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=device)
+        hot_rows = torch.arange(1, b + 1, dtype=torch.int32, device=device)
+        q = torch.randn((b, h, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        args = (q, kc, ks, vc, vs, kh, vh, bt, kv_lens, hot_rows)
+        err = 0.0
+        for softcap in (0.0, 30.0):
+            out = ops.paged_attention_decode_quant(*args, kv_bits=bits,
+                                                   softcap=softcap)
+            out_ref = ref.paged_attention_decode_quant_ref(
+                *args, kv_bits=bits, softcap=softcap)
+            torch.cuda.synchronize()
+            e = (out.float() - out_ref.float()).abs().max().item()
+            if not e <= 2e-2:
+                fail(f"paged_attention_quant kv{bits} lens={lens} softcap="
+                     f"{softcap}: max err {e} > 2e-2")
+            if out[0].abs().max().item() != 0.0:
+                fail("paged_attention_quant: zero-length rows are not "
+                     "exactly 0")
+            err = max(err, e)
+        ms = timer(lambda: ops.paged_attention_decode_quant(*args,
+                                                            kv_bits=bits))
+        plain = timer(lambda: ref.paged_attention_decode_quant_ref(
+            *args, kv_bits=bits), reps=3)
+        # library yardstick: one SDPA call on a pre-dequantized, pre-gathered
+        # cache (the dequant and gather are not timed)
+        s = max(lens)
+        n_full = kv_lens // ps
+        kg = ref.quant_gather(kc, ks, kh, bt, n_full, hot_rows, bits)
+        vg = ref.quant_gather(vc, vs, vh, bt, n_full, hot_rows, bits)
+        kg = kg[:, :s].transpose(1, 2).contiguous()
+        vg = vg[:, :s].transpose(1, 2).contiguous()
+        mask = (torch.arange(s, device=device)[None, :]
+                < kv_lens[:, None])[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = timer(lambda: sdpa(q[:, :, None], kg, vg, attn_mask=mask,
+                                 enable_gqa=True))
+        del kg, vg
+        # bytes the function needs: committed positions as codes (+ one
+        # codebook row per touched group), frontier positions from the bf16
+        # hot rows, q, out, the used block-table entries and the lengths
+        dc = spec.codes_tail[-1]
+        sb = 4 if bits == 8 else 2
+        nbytes = q.numel() * 2 * 2 + b * 4 * 2
+        for n in lens:
+            committed = min(n, (n // ps) * ps)
+            groups = -(-committed // spec.tokens_per_block)
+            nbytes += 2 * kv * (committed * dc + groups * spec.n_levels * sb
+                                + (n - committed) * d * 2)
+            nbytes += -(-n // ps) * 4
+        b_ms, b_by = bound(nbytes, 4.0 * sum(lens) * h * d, "bfloat16")
+        row = dict(bits=bits, shape=f"kv{bits} B={b} H={h} KV={kv} d={d} "
+                   f"ps={ps} bf16 hot kv_lens={lens}", max_abs_err=err,
+                   ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                   bound_by=b_by)
+        rows.append(row)
+        log(f"  paged_attention_quant {row['shape']}: err {err:.3g} kernel "
+            f"{ms:.4f} ms | plain {plain:.4f} | library (SDPA, pre-dequantized"
+            f" pre-gathered) {lib:.4f} | bound {b_ms:.4f} ({b_by})")
+        del args, kc, ks, vc, vs, kh, vh
+    log(f"[paged_attention_quant] {len(rows)} cases agree with the plain "
+        "version (tol 2e-2 abs; zero-length rows exactly 0)")
+    return rows
+
+
 def next_logits(torch, model, params, tokens, device, ps=16):
     """Last-position logits of one plain prefill of ``tokens`` on fresh
     pools (for the near-tie gap of a divergence)."""
@@ -308,8 +417,6 @@ def run_engine(engine, prompts, first_alone, max_new):
 def phase_serve(torch, device):
     from repro_torch.configs import get_config
     from repro_torch.core import QuantPolicy, pack_params, quantize_params
-    from repro_torch.kernels.msb_matmul import ops as mm_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models import Model
     from repro_torch.serve import ContinuousEngine
     cfg = get_config("internlm2-1.8b")
@@ -345,50 +452,12 @@ def phase_serve(torch, device):
     prompts += [rng.integers(0, cfg.vocab_size, n) for n in lens[2:]]
     prompts = [p.astype(np.int32) for p in prompts]
     max_new = 32
-    results = {}
-    counts = {}
     engine_kw = dict(max_batch=8, page_size=16, num_pages=1024,
                      prefill_chunk=128, max_seq=1024)
-    # one short untimed request first: lazy CUDA/library set-up stays out
-    # of the timed runs
-    warm = ContinuousEngine(model, packed, **engine_kw)
-    run_engine(warm, prompts[2:3], False, 2)
-    del warm
-    for horizon in (8, 1):
-        eng = ContinuousEngine(model, packed, decode_horizon=horizon,
-                               **engine_kw)
-        if horizon == 8:
-            mm_ops.msb_matmul.launches = 0
-            pa_ops.paged_attention_decode.launches = 0
-        t0 = time.perf_counter()
-        out, t_pre, t_dec = run_engine(eng, prompts, True, max_new)
-        wall = time.perf_counter() - t0
-        if horizon == 8:
-            counts = {"msb_matmul": mm_ops.msb_matmul.launches,
-                      "paged_attention_decode":
-                          pa_ops.paged_attention_decode.launches}
-        if sorted(out) != list(range(len(prompts))) or any(
-                len(t) != max_new for t in out.values()):
-            fail(f"serve H={horizon}: not every request returned {max_new} "
-                 "tokens")
-        hits = eng.n_prefix_hits
-        saved = eng.n_prefix_positions_saved
-        eng.close()
-        eng.cache.check_invariants(expect_idle=True)
-        if hits < 1:
-            fail(f"serve H={horizon}: no prefix-cache hit")
-        pre_tok = sum(len(p) for p in prompts) - saved
-        dec_tok = len(prompts) * (max_new - 1)
-        log(f"  H={horizon}: {wall:.2f} s wall, prefill {pre_tok} tokens in "
-            f"{t_pre:.3f} s = {pre_tok / t_pre:.1f} tok/s, decode {dec_tok} "
-            f"tokens in {t_dec:.3f} s = {dec_tok / t_dec:.1f} tok/s, prefix "
-            f"hits {hits} ({saved} positions saved), decode dispatches "
-            f"{eng.n_decode_steps}")
-        results[horizon] = out
-        del eng
-    log(f"  launches in the H=8 run: {counts}")
-    if not all(v > 0 for v in counts.values()):
-        fail(f"serve: a kernel of the main path never launched: {counts}")
+    results, counts, kv_bytes = serve_horizons(
+        model, packed, prompts, engine_kw, max_new, 16,
+        ("msb_matmul", "paged_attention_decode"))
+    log(f"  kv16 pools: {kv_bytes / 1e9:.3f} GB")
     compare_tokens(torch, "H=8 vs H=1", results[8], results[1], prompts,
                    model, packed, device)
     profile_decode(torch, ContinuousEngine(model, packed, **engine_kw),
@@ -396,7 +465,150 @@ def phase_serve(torch, device):
     log(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.3f} GB in "
         f"use, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     log("[serve] ok: all requests 32 tokens, prefix hit, clean page audit")
+    return counts, dict(model=model, packed=packed, prompts=prompts,
+                        engine_kw=engine_kw, max_new=max_new)
+
+
+def pool_bytes(pools):
+    return sum(t.numel() * t.element_size() for _, t in _leaves(pools))
+
+
+def zero_launch_counters():
+    from repro_torch.kernels.msb_matmul import ops as mm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    mm_ops.msb_matmul.launches = 0
+    pa_ops.paged_attention_decode.launches = 0
+    pa_ops.paged_attention_decode_quant.launches = 0
+
+
+def read_launch_counters():
+    from repro_torch.kernels.msb_matmul import ops as mm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    return {"msb_matmul": mm_ops.msb_matmul.launches,
+            "paged_attention_decode": pa_ops.paged_attention_decode.launches,
+            "paged_attention_decode_quant":
+                pa_ops.paged_attention_decode_quant.launches}
+
+
+def serve_horizons(model, packed, prompts, engine_kw, max_new, kv_bits,
+                   path_kernels):
+    """One untimed warm-up request, then all ``prompts`` at decode_horizon 8
+    and 1 (the first alone until its prompt is cached, so the second hits
+    the prefix cache). Launch counters are zeroed just before the H=8 run
+    and read just after; ``path_kernels`` must all have launched. Returns
+    ({horizon: outputs}, H=8 launch counts, pool bytes)."""
+    from repro_torch.serve import ContinuousEngine
+    # lazy CUDA/library set-up stays out of the timed runs
+    run_engine(ContinuousEngine(model, packed, kv_bits=kv_bits, **engine_kw),
+               prompts[2:3], False, 2)
+    results = {}
+    for horizon in (8, 1):
+        eng = ContinuousEngine(model, packed, decode_horizon=horizon,
+                               kv_bits=kv_bits, **engine_kw)
+        if horizon == 8:
+            zero_launch_counters()
+        t0 = time.perf_counter()
+        out, t_pre, t_dec = run_engine(eng, prompts, True, max_new)
+        wall = time.perf_counter() - t0
+        if horizon == 8:
+            counts = read_launch_counters()
+            kv_bytes = pool_bytes(eng.cache.pools)
+        name = f"kv{kv_bits} H={horizon}"
+        if sorted(out) != list(range(len(prompts))) or any(
+                len(t) != max_new for t in out.values()):
+            fail(f"serve {name}: not every request returned {max_new} "
+                 "tokens")
+        hits = eng.n_prefix_hits
+        saved = eng.n_prefix_positions_saved
+        eng.close()
+        eng.cache.check_invariants(expect_idle=True)
+        if hits < 1:
+            fail(f"serve {name}: no prefix-cache hit")
+        pre_tok = sum(len(p) for p in prompts) - saved
+        dec_tok = len(prompts) * (max_new - 1)
+        log(f"  {name}: {wall:.2f} s wall, prefill {pre_tok} tokens in "
+            f"{t_pre:.3f} s = {pre_tok / t_pre:.1f} tok/s, decode {dec_tok} "
+            f"tokens in {t_dec:.3f} s = {dec_tok / t_dec:.1f} tok/s, prefix "
+            f"hits {hits} ({saved} positions saved), decode dispatches "
+            f"{eng.n_decode_steps}")
+        results[horizon] = out
+        del eng
+    log(f"  kv{kv_bits} launches in the H=8 run: {counts}")
+    if not all(counts[k] > 0 for k in path_kernels):
+        fail(f"serve kv{kv_bits}: a kernel of the path never launched: "
+             f"{counts}")
+    return results, counts, kv_bytes
+
+
+def phase_serve_quant(torch, device, ctx):
+    """Phase 6's packed weights and requests over quantized KV pools."""
+    from repro_torch.core.quantize import KVQuantSpec, kv_native_page_bytes
+    from repro_torch.serve import ContinuousEngine
+    model, packed, prompts = ctx["model"], ctx["packed"], ctx["prompts"]
+    engine_kw, max_new = ctx["engine_kw"], ctx["max_new"]
+    cfg = model.cfg
+    ps, kv, hd = engine_kw["page_size"], cfg.n_kv_heads, cfg.head_dim_
+    native = kv_native_page_bytes(ps, kv, hd, cfg.dtype)
+    counts = {}
+    for bits in (8, 4):
+        spec = KVQuantSpec(bits, ps, kv, hd)
+        results, counts[bits], kv_bytes = serve_horizons(
+            model, packed, prompts, engine_kw, max_new, bits,
+            ("msb_matmul", "paged_attention_decode_quant"))
+        log(f"  kv{bits} pools: {kv_bytes / 1e9:.3f} GB; per page per K-or-V "
+            f"per layer {spec.page_bytes()} B against {native} B native "
+            f"({native / spec.page_bytes():.2f}x)")
+        if bits == 4:
+            for rid in results[8]:
+                if not np.array_equal(results[8][rid], results[1][rid]):
+                    fail(f"kv4: request {rid} differs between H=8 and H=1: "
+                         f"{results[8][rid]} vs {results[1][rid]}")
+            log("  kv4 H=8 vs H=1: tokens identical")
+        else:
+            compare_tokens(torch, f"kv{bits} H=8 vs H=1", results[8],
+                           results[1], prompts, model, packed, device)
+    time_commit(torch, device, model, engine_kw)
+    profile_decode(torch, ContinuousEngine(model, packed, kv_bits=4,
+                                           **engine_kw), prompts, max_new)
+    log("[serve kv8/kv4] ok: all requests 32 tokens, prefix hits, clean page "
+        "audits, kernel C launched")
     return counts
+
+
+def time_commit(torch, device, model, engine_kw, b=8, reps=10):
+    """Wall ms of one layer's quantized write (hot write + commit-quantize
+    of one candidate page per row, as a B=8 decode step does it), times the
+    layer count: the commit's cost per decode step."""
+    from repro_torch.models.attention import paged_write_quant
+    cfg = model.cfg
+    ps = engine_kw["page_size"]
+    pools = model.init_paged_pools(64, ps, kv_bits=4, max_seqs=b,
+                                   device=device)
+    cache = {k: v[0] for k, v in pools["layers"]["s0"]["attn"].items()}
+    gen = torch.Generator(device=device).manual_seed(4)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    k = torch.randn((b, 1, kv, hd), generator=gen, device=device).to(
+        cfg.dtype)
+    bt = torch.arange(1, 1 + b * 4, dtype=torch.int32,
+                      device=device).reshape(b, 4)
+    lens = torch.full((b,), 2 * ps, dtype=torch.int32, device=device)
+    q_pos = (lens - 1)[:, None]
+    slots = torch.arange(b, dtype=torch.int32, device=device)
+    for _ in range(2):
+        paged_write_quant(cache, k, k, bt, q_pos, lens, slots, 4)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        paged_write_quant(cache, k, k, bt, q_pos, lens, slots, 4)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    log(f"  kv4 commit (B={b} decode, one layer): {ms:.3f} ms wall, x "
+        f"{cfg.n_layers} layers = {ms * cfg.n_layers:.2f} ms per decode step;"
+        f" peak extra memory {peak:.1f} MB")
+    del pools, cache
 
 
 def profile_decode(torch, engine, prompts, max_new, n_steps=4):
@@ -464,21 +676,22 @@ def phase_paths(torch):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 9, 17, 30)]
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        eng = ContinuousEngine(model, qparams, max_batch=4, page_size=4,
-                               num_pages=96, max_seq=64, decode_horizon=4,
-                               device=dev)
-        for p in prompts:
-            eng.submit(p, 16)
-        outs[dev] = eng.run()
-        eng.close()
     from repro_torch.core import pack_params
     packed_cpu, _ = pack_params(qparams, device="cpu")
-    compare_tokens(torch, "cuda vs cpu", outs["cuda"], outs["cpu"], prompts,
-                   model, packed_cpu, "cpu")
+    for bits in (16, 8, 4):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            eng = ContinuousEngine(model, qparams, max_batch=4, page_size=4,
+                                   num_pages=96, max_seq=64, decode_horizon=4,
+                                   kv_bits=bits, device=dev)
+            for p in prompts:
+                eng.submit(p, 16)
+            outs[dev] = eng.run()
+            eng.close()
+        compare_tokens(torch, f"kv{bits} cuda vs cpu", outs["cuda"],
+                       outs["cpu"], prompts, model, packed_cpu, "cpu")
     log("[paths] smoke internlm2 on the kernel path (cuda) and the plain "
-        "path (cpu): greedy tokens agree")
+        "path (cpu) at kv_bits 16, 8 and 4: greedy tokens agree")
 
 
 def main():
@@ -496,13 +709,17 @@ def main():
     timer = Timer(torch, device)
     mm_rows = phase_msb_matmul(torch, timer, device)
     pa_rows = phase_paged_attention(torch, timer, device)
+    paq_rows = phase_paged_attention_quant(torch, timer, device)
     del timer
-    counts = phase_serve(torch, device)
+    counts, ctx = phase_serve(torch, device)
+    q_counts = phase_serve_quant(torch, device, ctx)
+    del ctx
     phase_paths(torch)
     # representative rows: the decode shapes of the main path
     mm = next(r for r in mm_rows if (r["m"], r["k"], r["n"]) == (8, 2048,
                                                                    8192))
     pa = pa_rows[-1]
+    paq = next(r for r in paq_rows if r["bits"] == 4)
     kernels = [
         dict(name="msb_matmul", route="cuda",
              source="src/repro_torch/csrc/msb_matmul.cu",
@@ -521,6 +738,15 @@ def main():
              ms=pa["ms"], plain_ms=pa["plain_ms"], bound_ms=pa["bound_ms"],
              bound_by=pa["bound_by"], library_ms=pa["library_ms"],
              shape=pa["shape"]),
+        dict(name="paged_attention_decode_quant", route="cuda",
+             source="src/repro_torch/csrc/paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention/"
+                      "paged_attention.py:142",
+             launches=q_counts[4]["paged_attention_decode_quant"],
+             max_abs_err=max(r["max_abs_err"] for r in paq_rows),
+             ms=paq["ms"], plain_ms=paq["plain_ms"],
+             bound_ms=paq["bound_ms"], bound_by=paq["bound_by"],
+             library_ms=paq["library_ms"], shape=paq["shape"]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)

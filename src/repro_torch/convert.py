@@ -1,7 +1,10 @@
-"""Carry a params tree of the JAX package across to the port.
+"""Carry a params or page-pool tree of the JAX package across to the port.
 
 ``from_reference(tree, device)`` turns the reference's params tree (nested
-dicts of arrays and ``QTensor`` / ``PackedQTensor`` leaves) into the port's.
+dicts of arrays and ``QTensor`` / ``PackedQTensor`` leaves) into the port's,
+and a page-pool tree from ``Model.init_paged_pools`` into the port's pools
+with each leaf's dtype kept (kv16 pools; or int8/uint8 codes, f32/bf16
+scales and hot rows of quantized ones).
 Leaves are duck-typed on their attributes — ``codes/scales/bits/block`` or
 ``packed/scales/n/kblocked`` — and read with ``numpy.asarray``, so this
 module imports neither ``jax`` nor ``repro``. bf16 arrays come out of numpy
@@ -37,8 +40,8 @@ def to_tensor(a, device) -> torch.Tensor:
 
 
 def from_reference(tree, device=None):
-    """The reference's params tree as the port's, on ``device`` (``None``
-    = the card)."""
+    """The reference's params (or page-pool) tree as the port's, on
+    ``device`` (``None`` = the card)."""
     dev = resolve_device(device)
 
     def visit(node):

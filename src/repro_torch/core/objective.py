@@ -14,18 +14,22 @@ def _cumsum(v):
     sequential within blocks of 16, block totals carried sequentially —
     the order XLA's CPU cumsum uses, so the solver's scales come out
     bit-identical to the reference's (``torch.cumsum`` sums in another
-    order). Loops run over the 16 block positions and the blocks,
-    vectorized over everything else."""
+    order). Loops run over the 16 block positions, then over the blocks,
+    vectorized over everything else (every block at once in the first)."""
     n = v.shape[-1]
-    out = torch.empty_like(v)
-    carry = torch.zeros_like(v[..., 0])
-    for s in range(0, n, _SCAN_BLOCK):
-        acc = torch.zeros_like(carry)
-        for k in range(s, min(s + _SCAN_BLOCK, n)):
-            acc = acc + v[..., k]
-            out[..., k] = carry + acc
-        carry = carry + acc
-    return out
+    n_blk = -(-n // _SCAN_BLOCK)
+    vb = torch.nn.functional.pad(v, (0, n_blk * _SCAN_BLOCK - n)).reshape(
+        *v.shape[:-1], n_blk, _SCAN_BLOCK)
+    acc = torch.empty_like(vb)
+    run = torch.zeros_like(vb[..., 0])
+    for k in range(_SCAN_BLOCK):
+        run = run + vb[..., k]
+        acc[..., k] = run
+    carry = torch.zeros_like(run[..., 0])
+    for b in range(n_blk):
+        acc[..., b, :] += carry[..., None]
+        carry = carry + run[..., b]
+    return acc.reshape(*v.shape[:-1], n_blk * _SCAN_BLOCK)[..., :n]
 
 
 def prefix_sums(sorted_mags):

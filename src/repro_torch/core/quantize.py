@@ -18,6 +18,7 @@ params tree of dicts, tensors and these leaves.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -233,3 +234,173 @@ def packed_gather(pq: PackedQTensor, idx):
     lv = level.reshape(*level.shape[:-1], n_pad // PACK_BLOCK, PACK_BLOCK)
     mag = torch.gather(srow, -1, lv).reshape(level.shape)
     return (sign * mag)[..., :pq.n].to(pq.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV-page codec (serving path; DESIGN.md Sec. 15)
+#
+# Port of ``repro.core.quantize``'s KV codec: MSB block-wise quantization of
+# *committed* KV-cache pages. One (page_size, head_dim) payload per KV head
+# splits into groups of at most KV_BLOCK elements covering whole token rows,
+# each with its own codebook (4-bit: an 8-entry codebook from the exact DP;
+# 8-bit: one absmax with sign-magnitude int8 codes). Codes and scales are
+# byte-identical to the reference's on tie-free inputs.
+# ---------------------------------------------------------------------------
+
+KV_BLOCK = 128       # max elements per KV quantization group
+# Blocks per DP solve in the 4-bit commit: at a 128-element group each
+# block's (n+1)^2 f32 cost tensor is 66.6 KB and about six such tensors are
+# alive at once, so 4096 blocks bound a solve at ~1.6 GB.
+KV_DP_CHUNK = 4096
+
+
+def _kv_tokens_per_block(page_size, head_dim):
+    """Token rows per group: whole-hd rows, <= KV_BLOCK elements, dividing
+    the page."""
+    tpb = max(1, min(int(page_size), KV_BLOCK // int(head_dim)))
+    while page_size % tpb:
+        tpb -= 1
+    return tpb
+
+
+@dataclasses.dataclass(frozen=True)
+class KVQuantSpec:
+    """Shape/byte schema of a quantized KV page pool. ``kv_heads`` is the
+    head count of the pool (grouping is per head)."""
+    bits: int            # 8 or 4 (16 = unquantized native pools, no spec)
+    page_size: int
+    kv_heads: int
+    head_dim: int
+
+    def __post_init__(self):
+        if self.bits not in (4, 8):
+            raise ValueError(f"kv_bits must be 4 or 8, got {self.bits}")
+        if self.bits == 4 and self.head_dim % 2:
+            raise ValueError("4-bit KV packing needs an even head_dim")
+
+    @property
+    def tokens_per_block(self):
+        return _kv_tokens_per_block(self.page_size, self.head_dim)
+
+    @property
+    def block(self):
+        return self.tokens_per_block * self.head_dim
+
+    @property
+    def n_blocks(self):
+        return self.page_size // self.tokens_per_block
+
+    @property
+    def n_levels(self):
+        return 2 ** (self.bits - 1) if self.bits == 4 else 1
+
+    @property
+    def code_dtype(self):
+        return torch.uint8 if self.bits == 4 else torch.int8
+
+    @property
+    def codes_tail(self):
+        """Trailing dims of the codes leaf for one page."""
+        hd = self.head_dim // 2 if self.bits == 4 else self.head_dim
+        return (self.page_size, self.kv_heads, hd)
+
+    @property
+    def scales_tail(self):
+        return (self.kv_heads, self.n_blocks, self.n_levels)
+
+    @property
+    def scale_dtype(self):
+        # 4-bit keeps 16-bit codebook entries; the 8-bit absmax is one f32
+        # per group
+        return torch.bfloat16 if self.bits == 4 else torch.float32
+
+    def page_bytes(self):
+        """Allocated bytes per page per K-or-V tensor (one layer period)."""
+        codes = math.prod(self.codes_tail)
+        scales = (math.prod(self.scales_tail)
+                  * torch.empty(0, dtype=self.scale_dtype).element_size())
+        return codes + scales
+
+
+def kv_native_page_bytes(page_size, kv_heads, head_dim, dtype):
+    """Pool bytes per page per K-or-V tensor at ``kv_bits=16`` (native)."""
+    return (int(page_size) * int(kv_heads) * int(head_dim)
+            * torch.empty(0, dtype=dtype).element_size())
+
+
+def _kv_to_blocks(x, tpb):
+    """(..., ps, kv, hd) -> (..., kv, n_blocks, tpb*hd)."""
+    *lead, ps, kv, hd = x.shape
+    y = x.reshape(*lead, ps // tpb, tpb, kv, hd)
+    y = torch.movedim(y, -2, -4)                 # (..., kv, nb, tpb, hd)
+    return y.reshape(*lead, kv, ps // tpb, tpb * hd)
+
+
+def _kv_from_blocks(y, tpb, head_dim):
+    """(..., kv, n_blocks, tpb*hd) -> (..., ps, kv, hd)."""
+    *lead, kv, nb, _ = y.shape
+    y = y.reshape(*lead, kv, nb, tpb, head_dim)
+    y = torch.movedim(y, -4, -2)                 # (..., nb, tpb, kv, hd)
+    return y.reshape(*lead, nb * tpb, kv, head_dim)
+
+
+def kv_quantize_pages(x, bits):
+    """Quantize KV pages. x: (..., page_size, KV, head_dim) f32/bf16.
+
+    Returns ``(codes, scales)``:
+      * 4-bit: codes uint8 (..., ps, KV, hd//2) — two nibbles per byte,
+        ``(sign << 3) | level`` with element 2i in the low nibble; scales
+        bf16 (..., KV, n_blocks, 8), the per-group DP codebook (solved in
+        f32, rounded to bf16 after the solve).
+      * 8-bit: codes int8 (..., ps, KV, hd) ``round(x * 127 / absmax)``;
+        scales f32 (..., KV, n_blocks, 1) holding the group absmax.
+
+    Both come back contiguous. Deterministic: the same page bytes give the
+    same code bytes.
+    """
+    *lead, ps, kv, hd = x.shape
+    tpb = _kv_tokens_per_block(ps, hd)
+    nb, blk = ps // tpb, tpb * hd
+    blocks = _kv_to_blocks(x.to(torch.float32), tpb)     # (..., kv, nb, blk)
+    if bits == 8:
+        amax = torch.amax(torch.abs(blocks), dim=-1, keepdim=True)
+        q = torch.clamp(torch.round(
+            blocks * (127.0 / torch.clamp(amax, min=1e-30))), -127.0, 127.0)
+        codes = _kv_from_blocks(q, tpb, hd).to(torch.int8)
+        return codes.contiguous(), amax.contiguous()
+    if bits != 4:
+        raise ValueError(f"kv_bits must be 4 or 8, got {bits}")
+    g = 8
+    levels, scales = grouping.solve_blocks(blocks.reshape(-1, blk), g,
+                                           method="dp", chunk=KV_DP_CHUNK)
+    levels = levels.reshape(blocks.shape)
+    scales = scales.reshape(*lead, kv, nb, g).to(torch.bfloat16)
+    nib = torch.where(blocks < 0, levels | 8, levels)   # sign<<3 | level
+    nib = _kv_from_blocks(nib, tpb, hd)                 # (..., ps, kv, hd)
+    pair = nib.reshape(*nib.shape[:-1], hd // 2, 2)
+    codes = ((pair[..., 1] << 4) | pair[..., 0]).to(torch.uint8)
+    return codes.contiguous(), scales.contiguous()
+
+
+
+def kv_dequantize_pages(codes, scales, bits, dtype):
+    """Inverse of ``kv_quantize_pages`` -> (..., ps, KV, hd) in ``dtype``."""
+    if bits == 8:
+        *_, ps, kv, hd = codes.shape
+        tpb = _kv_tokens_per_block(ps, hd)
+        blocks = _kv_to_blocks(codes.to(torch.float32), tpb)
+        out = blocks * (scales.to(torch.float32) / 127.0)
+        return _kv_from_blocks(out, tpb, hd).to(dtype)
+    if bits != 4:
+        raise ValueError(f"kv_bits must be 4 or 8, got {bits}")
+    *lead, ps, kv, hdc = codes.shape
+    hd = hdc * 2
+    tpb = _kv_tokens_per_block(ps, hd)
+    p32 = codes.to(torch.int32)
+    nib = torch.stack([p32 & 0xF, (p32 >> 4) & 0xF],
+                      dim=-1).reshape(*lead, ps, kv, hd)
+    nb_ = _kv_to_blocks(nib, tpb)                       # (..., kv, nb, blk)
+    level = (nb_ & 0x7).to(torch.int64)
+    sign = (1 - 2 * ((nb_ >> 3) & 1)).to(torch.float32)
+    mag = torch.gather(scales.to(torch.float32), -1, level)
+    return _kv_from_blocks(sign * mag, tpb, hd).to(dtype)

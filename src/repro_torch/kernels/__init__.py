@@ -3,7 +3,9 @@
 msb_matmul       — fused MSB 4-bit dequantize + matmul (every packed
                    projection and the k-blocked unembedding)
 paged_attention  — decode attention streaming KV pages via block tables
-                   (paged decode, and packed prefill one token per row)
+                   (paged decode, and packed prefill one token per row),
+                   over kv16 pools and, with the MSB dequant fused in,
+                   over 8|4-bit quantized pools
 
 Sources are CUDA C++ in ``repro_torch/csrc``, built by ``_build`` at first
 use. Each wrapper (``ops.py``) takes the plain version (``ref.py``) for CPU

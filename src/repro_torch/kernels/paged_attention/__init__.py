@@ -1,5 +1,7 @@
-from .ops import paged_attention_decode
-from .ref import attend_gathered, paged_attention_decode_ref
+from .ops import paged_attention_decode, paged_attention_decode_quant
+from .ref import (attend_gathered, paged_attention_decode_quant_ref,
+                  paged_attention_decode_ref)
 
 __all__ = ["attend_gathered", "paged_attention_decode",
+           "paged_attention_decode_quant", "paged_attention_decode_quant_ref",
            "paged_attention_decode_ref"]

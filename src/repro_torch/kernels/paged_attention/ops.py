@@ -1,10 +1,11 @@
-"""Wrapper of the paged-attention decode kernel.
+"""Wrappers of the paged-attention decode kernels.
 
-``paged_attention_decode`` dispatches on the tensor's device and nothing
-else: a CPU tensor takes the plain version
-(``ref.paged_attention_decode_ref``), a CUDA tensor launches the
-hand-written kernel (``csrc/paged_attention.cu``) or raises.
-``paged_attention_decode.launches`` counts kernel launches.
+``paged_attention_decode`` (kv16 pools) and ``paged_attention_decode_quant``
+(MSB-quantized pools) dispatch on the tensor's device and nothing else: a
+CPU tensor takes the plain version (``ref.py``), a CUDA tensor launches the
+hand-written kernel (the two entry points of ``csrc/paged_attention.cu``)
+or raises. Each wrapper's ``.launches``
+counts its kernel's launches.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import paged_attention_decode_ref
+from ...core.quantize import KVQuantSpec
+from .ref import paged_attention_decode_quant_ref, paged_attention_decode_ref
 
 _SMEM_MAX = 227 * 1024        # dynamic shared memory a block can use
 _THREADS, _ACC_MAX = 128, 8   # must match csrc/paged_attention.cu
@@ -96,3 +98,100 @@ def paged_attention_decode(q, k_pool, v_pool, block_tables, kv_lens, *,
 
 
 paged_attention_decode.launches = 0
+
+
+def _lib_quant():
+    fn = _build.load("paged_attention").paged_attention_decode_quant
+    if fn.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp] * 12 + [ci] * 8 + [cf, cf, ci, ci, vp]
+        fn.restype = ci
+    return fn
+
+
+def _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
+                  block_tables, kv_lens, hot_rows, kv_bits, n_full, softcap,
+                  scale):
+    what = "paged_attention_decode_quant"
+    b, h, d = q.shape
+    if k_hot.dim() != 4 or k_hot.shape != v_hot.shape:
+        raise ValueError(f"{what}: hot pools must both be (n_hot, page_size, "
+                         "KV, d)")
+    _, ps, kv, dk = k_hot.shape
+    if dk != d or h % kv:
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not fit hot pools "
+                         f"{tuple(k_hot.shape)}")
+    spec = KVQuantSpec(int(kv_bits), ps, kv, d)
+    n_pages = k_codes.shape[0]
+    for name, t, tail, dt in (
+            ("k_codes", k_codes, spec.codes_tail, spec.code_dtype),
+            ("v_codes", v_codes, spec.codes_tail, spec.code_dtype),
+            ("k_scales", k_scales, spec.scales_tail, spec.scale_dtype),
+            ("v_scales", v_scales, spec.scales_tail, spec.scale_dtype)):
+        if tuple(t.shape) != (n_pages,) + tail or t.dtype != dt:
+            raise ValueError(f"{what}: {name} must be {dt} "
+                             f"{(n_pages,) + tail} at kv_bits={kv_bits}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or \
+            k_hot.dtype != q.dtype or v_hot.dtype != q.dtype:
+        raise TypeError(f"{what}: q and hot pools must share one type, bf16 "
+                        "or f32")
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 or \
+            block_tables.shape[0] != b:
+        raise ValueError(f"{what}: block_tables must be int32 ({b}, "
+                         "max_pages)")
+    for name, t in (("kv_lens", kv_lens), ("n_full", n_full),
+                    ("hot_rows", hot_rows)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (b,):
+            raise ValueError(f"{what}: {name} must be int32 ({b},)")
+    rep = h // kv
+    if rep * d > _THREADS * _ACC_MAX:
+        raise ValueError(f"{what}: rep*d={rep * d} exceeds "
+                         f"{_THREADS * _ACC_MAX}")
+    if smem_bytes(rep, d, ps) > _SMEM_MAX:
+        raise ValueError(f"{what}: page too large for shared memory")
+    ts = (q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
+          block_tables, kv_lens, n_full, hot_rows)
+    if any(t.device != q.device for t in ts):
+        raise ValueError(f"{what}: all tensors must be on one device")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError(f"{what}: tensors must be contiguous")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    scale = float(scale if scale is not None else d ** -0.5)
+    err = _lib_quant()(
+        *(t.data_ptr() for t in ts), out.data_ptr(), b, h, kv, d, ps,
+        block_tables.shape[1], spec.tokens_per_block, spec.n_blocks,
+        scale, float(softcap), int(kv_bits), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, what)
+    paged_attention_decode_quant.launches += 1
+    return out
+
+
+def paged_attention_decode_quant(q, k_codes, k_scales, v_codes, v_scales,
+                                 k_hot, v_hot, block_tables, kv_lens,
+                                 hot_rows, *, kv_bits, n_full=None,
+                                 softcap=0.0, scale=None):
+    """Decode attention over MSB-quantized pools, one query token per row.
+    q: (B, H, d); k/v_codes (n_pages, ps, KV, d or d/2) int8|uint8;
+    k/v_scales (n_pages, KV, n_blocks, 1|8) f32|bf16; k/v_hot (n_hot, ps,
+    KV, d) in q's type; block_tables (B, max_pages) int32; kv_lens (B,)
+    int32 — row b attends to positions ``< kv_lens[b]``; hot_rows (B,)
+    int32 hot row of each row's frontier page; n_full (B,) int32 pages
+    read from the codes (default ``kv_lens // ps``; page ``n_full[b]`` is
+    the hot one). Returns (B, H, d); rows with kv_len 0 are exactly 0."""
+    if n_full is None:
+        n_full = torch.div(kv_lens, k_hot.shape[1], rounding_mode="floor")
+    if q.is_cuda:
+        return _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot,
+                             v_hot, block_tables, kv_lens, hot_rows, kv_bits,
+                             n_full, softcap, scale)
+    return paged_attention_decode_quant_ref(
+        q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot, block_tables,
+        kv_lens, hot_rows, kv_bits=kv_bits, n_full=n_full, softcap=softcap,
+        scale=scale)
+
+
+paged_attention_decode_quant.launches = 0

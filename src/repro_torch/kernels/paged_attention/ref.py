@@ -1,15 +1,18 @@
-"""Plain PyTorch version of the paged-attention decode kernel.
+"""Plain PyTorch versions of the paged-attention decode kernels.
 
 Port of ``repro.kernels.paged_attention.ref`` and of the gather attention
-it wraps (``repro.models.attention.paged_attention`` / ``_attend_gathered``):
-the pages are gathered into a (B, S_max, KV, d) copy and attended with a
-masked softmax. One deliberate difference from the reference: a row with
-``kv_len == 0`` (a pad row, all keys masked) returns exactly 0, as the
-kernel does, where the reference returns the mean of V.
+it wraps (``repro.models.attention.paged_attention`` / ``_attend_gathered``
+/ ``paged_attention_quant``): the pages are gathered (and, for quantized
+pools, dequantized to the hot pools' type) into a (B, S_max, KV, d) copy
+and attended with a masked softmax. One deliberate difference from the
+reference: a row with ``kv_len == 0`` (a pad row, all keys masked) returns
+exactly 0, as the kernels do, where the reference returns the mean of V.
 """
 from __future__ import annotations
 
 import torch
+
+from ...core.quantize import kv_dequantize_pages
 
 _NEG_INF = -2.0e38
 
@@ -57,6 +60,48 @@ def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, kv_lens, *,
     b = q.shape[0]
     k = k_pool[bt].reshape(b, -1, k_pool.shape[2], k_pool.shape[3])
     v = v_pool[bt].reshape(k.shape)
+    q_pos = (kv_lens.to(torch.int64) - 1).reshape(-1, 1)
+    out = attend_gathered(q[:, None], k, v, q_pos, kv_lens, softcap=softcap,
+                          scale=scale)[:, 0]
+    return torch.where((kv_lens > 0)[:, None, None], out,
+                       torch.zeros_like(out))
+
+
+def quant_gather(codes, scales, hot, block_tables, n_full, hot_rows, kv_bits):
+    """Gathered K or V of quantized pools, in the hot pools' type:
+    (B, max_pages * ps, KV, d). Page j of row b is dequantized from the
+    codes pool when ``j < n_full[b]`` and read from hot row ``hot_rows[b]``
+    when ``j == n_full[b]`` (later pages are dequantized too; the mask
+    hides them). Port of the gather in the reference's
+    ``paged_attention_quant``."""
+    bt = block_tables.to(torch.int64)
+    b, mp = bt.shape
+    ps, kv, d = hot.shape[1:]
+    deq = kv_dequantize_pages(codes[bt], scales[bt], kv_bits,
+                              hot.dtype).reshape(b, mp * ps, kv, d)
+    kpos = torch.arange(mp * ps, device=hot.device)
+    in_hot = ((kpos[None, :] // ps) == n_full.to(torch.int64)[:, None])
+    hot_kv = hot[hot_rows.to(torch.int64)][:, kpos % ps]
+    return torch.where(in_hot[..., None, None], hot_kv, deq)
+
+
+def paged_attention_decode_quant_ref(q, k_codes, k_scales, v_codes, v_scales,
+                                     k_hot, v_hot, block_tables, kv_lens,
+                                     hot_rows, *, kv_bits, n_full=None,
+                                     softcap=0.0, scale=None):
+    """Plain version of the fused-dequant decode kernel. q: (B, H, d), one
+    query token per row at position ``kv_len - 1``; codes/scales/hot pools
+    as ``models.attention`` lays them out; ``hot_rows`` (B,) = slot + 1
+    (0 = scratch); ``n_full`` (B,) committed pages per row, default
+    ``kv_lens // page_size`` (packed prefill passes its segment's
+    frontier). Returns (B, H, d); rows with ``kv_len == 0`` are 0."""
+    ps = k_hot.shape[1]
+    if n_full is None:
+        n_full = kv_lens // ps
+    k = quant_gather(k_codes, k_scales, k_hot, block_tables, n_full,
+                     hot_rows, kv_bits)
+    v = quant_gather(v_codes, v_scales, v_hot, block_tables, n_full,
+                     hot_rows, kv_bits)
     q_pos = (kv_lens.to(torch.int64) - 1).reshape(-1, 1)
     out = attend_gathered(q[:, None], k, v, q_pos, kv_lens, softcap=softcap,
                           scale=scale)[:, 0]

@@ -1,4 +1,4 @@
-"""Paged attention over a global K/V page pool (kv16 pools).
+"""Paged attention over a global K/V page pool (kv16 and quantized pools).
 
 Port of the paged part of ``repro.models.attention``. Pools are
 ``(n_pages, page_size, KV, d)``; position i of sequence b lives at
@@ -6,7 +6,8 @@ Port of the paged part of ``repro.models.attention``. Pools are
 allocator's scratch page, where pad tokens (``q_pos == -1``) write.
 
 Unlike the reference's pure functions, the writes here update the pools
-*in place* and return the same tensors.
+*in place* and return the same tensors (the quantized writes return the
+same ``cache`` dict).
 
 Attention always goes through the ``paged_attention_decode`` wrapper: every
 query token becomes a one-token row with its own block-table row and
@@ -23,7 +24,9 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.paged_attention.ops import paged_attention_decode
+from ..core.quantize import kv_quantize_pages
+from ..kernels.paged_attention.ops import (paged_attention_decode,
+                                           paged_attention_decode_quant)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, q_pos, kv_lens, *,
@@ -99,4 +102,178 @@ def paged_attention_packed(q, k_pool, v_pool, block_tables, seg_ids, q_pos,
     out = paged_attention(q[0][:, None], k_pool, v_pool, bt_tok,
                           q_pos[0][:, None], lens_tok, window=window,
                           softcap=softcap, scale=scale)
+    return out[:, 0][None]
+
+
+# ---------------------------------------------------------------------------
+# Quantized page pools (kv_bits 8|4; DESIGN.md Sec. 15)
+#
+# Dual-pool layout per layer period:
+#   k_codes/v_codes   (n_pages, ps, KV, hd or hd//2)  packed committed pages
+#   k_scales/v_scales (n_pages, KV, n_blocks, G)      per-page codebooks
+#   k_hot/v_hot       (max_seqs+1, ps, KV, hd)        full-precision partial
+#                                                     pages, row slot + 1
+# Writes land in the row's hot row; every page a dispatch *completes* is
+# quantized in the same dispatch and scattered into the packed pools (page
+# 0 and hot row 0 are the scratch of pad rows). Attention reads committed
+# pages through the fused-dequant kernel and the frontier page from the
+# hot row. Both writes and reads are per token, so the unpacked (B, T)
+# batch and the packed (1, T) row share one implementation.
+# ---------------------------------------------------------------------------
+
+
+def _write_quant(cache, k_src, v_src, tok_row, tok_pos, block_tables,
+                 kv_lens, slots, base, n_valid, row_len, kv_bits):
+    """Hot write + commit-time quantization, in place, over a flat token
+    list. k_src/v_src (N, KV, hd) roped K/V; tok_row/tok_pos (N,) each
+    token's batch row and absolute position (-1 = pad); per row (R,):
+    kv_lens (length incl. this dispatch), slots (-1 = pad row), base (flat
+    index of the row's first token), n_valid (its token count); row_len
+    the most tokens a row can carry (T).
+
+    A row completes at most ``n_valid // ps + 1`` pages, so at most
+    ``N // ps + R`` of the ``R * (T // ps + 1)`` candidate pages the
+    reference quantizes are real commits; a stable sort on the device
+    moves the completed ones first and only that many are quantized (no
+    host sync, same committed bytes)."""
+    k_hot, v_hot = cache["k_hot"], cache["v_hot"]
+    n_hot, ps, kv, hd = k_hot.shape
+    n_tok = k_src.shape[0]
+    r, mp = block_tables.shape
+    dtype = k_hot.dtype
+    dev = k_hot.device
+    kv_lens = kv_lens.to(torch.int64)
+    row = torch.where(slots >= 0, slots.to(torch.int64) + 1,
+                      torch.zeros_like(slots, dtype=torch.int64))
+
+    # -- which pages this dispatch completes (candidates as the reference)
+    start = kv_lens - n_valid                  # first position of the chunk
+    n_cand = row_len // ps + 1
+    jp = start[:, None] // ps + torch.arange(n_cand, device=dev)[None, :]
+    completed = ((jp + 1) * ps <= kv_lens[:, None]) & (n_valid[:, None] > 0)
+    sel = torch.arange(r * n_cand, device=dev)
+    n_sel = min(r * n_cand, n_tok // ps + r)
+    if n_sel < r * n_cand:
+        sel = torch.argsort((~completed).reshape(-1).to(torch.int8),
+                            stable=True)[:n_sel]
+    sel_row = sel // n_cand
+    sel_jp = jp.reshape(-1)[sel]
+    sel_done = completed.reshape(-1)[sel]
+
+    # -- page content: positions >= start from this dispatch, earlier ones
+    # from the *old* hot row (read before the hot write below overwrites it)
+    gp = sel_jp[:, None] * ps + torch.arange(ps, device=dev)[None, :]
+    s0 = start[sel_row][:, None]
+    from_new = (gp >= s0)[..., None, None]
+    tidx = torch.clamp(base[sel_row].to(torch.int64)[:, None] + gp - s0, 0,
+                       n_tok - 1)
+    old_rows = row[sel_row]
+    k_content = torch.where(from_new, k_src[tidx].to(dtype), k_hot[old_rows])
+    v_content = torch.where(from_new, v_src[tidx].to(dtype), v_hot[old_rows])
+
+    # -- hot write: only positions on the row's final page
+    valid = tok_row >= 0
+    trow = torch.clamp(tok_row.to(torch.int64), min=0)
+    pos = torch.clamp(tok_pos.to(torch.int64), min=0)
+    in_final = valid & (tok_pos >= 0) & (pos // ps == kv_lens[trow] // ps)
+    flat = torch.where(in_final, row[trow] * ps + pos % ps,
+                       torch.zeros_like(pos))
+    k_hot.view(n_hot * ps, kv, hd)[flat] = k_src.to(dtype)
+    v_hot.view(n_hot * ps, kv, hd)[flat] = v_src.to(dtype)
+
+    # -- commit-quantize (K and V in one solve) and scatter
+    m = sel.shape[0]
+    codes, scales = kv_quantize_pages(torch.cat([k_content, v_content]),
+                                      kv_bits)
+    pidx = torch.where(sel_done,
+                       block_tables.to(torch.int64)[
+                           sel_row, torch.clamp(sel_jp, 0, mp - 1)],
+                       torch.zeros_like(sel_jp))
+    cache["k_codes"][pidx] = codes[:m]
+    cache["v_codes"][pidx] = codes[m:]
+    cache["k_scales"][pidx] = scales[:m].to(cache["k_scales"].dtype)
+    cache["v_scales"][pidx] = scales[m:].to(cache["v_scales"].dtype)
+    return cache
+
+
+def paged_write_quant(cache, k_new, v_new, block_tables, q_pos, kv_lens,
+                      slots, kv_bits):
+    """Hot-page write + commit-time quantization (quantize-on-commit), in
+    place. cache: dict(k_codes, v_codes, k_scales, v_scales, k_hot, v_hot)
+    of one layer period; k_new/v_new (B, T, KV, hd) roped; q_pos (B, T)
+    (-1 = pad, valid tokens first); kv_lens (B,) length incl. this chunk;
+    slots (B,) engine slot ids (-1 = pad row). Returns ``cache``."""
+    b, t = q_pos.shape
+    kv, hd = k_new.shape[2:]
+    dev = q_pos.device
+    valid = q_pos >= 0
+    tok_row = torch.where(valid, torch.arange(b, device=dev)[:, None],
+                          torch.full_like(q_pos, -1, dtype=torch.int64))
+    return _write_quant(
+        cache, k_new.reshape(b * t, kv, hd), v_new.reshape(b * t, kv, hd),
+        tok_row.reshape(-1), q_pos.reshape(-1), block_tables, kv_lens, slots,
+        torch.arange(b, device=dev) * t, valid.sum(dim=1), t, kv_bits)
+
+
+def paged_write_quant_packed(cache, k_new, v_new, block_tables, seg_ids,
+                             q_pos, kv_lens, slots, seg_off, kv_bits):
+    """Packed variant, in place: k_new/v_new (1, T, KV, hd); seg_ids/q_pos
+    (1, T) (-1 = pad); block_tables (S, max_pages); kv_lens/slots/seg_off
+    (S,) — ``seg_off`` is each segment's first index in the packed row."""
+    s = block_tables.shape[0]
+    valid = (seg_ids[0] >= 0) & (q_pos[0] >= 0)
+    tok_row = torch.where(valid, seg_ids[0].to(torch.int64),
+                          torch.full_like(seg_ids[0], -1, dtype=torch.int64))
+    n_valid = torch.zeros(s, dtype=torch.int64, device=q_pos.device)
+    n_valid.index_add_(0, torch.clamp(tok_row, min=0), valid.to(torch.int64))
+    return _write_quant(cache, k_new[0], v_new[0], tok_row, q_pos[0],
+                        block_tables, kv_lens, slots, seg_off, n_valid,
+                        q_pos.shape[1], kv_bits)
+
+
+def paged_attention_quant(q, cache, block_tables, q_pos, kv_lens, slots,
+                          kv_bits, *, softcap=0.0, scale=None):
+    """Attention over quantized pools + the hot partial page, through the
+    ``paged_attention_decode_quant`` wrapper, one row per query token.
+    q: (B, T, H, d); q_pos (B, T); kv_lens (B,) incl. this chunk; slots
+    (B,). Each token's causal bound ``min(q_pos + 1, kv_lens)`` and its
+    row's frontier page ``kv_lens // ps`` go to the kernel separately: in
+    a prefill chunk, pages before the frontier that this dispatch completed
+    are read from their fresh codes, as the reference reads them. Returns
+    (B, T, H, d)."""
+    b, t, h, d = q.shape
+    ps = cache["k_hot"].shape[1]
+    q_pos = q_pos.to(torch.int32)
+    kv_lens = kv_lens.to(torch.int32)
+    lens = torch.minimum(q_pos + 1, kv_lens[:, None])
+    lens = torch.where(q_pos >= 0, lens, torch.zeros_like(lens))
+    n_full = (kv_lens // ps)[:, None].expand(b, t)
+    rows = torch.where(slots >= 0, slots + 1, torch.zeros_like(slots))
+    rows = rows.to(torch.int32)[:, None].expand(b, t)
+    bt = block_tables.to(torch.int32).repeat_interleave(t, dim=0)
+    out = paged_attention_decode_quant(
+        q.reshape(b * t, h, d).contiguous(), cache["k_codes"],
+        cache["k_scales"], cache["v_codes"], cache["v_scales"],
+        cache["k_hot"], cache["v_hot"], bt.contiguous(),
+        lens.reshape(-1).contiguous(), rows.reshape(-1).contiguous(),
+        kv_bits=kv_bits, n_full=n_full.reshape(-1).contiguous(),
+        softcap=softcap, scale=scale)
+    return out.reshape(b, t, h, d)
+
+
+def paged_attention_quant_packed(q, cache, block_tables, seg_ids, q_pos,
+                                 kv_lens, slots, kv_bits, *, softcap=0.0,
+                                 scale=None):
+    """Packed attention over quantized pools: per-token segment views of
+    block tables, lengths and slots, then ``paged_attention_quant``.
+    q (1, T, H, d); seg_ids/q_pos (1, T). Returns (1, T, H, d)."""
+    seg = torch.clamp(seg_ids[0].to(torch.int64), min=0)
+    valid = seg_ids[0] >= 0
+    lens_tok = torch.where(valid, kv_lens.to(torch.int32)[seg],
+                           torch.zeros_like(seg, dtype=torch.int32))
+    slots_tok = torch.where(valid, slots.to(torch.int32)[seg],
+                            torch.full_like(seg, -1, dtype=torch.int32))
+    out = paged_attention_quant(q[0][:, None], cache, block_tables[seg],
+                                q_pos[0][:, None], lens_tok, slots_tok,
+                                kv_bits, softcap=softcap, scale=scale)
     return out[:, 0][None]

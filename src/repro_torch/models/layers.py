@@ -2,7 +2,8 @@
 
 Port of ``repro.models.layers`` for the dense decoder's paged serving path:
 norms and RoPE in f32, projections through ``dense`` (the msb_matmul kernel
-for packed weights), and the kv16 paged branches of ``attention_layer``.
+for packed weights), and the paged branches of ``attention_layer`` over
+kv16 and quantized (kv_bits 8|4) pools.
 """
 from __future__ import annotations
 
@@ -10,8 +11,10 @@ import torch
 
 from ..core.quantize import PackedQTensor, QTensor
 from ..kernels.msb_matmul.ops import packed_matmul
-from .attention import (paged_attention, paged_attention_packed, paged_write,
-                        paged_write_packed)
+from .attention import (paged_attention, paged_attention_packed,
+                        paged_attention_quant, paged_attention_quant_packed,
+                        paged_write, paged_write_packed, paged_write_quant,
+                        paged_write_quant_packed)
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -50,11 +53,14 @@ def dense(x, w, b=None):
 
 
 def attention_layer(p, x, cfg, *, cache, paged):
-    """Paged self-attention (kv16 pools). ``paged`` = dict(block_tables,
-    q_pos, kv_lens[, seg_ids]); ``cache`` = {"k", "v"} pools of this layer,
-    written in place. With ``seg_ids`` the (1, T) row is a packed ragged
-    prefill: per-token segment ids route every write and read to the
-    token's own block-table row. Returns (out, {"k", "v"})."""
+    """Paged self-attention. ``paged`` = dict(block_tables, q_pos, kv_lens
+    [, seg_ids][, slots, seg_off, kv_bits]); ``cache`` = this layer's
+    pools, written in place: {"k", "v"} at kv16, or the quantized dual
+    pools {"k_codes", "v_codes", "k_scales", "v_scales", "k_hot", "v_hot"}
+    (hot-row write, commit-time quantization, fused-dequant attention).
+    With ``seg_ids`` the (1, T) row is a packed ragged prefill: per-token
+    segment ids route every write and read to the token's own block-table
+    row. Returns (out, cache)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     b = x.shape[0]
     q = dense(x, p["wq"], p.get("bq")).reshape(b, -1, h, hd)
@@ -67,6 +73,25 @@ def attention_layer(p, x, cfg, *, cache, paged):
     q = rope(q, safe_pos, cfg.rope_theta)
     k = rope(k, safe_pos, cfg.rope_theta)
     seg_ids = paged.get("seg_ids")
+    t = q.shape[1]
+    if "k_codes" in cache:
+        kv_bits = paged["kv_bits"]
+        if seg_ids is not None:
+            cache = paged_write_quant_packed(
+                cache, k, v, paged["block_tables"], seg_ids, q_pos,
+                paged["kv_lens"], paged["slots"], paged["seg_off"], kv_bits)
+            out = paged_attention_quant_packed(
+                q, cache, paged["block_tables"], seg_ids, q_pos,
+                paged["kv_lens"], paged["slots"], kv_bits, softcap=softcap,
+                scale=scale)
+        else:
+            cache = paged_write_quant(
+                cache, k, v, paged["block_tables"], q_pos, paged["kv_lens"],
+                paged["slots"], kv_bits)
+            out = paged_attention_quant(
+                q, cache, paged["block_tables"], q_pos, paged["kv_lens"],
+                paged["slots"], kv_bits, softcap=softcap, scale=scale)
+        return dense(out.reshape(b, t, -1), p["wo"]), cache
     if seg_ids is not None:
         k_pool, v_pool = paged_write_packed(
             cache["k"], cache["v"], k, v, paged["block_tables"], seg_ids,
@@ -80,7 +105,6 @@ def attention_layer(p, x, cfg, *, cache, paged):
         out = paged_attention(q, k_pool, v_pool, paged["block_tables"],
                               q_pos, paged["kv_lens"], softcap=softcap,
                               scale=scale)
-    t = out.shape[1]
     return dense(out.reshape(b, t, -1), p["wo"]), {"k": k_pool, "v": v_pool}
 
 

@@ -1,8 +1,9 @@
 """Top-level Model API for paged serving.
 
 Port of the serving half of ``repro.models.model``: embedding and logits,
-paged K/V pools, one paged step (decode or chunked prefill), packed ragged
-prefill, and the decode horizon with on-device greedy sampling.
+paged K/V pools (kv16, or MSB-quantized at kv_bits 8|4), one paged step
+(decode or chunked prefill), packed ragged prefill, and the decode horizon
+with on-device greedy sampling.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import dataclasses
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.quantize import PackedQTensor, QTensor, packed_gather
+from ..core.quantize import KVQuantSpec, PackedQTensor, QTensor, \
+    packed_gather
 from ..device import resolve_device
 from ..kernels.msb_matmul.ops import packed_matmul
 from .layers import rms_norm
@@ -19,10 +21,17 @@ from .transformer import (_require_dense, forward_stack, init_params,
                           layer_plan, n_periods)
 
 
-def _require_kv16(kv_bits):
-    if int(kv_bits) != 16:
-        raise NotImplementedError(
-            f"kv_bits={kv_bits}: quantized KV pools are ROADMAP item 8")
+def _quant_paged(paged, kv_bits, slots, seg_off=None):
+    """Add the quantized pools' inputs to a step's ``paged`` dict."""
+    kv_bits = int(kv_bits)
+    if kv_bits == 16:
+        return paged
+    if slots is None:
+        raise ValueError("kv_bits < 16 needs the slots array")
+    paged = dict(paged, kv_bits=kv_bits, slots=slots.to(torch.int32))
+    if seg_off is not None:
+        paged["seg_off"] = seg_off.to(torch.int64)
+    return paged
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,21 +96,41 @@ class Model:
 
     def init_paged_pools(self, num_pages, page_size, kv_bits=16,
                          max_seqs=None, device=None):
-        """Global K/V page pools on ``device`` (``None`` = the card):
-        leaves (n_periods, num_pages, page_size, KV, head_dim) in
-        ``cfg.dtype``, nested like the reference's. Page 0 is the
-        allocator's scratch page. The serving steps update them in place."""
-        _require_kv16(kv_bits)
+        """Global K/V page pools on ``device`` (``None`` = the card),
+        nested like the reference's. Page 0 is the allocator's scratch
+        page. The serving steps update them in place.
+
+        ``kv_bits=16``: leaves (n_periods, num_pages, page_size, KV,
+        head_dim) in ``cfg.dtype``. ``kv_bits=8|4``: the dual-pool layout
+        of DESIGN.md Sec. 15 — ``k_codes/v_codes`` and ``k_scales/
+        v_scales`` per page (``KVQuantSpec``) for committed pages, and
+        ``k_hot/v_hot`` (n_periods, max_seqs + 1, page_size, KV, head_dim)
+        in ``cfg.dtype``, one partial-page row per engine slot (row slot +
+        1) plus scratch row 0."""
         cfg = self.cfg
         if not self.supports_paged():
             raise ValueError(f"{cfg.name}: not a paged-servable arch")
         _require_dense(cfg)
         dev = resolve_device(device)
-        shape = (n_periods(cfg), num_pages, page_size, cfg.n_kv_heads,
-                 cfg.head_dim_)
+        p, kv, hd = n_periods(cfg), cfg.n_kv_heads, cfg.head_dim_
+        if int(kv_bits) == 16:
+            shape = (p, num_pages, page_size, kv, hd)
+            leaves = {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+        else:
+            if max_seqs is None:
+                raise ValueError("quantized pools need max_seqs (hot rows)")
+            spec = KVQuantSpec(int(kv_bits), page_size, kv, hd)
+            hot = (p, int(max_seqs) + 1, page_size, kv, hd)
+            leaves = {}
+            for x in ("k", "v"):
+                leaves[f"{x}_codes"] = ((p, num_pages) + spec.codes_tail,
+                                        spec.code_dtype)
+                leaves[f"{x}_scales"] = ((p, num_pages) + spec.scales_tail,
+                                         spec.scale_dtype)
+                leaves[f"{x}_hot"] = (hot, cfg.dtype)
         layers = {f"s{slot}": {"attn": {
-            "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}}
+            name: torch.zeros(shape, dtype=dt, device=dev)
+            for name, (shape, dt) in leaves.items()}}
             for slot, _ in enumerate(layer_plan(cfg, "dec"))}
         return {"layers": layers}
 
@@ -114,12 +143,13 @@ class Model:
         including this chunk; block_tables (B, max_pages) int32. Writes the
         new K/V into ``pools`` in place and returns (logits at each row's
         last valid token (B, V) f32, pools). Pad rows give garbage logits
-        the caller discards. ``slots`` is unused at kv_bits=16."""
-        _require_kv16(kv_bits)
+        the caller discards. ``kv_bits`` names the pools' representation
+        (``init_paged_pools``); ``slots`` (B,) engine slot ids (-1 = pad
+        row) address the hot rows and are required when kv_bits < 16."""
         cfg = self.cfg
         x = self._embed(params, torch.clamp(tokens, min=0))
-        paged = {"block_tables": block_tables, "q_pos": q_pos,
-                 "kv_lens": kv_lens}
+        paged = _quant_paged({"block_tables": block_tables, "q_pos": q_pos,
+                              "kv_lens": kv_lens}, kv_bits, slots)
         x, layer_pools = forward_stack(params["dec"], x, cfg,
                                        cache=pools["layers"], paged=paged)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -136,13 +166,16 @@ class Model:
         bucket length (seg_ids = q_pos = -1 on pads). Per-segment (S,):
         kv_lens (0 = pad segment), block_tables (S, max_pages), last_idx
         (packed index of the segment's last token, where its logits are
-        read). ``slots``/``seg_off`` serve quantized pools only. Returns
-        (logits (S, V), pools), pools updated in place."""
-        _require_kv16(kv_bits)
+        read), slots (engine slot ids, -1 = pad) and seg_off (packed index
+        of the segment's first token); ``slots``/``seg_off`` serve
+        quantized pools only. Returns (logits (S, V), pools), pools updated
+        in place."""
         cfg = self.cfg
         x = self._embed(params, torch.clamp(tokens, min=0)[None])
-        paged = {"block_tables": block_tables, "q_pos": q_pos[None],
-                 "kv_lens": kv_lens, "seg_ids": seg_ids[None]}
+        paged = _quant_paged({"block_tables": block_tables,
+                              "q_pos": q_pos[None], "kv_lens": kv_lens,
+                              "seg_ids": seg_ids[None]}, kv_bits, slots,
+                             seg_off)
         x, layer_pools = forward_stack(params["dec"], x, cfg,
                                        cache=pools["layers"], paged=paged)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)

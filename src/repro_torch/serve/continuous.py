@@ -1,13 +1,19 @@
 """Continuous-batching serving engine over a paged KV cache.
 
 Port of ``repro.serve.continuous.ContinuousEngine`` (``execution="packed"``,
-kv16 pools, one device). Step-driven API: ``submit()`` enqueues requests,
+one device). Step-driven API: ``submit()`` enqueues requests,
 each ``step()`` runs one scheduler-chosen unit of work (a packed prefill
 wave, a prefill chunk, or a decode batch), ``collect()`` drains finished
 outputs. The scheduler, allocator and prefix registry are the reference's,
 on the host; the data plane is ``Model.paged_step`` and friends on the
 engine's device (``device=None`` = the card), where every packed projection
-runs the msb_matmul kernel and every attention the paged-attention kernel.
+runs the msb_matmul kernel and every attention a paged-attention kernel.
+
+``kv_bits=8|4`` (DESIGN.md Sec. 15) stores committed KV pages
+MSB-quantized: each slot keeps its partial page at full precision in a hot
+row, every page a dispatch completes is quantized in that dispatch, and
+attention runs the fused-dequant kernel. Every quantized dispatch passes the rows'
+engine slots, which address the hot rows.
 
 Decode batches are padded to the next power of two; inactive rows and chunk
 tails carry ``q_pos == -1`` and write the reserved scratch page. With
@@ -17,8 +23,8 @@ dispatch with the argmax on the device, and only (B, H) tokens come back.
 Greedy outputs are identical across horizons, prefill packing on/off and
 prefix caching on/off.
 
-Not in this slice (each raises ``NotImplementedError``): ``kv_bits`` 8|4
-(ROADMAP item 8), ``mesh=``/``parallel=`` (item 11),
+Not in this slice (each raises ``NotImplementedError``): ``mesh=``/
+``parallel=`` (ROADMAP item 11),
 ``execution="simulated"`` and ``warmup()`` (item 6).
 """
 from __future__ import annotations
@@ -50,7 +56,7 @@ class ContinuousEngine:
     mesh: object = None
     prefix_cache: bool = True         # automatic cross-request prefix reuse
     decode_horizon: int = 1           # fused decode steps per dispatch
-    kv_bits: int = 16                 # committed-page precision: 16 only
+    kv_bits: int = 16                 # committed-page precision: 16 | 8 | 4
     max_waiting: Optional[int] = None  # backpressure: bound on waiting queue
     faults: object = None             # FaultPlan (testing); None = NO_FAULTS
     prefill_packing: bool = True      # pack prompts into ragged dispatches
@@ -62,10 +68,6 @@ class ContinuousEngine:
         if self.mesh is not None or self.parallel is not None:
             raise NotImplementedError(
                 "mesh=/parallel=: tensor-parallel serving is ROADMAP item 11")
-        if int(self.kv_bits) != 16:
-            raise NotImplementedError(
-                f"kv_bits={self.kv_bits}: quantized KV pools are ROADMAP "
-                "item 8")
         if not self.model.supports_paged():
             raise ValueError(
                 f"{self.model.cfg.name}: paged serving needs a decoder-only "
@@ -77,7 +79,10 @@ class ContinuousEngine:
         if self.decode_horizon < 1:
             raise ValueError(f"decode_horizon must be >= 1, "
                              f"got {self.decode_horizon}")
-        self.kv_bits = 16
+        self.kv_bits = int(self.kv_bits)
+        if self.kv_bits not in (16, 8, 4):
+            raise ValueError(f"kv_bits must be 16, 8 or 4, "
+                             f"got {self.kv_bits}")
         if self.faults is None:
             from .faults import NO_FAULTS
             self.faults = NO_FAULTS
@@ -130,6 +135,11 @@ class ContinuousEngine:
         """Host array -> tensor on the engine's device."""
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
             self.device)
+
+    def _slots(self, slots):
+        """Rows' engine slots on the device; only quantized pools read
+        them (hot rows), so kv16 dispatches upload nothing."""
+        return self._dev(slots) if self.kv_bits < 16 else None
 
     # -- API ----------------------------------------------------------------
     def submit(self, prompt, max_new_tokens, eos_id=None,
@@ -475,7 +485,8 @@ class ContinuousEngine:
         logits, self.cache.pools = self.model.paged_prefill_packed(
             self.params, self.cache.pools, self._dev(tokens),
             self._dev(seg_ids), self._dev(q_pos), self._dev(kv_lens), bt,
-            self._dev(slots), self._dev(last_idx), self._dev(seg_off))
+            self._dev(slots), self._dev(last_idx), self._dev(seg_off),
+            kv_bits=self.kv_bits)
         self.n_host_syncs += 1          # blocking (S, vocab) logits fetch
         logits = logits.cpu().numpy()
         if self.faults.armed:
@@ -558,7 +569,8 @@ class ContinuousEngine:
         bt = self.cache.table_rows(slots)
         out_tok, valid, self.cache.pools = self.model.paged_decode_horizon(
             self.params, self.cache.pools, self._dev(tokens),
-            self._dev(start_pos), bt, self._dev(n_left), self._dev(eos), h)
+            self._dev(start_pos), bt, self._dev(n_left), self._dev(eos), h,
+            kv_bits=self.kv_bits, slots=self._slots(slots))
         out_tok, valid = out_tok.cpu().numpy(), valid.cpu().numpy()
         self.n_host_syncs += 1
         if self.faults.armed:
@@ -584,7 +596,8 @@ class ContinuousEngine:
         bt = self.cache.table_rows(slots)
         logits, self.cache.pools = self.model.paged_step(
             self.params, self.cache.pools, self._dev(tokens),
-            self._dev(q_pos), self._dev(kv_lens), bt)
+            self._dev(q_pos), self._dev(kv_lens), bt, kv_bits=self.kv_bits,
+            slots=self._slots(slots))
         self.n_host_syncs += 1          # blocking (B, vocab) logits fetch
         return logits.cpu().numpy()
 

@@ -1,8 +1,9 @@
 """Paged KV-cache: a global page pool + per-sequence block tables.
 
-Port of ``repro.serve.paged_cache`` (kv16 pools): the host-side allocator
-is the reference's, copied; the device work it does — the fork's page copy
-and the block-table upload — is torch on the engine's device.
+Port of ``repro.serve.paged_cache`` (kv16 and kv_bits 8|4 pools): the
+host-side allocator is the reference's, copied; the device work it does —
+the fork's page (or hot-row) copy and the block-table upload — is torch on
+the engine's device.
 
 The data plane (the pools themselves) is a tree of device tensors written,
 in place, by the serving step (models.Model.paged_step); this class is the *control*
@@ -94,9 +95,8 @@ class PagedKVCache:
                  kv_bits=16, device=None):
         if num_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is reserved scratch)")
-        if kv_bits != 16:
-            raise NotImplementedError(
-                f"kv_bits={kv_bits}: quantized KV pools are ROADMAP item 8")
+        if kv_bits not in (16, 8, 4):
+            raise ValueError(f"kv_bits must be 16, 8 or 4, got {kv_bits}")
         if faults is None:
             from .faults import NO_FAULTS
             faults = NO_FAULTS
@@ -110,7 +110,14 @@ class PagedKVCache:
         self.pools = model.init_paged_pools(num_pages, page_size,
                                             kv_bits=self.kv_bits,
                                             max_seqs=max_seqs, device=device)
-        self.device = self.pools["layers"]["s0"]["attn"]["k"].device
+        self.device = next(iter(self.pools["layers"]["s0"]["attn"].values())
+                           ).device
+        # quantization frontier: full pages of each slot whose content is
+        # committed into the packed code/scale pools (kv_bits < 16). The
+        # device quantizes every page completed by a dispatch, so after the
+        # host commit this must equal seq_lens // page_size — "no committed
+        # page left unquantized" (check_invariants enforces it).
+        self._quant_frontier = np.zeros((max_seqs,), np.int64)
         # host metadata
         self.block_tables = np.zeros((max_seqs, self.max_pages_per_seq),
                                      np.int32)
@@ -191,6 +198,7 @@ class PagedKVCache:
         self.seq_lens[slot] = 0
         self.block_tables[slot] = 0
         self._slot_digests[slot] = []
+        self._quant_frontier[slot] = 0
         self._versions[slot] += 1
         return slot
 
@@ -215,6 +223,7 @@ class PagedKVCache:
         self.seq_lens[slot] = 0
         self.block_tables[slot] = 0
         self._slot_digests[slot] = []
+        self._quant_frontier[slot] = 0
         self._versions[slot] += 1
         self._free_slots.append(slot)
 
@@ -295,6 +304,9 @@ class PagedKVCache:
                 f"{len(self.seq_pages[slot])} pages reserved "
                 f"({len(self.seq_pages[slot]) * self.page_size} tokens)")
         self.seq_lens[slot] = n_tokens
+        # the dispatch that wrote these tokens also quantized every page it
+        # completed (quantize-on-commit), so the frontier rides the commit
+        self._quant_frontier[slot] = int(n_tokens) // self.page_size
 
     # -- prefix registry ---------------------------------------------------
     def register_prefix(self, slot, tokens):
@@ -364,6 +376,9 @@ class PagedKVCache:
             self.seq_pages[slot].append(page)
         self._slot_digests[slot] = list(match.digests)
         self.seq_lens[slot] = match.n_tokens
+        # adopted pages are committed full pages: under kv_bits < 16 their
+        # content already lives quantized in the packed pools
+        self._quant_frontier[slot] = match.n_tokens // self.page_size
         self._versions[slot] += 1
 
     # -- prefix sharing ----------------------------------------------------
@@ -393,21 +408,37 @@ class PagedKVCache:
                 self.ref_counts[page] += 1
                 self.block_tables[dst, n_full] = page
                 self.seq_pages[dst].append(page)
-                self._copy_page(self.seq_pages[src_slot][n_full], page)
+                if self.kv_bits == 16:
+                    self._copy_page(self.seq_pages[src_slot][n_full], page)
+                else:
+                    # quantized pools keep the partial page in the slot's
+                    # hot row; the packed page just allocated is address
+                    # space for its eventual commit. Copy the hot row.
+                    self._copy_hot(src_slot + 1, dst + 1)
         except Exception:
             self.release(dst)
             raise
         self.seq_lens[dst] = n
+        self._quant_frontier[dst] = n // self.page_size
         self._slot_digests[dst] = self._slot_digests[src_slot][:n_full]
         self._versions[dst] += 1
         return dst
 
     def _copy_page(self, src, dst):
-        """Copy page ``src`` to ``dst`` in every pool leaf, in place.
+        """Copy page ``src`` to ``dst`` in every kv16 pool leaf, in place.
         Leaves are (n_periods, num_pages, page_size, KV, hd)."""
         for slot in self.pools["layers"].values():
             for leaf in slot["attn"].values():
                 leaf[:, dst] = leaf[:, src]
+
+    def _copy_hot(self, src_row, dst_row):
+        """Copy hot row ``src_row`` to ``dst_row`` in place. Hot leaves are
+        (n_periods, max_seqs + 1, page_size, KV, hd); the code and scale
+        pools are page-indexed, not slot-indexed, and stay untouched."""
+        for slot in self.pools["layers"].values():
+            for name, leaf in slot["attn"].items():
+                if name.endswith("_hot"):
+                    leaf[:, dst_row] = leaf[:, src_row]
 
     # -- packed-batch views -------------------------------------------------
     def table_rows(self, slots):
@@ -449,7 +480,10 @@ class PagedKVCache:
         committed lengths fit inside reserved leases; the registry and its
         page->digest inverse are a bijection and the LRU is a subset of the
         registered refcount-0 pages; free slots are duplicate-free with
-        fully cleared state.
+        fully cleared state. Under ``kv_bits < 16`` additionally: every live
+        slot's quantization frontier equals its committed full-page count
+        (no committed page left unquantized, none quantized ahead of
+        commit) and fits its lease; free slots sit at frontier 0.
 
         ``expect_idle=True`` additionally requires no live sequence at all
         — every slot free and every usable page free or LRU-reclaimable,
@@ -470,6 +504,9 @@ class PagedKVCache:
                 fail(f"free slot {s} still holds state: "
                      f"pages={self.seq_pages[s]}, "
                      f"len={int(self.seq_lens[s])}")
+            if self._quant_frontier[s] != 0:
+                fail(f"free slot {s} has nonzero quant frontier "
+                     f"{int(self._quant_frontier[s])}")
         # refcount reconstruction from live block tables (+ scratch pin)
         expected = np.zeros((self.num_pages,), np.int64)
         expected[0] = 1
@@ -493,6 +530,20 @@ class PagedKVCache:
             if len(self._slot_digests[s]) > len(pages):
                 fail(f"slot {s}: {len(self._slot_digests[s])} chain digests "
                      f"for {len(pages)} pages")
+            if self.kv_bits < 16:
+                fr = int(self._quant_frontier[s])
+                want = int(self.seq_lens[s]) // self.page_size
+                if fr < want:
+                    fail(f"slot {s}: committed pages left unquantized — "
+                         f"quant frontier {fr} behind {want} committed full "
+                         f"pages (kv_bits={self.kv_bits})")
+                if fr > want:
+                    fail(f"slot {s}: quant frontier {fr} ahead of {want} "
+                         "committed full pages — pages marked quantized "
+                         "that were never committed")
+                if fr > len(pages):
+                    fail(f"slot {s}: quant frontier {fr} exceeds its lease "
+                         f"of {len(pages)} pages")
         mism = [p for p in range(self.num_pages)
                 if int(self.ref_counts[p]) != int(expected[p])]
         if mism:

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.quantize import kv_quantize_pages
 from repro_torch.kernels.msb_matmul import ops as mm_ops
 from repro_torch.kernels.msb_matmul import ref as mm_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -79,6 +80,63 @@ def test_paged_attention_kernel_matches_plain(cuda):
         assert (out[2] == 0).all()
 
 
+def _quant_pools(rng, bits, n_pages, n_hot, ps, kv, d, dtype, device):
+    """Codes/scales of random pages (quantized on the CPU) and random hot
+    rows, on ``device``; hot rows in ``dtype``."""
+    out = []
+    for _ in ("k", "v"):
+        full = rng.standard_normal((n_pages, ps, kv, d)).astype(np.float32)
+        codes, scales = kv_quantize_pages(torch.from_numpy(full), bits)
+        out += [codes.to(device), scales.to(device)]
+    for _ in ("k", "v"):
+        hot = rng.standard_normal((n_hot, ps, kv, d)).astype(np.float32)
+        out.append(torch.from_numpy(hot).to(device=device, dtype=dtype))
+    kc, ks, vc, vs, kh, vh = out
+    return kc, ks, vc, vs, kh, vh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_quant_kernel_matches_plain(cuda, bits, dtype):
+    """Kernel C against its plain version: committed pages from codes,
+    frontier page from the hot row, zero-length and pad rows, softcap, and
+    rows whose frontier lies past their causal bound (packed prefill).
+    Tolerance: 1e-5 in f32 (same dequantized values, f32 sums in another
+    order); 2e-2 in bf16 (the plain version rounds p to bf16 before P@V,
+    the kernel keeps it in f32, as kernel B does)."""
+    rng = np.random.default_rng(14 + bits)
+    ps, kv, h, d, mp = 4, 2, 4, 16, 6
+    lens = [1, 7, 0, 24, 13, 8, 5]
+    n_full = [0, 1, 0, 6, 3, 2, 5]      # row 6: frontier past its bound
+    hot_rows = [1, 2, 0, 3, 4, 5, 6]
+    pools = _quant_pools(rng, bits, 48, 8, ps, kv, d, dtype, cuda)
+    bt = np.stack([rng.permutation(np.arange(1, 48))[:mp]
+                   for _ in lens]).astype(np.int32)
+    q = torch.from_numpy(rng.standard_normal((len(lens), h, d)).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    ints = [torch.tensor(a, dtype=torch.int32, device=cuda)
+            for a in (bt, lens, hot_rows, n_full)]
+    args = (q, *pools, ints[0], ints[1], ints[2])
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for softcap, scale in ((0.0, None), (30.0, 0.3)):
+        before = pa_ops.paged_attention_decode_quant.launches
+        out = pa_ops.paged_attention_decode_quant(
+            *args, kv_bits=bits, n_full=ints[3], softcap=softcap,
+            scale=scale)
+        assert pa_ops.paged_attention_decode_quant.launches == before + 1
+        ref = pa_ref.paged_attention_decode_quant_ref(
+            *args, kv_bits=bits, n_full=ints[3], softcap=softcap,
+            scale=scale)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=tol)
+        assert (out[2] == 0).all()
+    # the default frontier is kv_lens // page_size
+    out = pa_ops.paged_attention_decode_quant(*args, kv_bits=bits)
+    ref = pa_ref.paged_attention_decode_quant_ref(*args, kv_bits=bits)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     p, s = _weights(np.random.default_rng(0), 128, 128, False, cuda)
@@ -96,3 +154,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         pa_ops.paged_attention_decode(q, pool, pool, bt,
                                       torch.ones(1, dtype=torch.int32,
                                                  device=cuda))
+    kc, ks, vc, vs, kh, vh = _quant_pools(np.random.default_rng(0), 4, 4, 2,
+                                          4, 2, 16, torch.float32, cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):        # 4-bit pools read as 8-bit
+        pa_ops.paged_attention_decode_quant(q, kc, ks, vc, vs, kh, vh,
+                                            bt.to(torch.int32), one, one,
+                                            kv_bits=8)

@@ -100,7 +100,6 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 UNPORTED = {
-    "kv_bits=8": (dict(kv_bits=8), "item 8"),
     "mesh": (dict(mesh=object()), "item 11"),
     "simulated": (dict(execution="simulated"), "item 6"),
 }
