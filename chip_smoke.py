@@ -8,20 +8,28 @@ one line each (details indented), any failure exits non-zero:
 
 1. env    — card name and power limit, CUDA and nvcc versions
 2. build  — nvcc builds the kernel sources of ``src/repro_torch/csrc`` in
-   parallel (msb_matmul; paged_attention, which holds kernels B and C)
+   parallel (msb_matmul; paged_attention, which holds kernels B and C;
+   flash_attention)
 3. msb_matmul vs its plain version at the main path's shapes, with times
 4. paged_attention_decode vs its plain version on a full-width bf16 pool
 5. paged_attention_decode_quant vs its plain version on full-width 8- and
    4-bit quantized pools
-6. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
+6. flash_attention_fwd vs its plain version at the static path's prefill
+   shape and at long, ragged, windowed + softcapped, segmented and f32
+   shapes; pad rows exactly 0, cross-segment isolation bit for bit
+7. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
    the card, pack, ContinuousEngine at decode_horizon 8 and 1 over kv16
    pools; the kernels' launch counters are zeroed just before the
    horizon-8 run and those of its path must be non-zero after it
-7. serve kv8/kv4 — the same packed weights and requests over MSB-quantized
+8. serve kv8/kv4 — the same packed weights and requests over MSB-quantized
    KV pools (kv_bits 8, then 4) at decode_horizon 8 and 1, counters zeroed
    before each horizon-8 run; commit cost and a kv4 decode-step profile
-8. kernel path vs plain path — smoke internlm2 served on the card and on
-   the CPU from the same weights, at kv_bits 16, 8 and 4
+9. serve static — the same packed weights through ServeEngine: generate
+   (prefill on flash_attention_fwd, then ring decode) and score, counters
+   zeroed before each; greedy tokens against ContinuousEngine's
+10. kernel path vs plain path — smoke internlm2 served on the card and on
+   the CPU from the same weights, at kv_bits 16, 8 and 4, and through the
+   static engine
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
@@ -348,6 +356,108 @@ def phase_paged_attention_quant(torch, timer, device):
     return rows
 
 
+def visible_pairs(sq, skv, causal, window, segs=None):
+    """(query, key) pairs the mask lets through, summed over batch rows:
+    the work that this run's inputs need."""
+    qpos, kpos = np.arange(sq)[:, None], np.arange(skv)[None, :]
+    mask = np.ones((sq, skv), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    if segs is None:
+        return int(mask.sum())
+    return int(sum((mask & (row[:, None] == row[None, :])
+                    & (row[:, None] >= 0)).sum() for row in segs))
+
+
+def segments(b, s):
+    """Three contiguous segments per row of different lengths, then 37 pad
+    positions (-1)."""
+    segs = np.full((b, s), -1, np.int32)
+    for i in range(b):
+        cuts = [0, 200 + 40 * i, 600 - 30 * i, s - 37]
+        for j in range(3):
+            segs[i, cuts[j]:cuts[j + 1]] = j
+    return segs
+
+
+def phase_flash_attention(torch, timer, device):
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device=device).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [  # name, B, H, KV, S, d, dtype, causal, window, softcap, segs
+        ("prefill B=8 S=512", 8, 16, 8, 512, 128, bf16, True, 0, 0.0, False),
+        ("B=1 S=2048", 1, 16, 8, 2048, 128, bf16, True, 0, 0.0, False),
+        ("ragged B=8 S=300", 8, 16, 8, 300, 128, bf16, True, 0, 0.0, False),
+        ("window 512 softcap 50 B=1 S=2048", 1, 16, 8, 2048, 128, bf16, True,
+         512, 50.0, False),
+        ("3 segments + pads B=2 S=1024", 2, 16, 8, 1024, 128, bf16, True, 0,
+         0.0, True),
+        ("f32 d=16 B=2 S=300", 2, 4, 2, 300, 16, f32, True, 0, 0.0, False),
+    ]
+    rows = []
+    for name, b, h, kv, s, d, dt, causal, window, softcap, seg in cases:
+        q = torch.randn((b, h, s, d), generator=gen, device=device).to(dt)
+        k = torch.randn((b, kv, s, d), generator=gen, device=device).to(dt)
+        v = torch.randn((b, kv, s, d), generator=gen, device=device).to(dt)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        segs_np = segments(b, s) if seg else None
+        sg = (() if segs_np is None else
+              (torch.from_numpy(segs_np).to(device),) * 2)
+        out = ops.flash_attention_fwd(q, k, v, *sg, **kw)
+        plain = (ref.flash_attention_segmented_ref if seg
+                 else ref.flash_attention_ref)
+        out_ref = plain(q, k, v, *sg, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - out_ref.float()).abs().max().item()
+        tol = 2e-2 if dt == bf16 else 1e-5
+        if not err <= tol:
+            fail(f"flash_attention {name}: max err {err} > {tol}")
+        if seg:
+            pads = torch.from_numpy(segs_np == -1).to(device)
+            if out.transpose(1, 2)[pads].abs().max().item() != 0.0:
+                fail("flash_attention: pad rows are not exactly 0")
+            other = torch.from_numpy(segs_np != 1).to(device)[:, None, :,
+                                                              None]
+            k2 = torch.where(other, torch.randn_like(k) * 10, k)
+            v2 = torch.where(other, torch.randn_like(v) * 10, v)
+            out2 = ops.flash_attention_fwd(q, k2, v2, *sg, **kw)
+            mine = torch.from_numpy(segs_np == 1).to(device)
+            if not torch.equal(out2.transpose(1, 2)[mine],
+                               out.transpose(1, 2)[mine]):
+                fail("flash_attention: another segment's K/V changed a "
+                     "segment's rows")
+            del k2, v2, out2
+        ms = timer(lambda: ops.flash_attention_fwd(q, k, v, *sg, **kw))
+        plain_ms = timer(lambda: plain(q, k, v, *sg, **kw), reps=3)
+        lib = None
+        if not (seg or window or softcap):   # one PyTorch call computes it
+            lib = timer(lambda: sdpa(q, k, v, is_causal=causal,
+                                     enable_gqa=True))
+        pairs = visible_pairs(s, s, causal, window, segs_np)
+        if segs_np is None:
+            pairs *= b
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        nbytes += 0 if segs_np is None else 2 * segs_np.nbytes
+        b_ms, b_by = bound(nbytes, 4.0 * pairs * h * d, str(dt)[6:])
+        row = dict(shape=f"{name} H={h} KV={kv} d={d} {str(dt)[6:]} "
+                   f"{'causal' if causal else 'full'}", max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                   bound_by=b_by)
+        rows.append(row)
+        log(f"  flash_attention {row['shape']}: err {err:.3g} (tol {tol}) "
+            f"kernel {ms:.4f} ms | plain {plain_ms:.4f} | library "
+            f"{'n/a' if lib is None else f'{lib:.4f}'} | bound {b_ms:.4f} "
+            f"({b_by})")
+        del q, k, v, out, out_ref
+    log(f"[flash_attention] {len(rows)} shapes agree with the plain version"
+        " (tol 2e-2 abs bf16, 1e-5 f32; pad rows exactly 0; segment "
+        "isolation bitwise)")
+    return rows
+
+
 def next_logits(torch, model, params, tokens, device, ps=16):
     """Last-position logits of one plain prefill of ``tokens`` on fresh
     pools (for the near-tie gap of a divergence)."""
@@ -473,21 +583,24 @@ def pool_bytes(pools):
     return sum(t.numel() * t.element_size() for _, t in _leaves(pools))
 
 
-def zero_launch_counters():
+def _wrappers():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.msb_matmul import ops as mm_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    mm_ops.msb_matmul.launches = 0
-    pa_ops.paged_attention_decode.launches = 0
-    pa_ops.paged_attention_decode_quant.launches = 0
+    return {"msb_matmul": mm_ops.msb_matmul,
+            "paged_attention_decode": pa_ops.paged_attention_decode,
+            "paged_attention_decode_quant":
+                pa_ops.paged_attention_decode_quant,
+            "flash_attention_fwd": fa_ops.flash_attention_fwd}
+
+
+def zero_launch_counters():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launch_counters():
-    from repro_torch.kernels.msb_matmul import ops as mm_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    return {"msb_matmul": mm_ops.msb_matmul.launches,
-            "paged_attention_decode": pa_ops.paged_attention_decode.launches,
-            "paged_attention_decode_quant":
-                pa_ops.paged_attention_decode_quant.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def serve_horizons(model, packed, prompts, engine_kw, max_new, kv_bits,
@@ -575,6 +688,75 @@ def phase_serve_quant(torch, device, ctx):
     return counts
 
 
+def phase_serve_static(torch, device, ctx):
+    """Phase 7's packed weights through the static engine: B=8 prompts of
+    512 tokens, 32 greedy tokens, then ``score`` on (8, 513) tokens; the
+    same prompts through ContinuousEngine must give the same tokens."""
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+    model, packed = ctx["model"], ctx["packed"]
+    cfg = model.cfg
+    b, p, n = 8, 512, 32
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
+    eng = ServeEngine(model, packed, max_seq=1024)
+    eng.generate(prompts[:, :16], 2)           # lazy set-up, untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counters()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launch_counters()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  generate launches: {counts}")
+    if not (counts["flash_attention_fwd"] > 0 and counts["msb_matmul"] > 0):
+        fail(f"serve static: a kernel of the path never launched: {counts}")
+    if toks.shape != (b, n) or not ((toks >= 0) & (toks < cfg.vocab_size)
+                                    ).all():
+        fail(f"serve static: tokens of shape {toks.shape} or out of range")
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(eng.params, {"tokens": torch.from_numpy(
+        prompts).to(device)})
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    ring = sum(t.numel() * t.element_size()
+               for _, t in _leaves(eng._grow_cache(cache, p)))
+    del logits, cache
+    t_dec = wall - t_pre
+    log(f"  ServeEngine B={b} P={p}: generate {n} tokens {wall:.3f} s wall; "
+        f"prefill {b * p} tokens in {t_pre:.3f} s = {b * p / t_pre:.1f} "
+        f"tok/s (timed alone); decode {b * n} tokens in {t_dec:.3f} s = "
+        f"{b * n / t_dec:.1f} tok/s (generate wall minus prefill)")
+    log(f"  ring cache {ring / 1e9:.3f} GB; device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB in use, peak "
+        f"{peak / 1e9:.3f} GB during generate")
+    scored = np.concatenate([prompts, toks[:, :1]], axis=1)
+    zero_launch_counters()
+    t0 = time.perf_counter()
+    nll = eng.score(scored)
+    torch.cuda.synchronize()
+    t_score = time.perf_counter() - t0
+    score_counts = read_launch_counters()
+    log(f"  score of {scored.shape}: NLL {nll:.6f} in {t_score:.3f} s, "
+        f"launches {score_counts}")
+    if not (np.isfinite(nll) and score_counts["flash_attention_fwd"] > 0):
+        fail(f"serve static: score {nll}, launches {score_counts}")
+    cont = ContinuousEngine(model, packed, decode_horizon=8, **ctx[
+        "engine_kw"])
+    for row in prompts:
+        cont.submit(row, n)
+    out = cont.run()
+    cont.close()
+    compare_tokens(torch, "static vs continuous", {i: toks[i] for i in
+                                                   range(b)}, out,
+                   list(prompts), model, packed, device)
+    profile_static(torch, eng, prompts)
+    log("[serve static] ok: kernel D carried prefill and score, tokens "
+        "agree with the continuous engine")
+    return counts
+
+
 def time_commit(torch, device, model, engine_kw, b=8, reps=10):
     """Wall ms of one layer's quantized write (hot write + commit-quantize
     of one candidate page per row, as a B=8 decode step does it), times the
@@ -611,6 +793,22 @@ def time_commit(torch, device, model, engine_kw, b=8, reps=10):
     del pools, cache
 
 
+def device_breakdown(prof, wall, n_steps, what):
+    """Device time by kernel from a profiler run over ``n_steps`` steps of
+    ``wall`` ms each: the busy share of the wall time and the top ten."""
+    by_name = {}
+    for evt in prof.key_averages():
+        dev = getattr(evt, "self_device_time_total",
+                      getattr(evt, "self_cuda_time_total", 0))
+        if dev > 0 and evt.device_type.name == "CUDA":
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + dev / 1e3
+    busy = sum(by_name.values()) / n_steps
+    log(f"  {what}: wall {wall:.2f} ms/step, device busy {busy:.2f} ms/step "
+        f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {ms / n_steps:8.3f} ms/step  {name[:90]}")
+
+
 def profile_decode(torch, engine, prompts, max_new, n_steps=4):
     """Where a full-batch decode step's time goes: torch.profiler over
     ``n_steps`` H=1 decode steps once all 8 requests decode. Prints device
@@ -630,21 +828,42 @@ def profile_decode(torch, engine, prompts, max_new, n_steps=4):
             engine.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n_steps * 1e3
-    by_name = {}
-    for evt in prof.key_averages():
-        dev = getattr(evt, "self_device_time_total",
-                      getattr(evt, "self_cuda_time_total", 0))
-        if dev > 0 and evt.device_type.name == "CUDA":
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + dev / 1e3
-    busy = sum(by_name.values()) / n_steps
-    log(f"  decode step profile (B=8, H=1, {n_steps} steps): wall "
-        f"{wall:.2f} ms/step, device busy {busy:.2f} ms/step "
-        f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%)")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"    {ms / n_steps:8.3f} ms/step  {name[:90]}")
+    device_breakdown(prof, wall, n_steps,
+                     f"decode step profile (B=8, H=1, {n_steps} steps)")
     while engine.has_work:
         engine.step()
     engine.close()
+
+
+def profile_static(torch, engine, prompts, n_steps=4):
+    """Where the static engine's time goes: torch.profiler over one
+    prefill of ``prompts`` and then over ``n_steps`` ring decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+    model, params = engine.model, engine.params
+    tokens = torch.from_numpy(prompts).to(engine.device)
+    b, p = prompts.shape
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device_breakdown(prof, wall, 1, f"static prefill profile (B={b}, P={p})")
+    cache = engine._grow_cache(cache, p)
+    cur = torch.full((b,), p, dtype=torch.int32, device=engine.device)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    logits, cache = model.decode_step(params, cache, tok, cur)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            logits, cache = model.decode_step(params, cache, tok, cur + 1 + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_steps * 1e3
+    device_breakdown(prof, wall, n_steps,
+                     f"static decode step profile (B={b}, {n_steps} steps)")
 
 
 def _leaves(tree, path=""):
@@ -690,8 +909,24 @@ def phase_paths(torch):
             eng.close()
         compare_tokens(torch, f"kv{bits} cuda vs cpu", outs["cuda"],
                        outs["cpu"], prompts, model, packed_cpu, "cpu")
+    from repro_torch.serve import ServeEngine
+    static = rng.integers(0, cfg.vocab_size, (4, 19)).astype(np.int32)
+    outs, nll = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = ServeEngine(model, qparams, max_seq=64, device=dev)
+        toks = eng.generate(static, 16)
+        outs[dev] = {i: toks[i] for i in range(len(static))}
+        nll[dev] = eng.score(np.concatenate([static, toks], axis=1))
+    compare_tokens(torch, "static cuda vs cpu", outs["cuda"], outs["cpu"],
+                   list(static), model, packed_cpu, "cpu")
+    rel = abs(nll["cuda"] - nll["cpu"]) / abs(nll["cpu"])
+    log(f"  static score cuda {nll['cuda']:.7f} vs cpu {nll['cpu']:.7f} "
+        f"(rel {rel:.3g}, tol 1e-4: f32 sums in another order)")
+    if not rel <= 1e-4:
+        fail(f"static score differs between cuda and cpu: rel {rel}")
     log("[paths] smoke internlm2 on the kernel path (cuda) and the plain "
-        "path (cpu) at kv_bits 16, 8 and 4: greedy tokens agree")
+        "path (cpu) at kv_bits 16, 8 and 4 and through the static engine: "
+        "greedy tokens agree")
 
 
 def main():
@@ -710,9 +945,11 @@ def main():
     mm_rows = phase_msb_matmul(torch, timer, device)
     pa_rows = phase_paged_attention(torch, timer, device)
     paq_rows = phase_paged_attention_quant(torch, timer, device)
+    fa_rows = phase_flash_attention(torch, timer, device)
     del timer
     counts, ctx = phase_serve(torch, device)
     q_counts = phase_serve_quant(torch, device, ctx)
+    s_counts = phase_serve_static(torch, device, ctx)
     del ctx
     phase_paths(torch)
     # representative rows: the decode shapes of the main path
@@ -720,6 +957,7 @@ def main():
                                                                    8192))
     pa = pa_rows[-1]
     paq = next(r for r in paq_rows if r["bits"] == 4)
+    fa = fa_rows[0]             # the static path's prefill shape
     kernels = [
         dict(name="msb_matmul", route="cuda",
              source="src/repro_torch/csrc/msb_matmul.cu",
@@ -747,6 +985,15 @@ def main():
              ms=paq["ms"], plain_ms=paq["plain_ms"],
              bound_ms=paq["bound_ms"], bound_by=paq["bound_by"],
              library_ms=paq["library_ms"], shape=paq["shape"]),
+        dict(name="flash_attention_fwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/"
+                      "flash_attention.py:92",
+             launches=s_counts["flash_attention_fwd"],
+             max_abs_err=max(r["max_abs_err"] for r in fa_rows),
+             ms=fa["ms"], plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
+             bound_by=fa["bound_by"], library_ms=fa["library_ms"],
+             shape=fa["shape"]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)

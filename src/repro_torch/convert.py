@@ -1,10 +1,13 @@
-"""Carry a params or page-pool tree of the JAX package across to the port.
+"""Carry a params, page-pool or cache tree of the JAX package across to the
+port.
 
 ``from_reference(tree, device)`` turns the reference's params tree (nested
 dicts of arrays and ``QTensor`` / ``PackedQTensor`` leaves) into the port's,
-and a page-pool tree from ``Model.init_paged_pools`` into the port's pools
-with each leaf's dtype kept (kv16 pools; or int8/uint8 codes, f32/bf16
-scales and hot rows of quantized ones).
+a page-pool tree from ``Model.init_paged_pools`` into the port's pools, and
+a static ring cache (``Model.prefill`` / ``init_cache``: ``layers/s0/attn/
+{k,v}`` and int32 ``pos``) into the port's cache, with each leaf's dtype
+kept (kv16 pools and caches; or int8/uint8 codes, f32/bf16 scales and hot
+rows of quantized pools).
 Leaves are duck-typed on their attributes — ``codes/scales/bits/block`` or
 ``packed/scales/n/kblocked`` — and read with ``numpy.asarray``, so this
 module imports neither ``jax`` nor ``repro``. bf16 arrays come out of numpy

@@ -119,3 +119,26 @@ def dequantize_params(params, dtype=None):
             return leaf
         return w.to(dtype) if dtype is not None else w
     return _walk(params, visit)
+
+
+def param_bits(params):
+    """Total storage bits of a (possibly mixed) params tree. Packed leaves
+    report their allocated footprint: uint8 packed codes (8 bits a byte)
+    plus the scale table, N-padding included; QTensor leaves count
+    ``bits`` per code."""
+    total = 0
+
+    def visit(_path, leaf):
+        nonlocal total
+        if isinstance(leaf, PackedQTensor):
+            total += (leaf.packed.numel() * 8
+                      + leaf.scales.numel() * leaf.scales.element_size() * 8)
+        elif isinstance(leaf, QTensor):
+            total += (leaf.codes.numel() * leaf.bits
+                      + leaf.scales.numel() * leaf.scales.element_size() * 8)
+        elif isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size() * 8
+        return leaf
+
+    _walk(params, visit)
+    return total

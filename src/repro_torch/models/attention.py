@@ -1,22 +1,30 @@
-"""Paged attention over a global K/V page pool (kv16 and quantized pools).
+"""Attention of the port's model: the static path's chunked flash attention
+and ring-buffer decode attention, and paged attention over a global K/V
+page pool (kv16 and quantized pools).
 
-Port of the paged part of ``repro.models.attention``. Pools are
-``(n_pages, page_size, KV, d)``; position i of sequence b lives at
-``(block_tables[b, i // page_size], i % page_size)``; page 0 is the
+Port of ``repro.models.attention``. ``flash_attention`` takes the model's
+(B, S, H, d) layout and hands head-major views (no copy) to the
+``flash_attention_fwd`` wrapper: kernel D on a CUDA tensor, which masks its
+own ragged edge so nothing is padded, and the plain version on a CPU
+tensor. ``decode_attention`` is plain torch, as the reference computes it
+outside any kernel.
+
+Paged pools are ``(n_pages, page_size, KV, d)``; position i of sequence b
+lives at ``(block_tables[b, i // page_size], i % page_size)``; page 0 is the
 allocator's scratch page, where pad tokens (``q_pos == -1``) write.
 
-Unlike the reference's pure functions, the writes here update the pools
+Unlike the reference's pure functions, the paged writes here update the pools
 *in place* and return the same tensors (the quantized writes return the
 same ``cache`` dict).
 
-Attention always goes through the ``paged_attention_decode`` wrapper: every
-query token becomes a one-token row with its own block-table row and
-``kv_len = min(q_pos + 1, kv_lens)`` (0 for pads). That is exactly the
-reference mask ``kpos <= q_pos && kpos < kv_lens`` — including intra-chunk
-causality in prefill — so on a CUDA tensor both decode and packed prefill
-run on the kernel, and on a CPU tensor on its plain version (whose core,
-the reference's ``_attend_gathered``, is ``kernels/paged_attention/ref.py``
-``attend_gathered``). Pad rows differ from the reference on purpose: they
+Paged attention always goes through the ``paged_attention_decode``
+wrapper: every query token becomes a one-token row with its own
+block-table row and ``kv_len = min(q_pos + 1, kv_lens)`` (0 for pads).
+That is exactly the reference mask ``kpos <= q_pos && kpos < kv_lens`` —
+including intra-chunk causality in prefill — so on a CUDA tensor both
+decode and packed prefill run on the kernel, and on a CPU tensor on its
+plain version (whose core, the reference's ``_attend_gathered``, is
+``kernels/paged_attention/ref.py`` ``attend_gathered``). Pad rows differ from the reference on purpose: they
 come out 0, where the reference returns the mean of V; pad logits are
 discarded and pad K/V land on page 0.
 """
@@ -25,8 +33,58 @@ from __future__ import annotations
 import torch
 
 from ..core.quantize import kv_quantize_pages
+from ..kernels.flash_attention.ops import flash_attention_fwd
 from ..kernels.paged_attention.ops import (paged_attention_decode,
                                            paged_attention_decode_quant)
+
+_NEG_INF = -2.0e38
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    scale=None):
+    """Attention over a whole sequence. q: (B, Sq, H, d), k/v: (B, Skv, KV,
+    d) -> (B, Sq, H, d), any Sq and Skv. Kernel D on a CUDA tensor (head-
+    major strided views, no padding or transposed copy), its plain version
+    on a CPU tensor. The reference's ``q_offset`` (context parallelism,
+    ROADMAP item 11) is not taken, and neither are its chunk sizes: the
+    kernel tiles by 64 and masks the ragged edge itself."""
+    out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=window, softcap=softcap, scale=scale)
+    return out.transpose(1, 2)
+
+
+def decode_attention(q, k_cache, v_cache, positions, cur_pos, *, window=0,
+                     softcap=0.0, scale=None):
+    """Single-token attention against a ring-buffer cache. q: (B, 1, H, d);
+    caches (B, S, KV, d); positions (B, S) int32 position of each cache
+    entry (-1 = empty); cur_pos (B,). Entry s is visible when ``0 <=
+    positions[b, s] <= cur_pos[b]`` (and inside the window). Products of
+    cache-type values summed in f32 — here by upcasting to f32, which is
+    exact — and ``p`` rounded to the cache's type before the PV product, as
+    the reference computes it."""
+    b, _, kv, d = k_cache.shape
+    h = q.shape[2]
+    rep = h // kv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    f32 = torch.float32
+    qh = q.reshape(b, kv, rep, d).to(k_cache.dtype).to(f32)
+    sc = torch.einsum("bkrd,bskd->bkrs", qh, k_cache.to(f32)) * scale
+    if softcap > 0:
+        sc = softcap * torch.tanh(sc / softcap)
+    cur = cur_pos.to(positions.dtype)[:, None]
+    valid = (positions <= cur) & (positions >= 0)
+    if window > 0:
+        valid &= positions > cur - window
+    sc = torch.where(valid[:, None, None, :], sc,
+                     torch.tensor(_NEG_INF, device=sc.device))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1)
+    out = torch.einsum("bkrs,bskd->bkrd", p.to(v_cache.dtype).to(f32),
+                       v_cache.to(f32))
+    out = out / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, 1, h, d).to(q.dtype)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, q_pos, kv_lens, *,

@@ -1,9 +1,11 @@
 """Transformer building blocks (plain functions, params as dicts).
 
-Port of ``repro.models.layers`` for the dense decoder's paged serving path:
-norms and RoPE in f32, projections through ``dense`` (the msb_matmul kernel
-for packed weights), and the paged branches of ``attention_layer`` over
-kv16 and quantized (kv_bits 8|4) pools.
+Port of ``repro.models.layers`` for the dense decoder: norms and RoPE in
+f32, projections through ``dense`` (the msb_matmul kernel for packed
+weights), ``attention_layer``'s static branches (whole-sequence flash
+attention for prefill and the loss; ring-buffer decode) and its paged
+branches over kv16 and quantized (kv_bits 8|4) pools, and the forward of
+the chunked cross-entropy.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import torch
 
 from ..core.quantize import PackedQTensor, QTensor
 from ..kernels.msb_matmul.ops import packed_matmul
-from .attention import (paged_attention, paged_attention_packed,
+from .attention import (decode_attention, flash_attention,
+                        paged_attention, paged_attention_packed,
                         paged_attention_quant, paged_attention_quant_packed,
                         paged_write, paged_write_packed, paged_write_quant,
                         paged_write_quant_packed)
@@ -52,15 +55,29 @@ def dense(x, w, b=None):
     return y
 
 
-def attention_layer(p, x, cfg, *, cache, paged):
-    """Paged self-attention. ``paged`` = dict(block_tables, q_pos, kv_lens
+def attention_layer(p, x, cfg, positions=None, *, cache=None, cur_pos=None,
+                    cross=False, decode_positions=None, paged=None):
+    """Self-attention. Returns (out, new_cache).
+
+    Prefill and loss: ``cache`` None -> causal flash attention over the
+    sequence
+    at ``positions`` (S,) or (B, S); the new cache is the roped {"k", "v"}
+    (B, S, KV, d). Ring decode: ``cache`` = {"k", "v"} ring buffers (B,
+    S_max, KV, d), written in place at slot ``cur_pos[0] % S_max`` (the
+    reference's one shared slot) and attended under ``decode_positions``
+    (B, S_max), the position table the model keeps; returns the same dict.
+    Paged serving: ``paged`` = dict(block_tables, q_pos, kv_lens
     [, seg_ids][, slots, seg_off, kv_bits]); ``cache`` = this layer's
     pools, written in place: {"k", "v"} at kv16, or the quantized dual
     pools {"k_codes", "v_codes", "k_scales", "v_scales", "k_hot", "v_hot"}
     (hot-row write, commit-time quantization, fused-dequant attention).
     With ``seg_ids`` the (1, T) row is a packed ragged prefill: per-token
     segment ids route every write and read to the token's own block-table
-    row. Returns (out, cache)."""
+    row. Cross-attention (``cross=True``, enc-dec) is not ported."""
+    if cross:
+        raise NotImplementedError(
+            "cross-attention decode (enc-dec): ROADMAP item 10 brings "
+            "whisper")
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     b = x.shape[0]
     q = dense(x, p["wq"], p.get("bq")).reshape(b, -1, h, hd)
@@ -68,6 +85,9 @@ def attention_layer(p, x, cfg, *, cache, paged):
     v = dense(x, p["wv"], p.get("bv")).reshape(b, -1, kv, hd)
     softcap = cfg.attn_softcap
     scale = hd ** -0.5 if cfg.query_scale == 0 else cfg.query_scale
+    if paged is None:
+        return _static_attention(p, q, k, v, cfg, positions, cache, cur_pos,
+                                 decode_positions, softcap, scale)
     q_pos = paged["q_pos"]
     safe_pos = torch.clamp(q_pos, min=0)
     q = rope(q, safe_pos, cfg.rope_theta)
@@ -108,9 +128,62 @@ def attention_layer(p, x, cfg, *, cache, paged):
     return dense(out.reshape(b, t, -1), p["wo"]), {"k": k_pool, "v": v_pool}
 
 
+def _static_attention(p, q, k, v, cfg, positions, cache, cur_pos,
+                      decode_positions, softcap, scale):
+    b, t = q.shape[:2]
+    if cache is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        out = flash_attention(q, k, v, softcap=softcap, scale=scale)
+        new_cache = {"k": k, "v": v}
+    else:
+        q = rope(q, cur_pos[:, None], cfg.rope_theta)
+        k = rope(k, cur_pos[:, None], cfg.rope_theta)
+        slot = (cur_pos[:1] % cache["k"].shape[1]).to(torch.int64)
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        out = decode_attention(q, cache["k"], cache["v"], decode_positions,
+                               cur_pos, softcap=softcap, scale=scale)
+        new_cache = cache
+    return dense(out.reshape(b, t, -1), p["wo"]), new_cache
+
+
 def mlp_layer(p, x):
     """SwiGLU MLP."""
     gate = torch.nn.functional.silu(
         dense(x, p["wg"]).to(torch.float32)).to(x.dtype)
     up = dense(x, p["wi"])
     return dense(gate * up, p["wo"])
+
+
+def chunked_softmax_xent(hidden, unembed_vd, labels, mask, chunk=512,
+                         softcap=0.0, z_loss=1e-4, vocab_real=None):
+    """Mean cross-entropy (plus the z-loss) over masked positions, forward
+    only, one chunk of positions at a time so the (B, S, V) logits never
+    exist whole. hidden (B, S, D), labels/mask (B, S), unembed_vd
+    (V_padded, D); padded vocab rows are masked to -1e30."""
+    s = hidden.shape[1]
+    vp = unembed_vd.shape[0]
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    w = unembed_vd.to(torch.float32)
+    keep = None
+    if vocab_real is not None and vocab_real < vp:
+        keep = torch.arange(vp, device=hidden.device) < vocab_real
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, c):
+        logits = hidden[:, i:i + c].to(torch.float32) @ w.t()
+        if softcap > 0:
+            logits = softcap * torch.tanh(logits / softcap)
+        if keep is not None:
+            logits = torch.where(keep, logits,
+                                 torch.tensor(-1e30, device=logits.device))
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, i:i + c, None].to(torch.int64))[..., 0]
+        mc = mask[:, i:i + c].to(torch.float32)
+        tot = tot + torch.sum((lse - gold) * mc + z_loss * lse ** 2 * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,9 +1,12 @@
-"""Top-level Model API for paged serving.
+"""Top-level Model API: the loss forward, static prefill and ring decode,
+and paged serving.
 
-Port of the serving half of ``repro.models.model``: embedding and logits,
+Port of ``repro.models.model`` for dense token decoders: embedding and
+logits; ``loss`` (forward only), ``prefill`` and ``decode_step`` over a
+ring-buffer cache (``cache_defs``/``init_cache``) for the static engine;
 paged K/V pools (kv16, or MSB-quantized at kv_bits 8|4), one paged step
 (decode or chunked prefill), packed ragged prefill, and the decode horizon
-with on-device greedy sampling.
+with on-device greedy sampling for the continuous engine.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from ..core.quantize import KVQuantSpec, PackedQTensor, QTensor, \
     packed_gather
 from ..device import resolve_device
 from ..kernels.msb_matmul.ops import packed_matmul
-from .layers import rms_norm
+from .layers import chunked_softmax_xent, rms_norm
 from .transformer import (_require_dense, forward_stack, init_params,
                           layer_plan, n_periods)
 
@@ -86,6 +89,93 @@ class Model:
             logits = torch.where(keep, logits,
                                  torch.full_like(logits, -float("inf")))
         return logits
+
+    # -- loss forward --------------------------------------------------------
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy (plus the z-loss) of ``batch``
+        {"tokens" (B, S), "labels" (B, S); labels < 0 are masked}. Forward
+        only: training (gradients, ROADMAP item 12) is not ported. Returns
+        (loss, {"ce", "router_aux"}); dense stacks have no router, so
+        ``router_aux`` is 0."""
+        cfg = self.cfg
+        _require_dense(cfg)
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = forward_stack(params["dec"], x, cfg, positions=positions)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        labels = batch["labels"].to(torch.int64)
+        ce = chunked_softmax_xent(x, self._unembed_vd(params),
+                                  torch.clamp(labels, min=0),
+                                  (labels >= 0).to(torch.float32),
+                                  softcap=cfg.logit_softcap,
+                                  vocab_real=cfg.vocab_size)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce, {"ce": ce, "router_aux": aux}
+
+    # -- static serving: prefill + ring-buffer decode ------------------------
+    def prefill(self, params, batch):
+        """Forward over ``batch["tokens"]`` (B, S) collecting the cache.
+        Returns (last-position logits (B, V) f32, cache): cache["layers"]
+        holds each slot's roped {"k", "v"} (n_periods, B, S, KV, d) and
+        cache["pos"] (B, S) int32 the positions 0..S-1."""
+        cfg = self.cfg
+        _require_dense(cfg)
+        x = self._embed(params, batch["tokens"])
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)
+        x, layer_cache = forward_stack(params["dec"], x, cfg,
+                                       positions=positions,
+                                       collect_cache=True)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = self._logits(params, x[:, -1])
+        pos = positions.to(torch.int32)[None].expand(b, s).contiguous()
+        return logits, {"layers": layer_cache, "pos": pos}
+
+    def decode_step(self, params, cache, tokens, cur_pos):
+        """One decode step. tokens (B, 1), cur_pos (B,) on the cache's
+        device. Every row writes ring slot ``cur_pos[0] % S`` (as the
+        reference does), and ``cache`` — K/V rings and the ``pos`` table —
+        is updated in place, with no host sync. Returns (logits (B, V),
+        cache)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        pos = cache["pos"]
+        slot = (cur_pos[:1] % pos.shape[1]).to(torch.int64)
+        pos.index_copy_(1, slot, cur_pos[:, None].to(pos.dtype))
+        x, _ = forward_stack(params["dec"], x, cfg, positions=cur_pos[:, None],
+                             cache=cache["layers"], cur_pos=cur_pos,
+                             decode_positions=pos)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._logits(params, x[:, -1]), cache
+
+    def cache_defs(self, batch, seq_len):
+        """(shape, dtype) per leaf of the ring-buffer cache, nested like
+        it: attn {"k", "v"} (n_periods, B, S, KV, d) per slot and "pos"
+        (B, S) int32."""
+        cfg = self.cfg
+        _require_dense(cfg)
+        kvshape = (n_periods(cfg), batch, seq_len, cfg.n_kv_heads,
+                   cfg.head_dim_)
+        layers = {f"s{slot}": {"attn": {"k": (kvshape, cfg.dtype),
+                                        "v": (kvshape, cfg.dtype)}}
+                  for slot, _ in enumerate(layer_plan(cfg, "dec"))}
+        return {"layers": layers, "pos": ((batch, seq_len), torch.int32)}
+
+    def init_cache(self, batch, seq_len, device=None):
+        """An empty ring cache on ``device`` (``None`` = the card): zero
+        K/V, and ``pos`` the positions 0..S-1 of every row, as the
+        reference initialises it."""
+        dev = resolve_device(device)
+
+        def build(d):
+            if isinstance(d, dict):
+                return {k: build(v) for k, v in d.items()}
+            shape, dt = d
+            if dt == torch.int32:
+                return torch.arange(shape[-1], dtype=dt, device=dev)[
+                    None].expand(shape).contiguous()
+            return torch.zeros(shape, dtype=dt, device=dev)
+        return build(self.cache_defs(batch, seq_len))
 
     # -- paged serving -------------------------------------------------------
     def supports_paged(self):

@@ -116,23 +116,46 @@ def init_params(cfg, generator, device=None):
     return _nest(flat)
 
 
-def _block(x, lp, cfg, *, cache, paged):
+def _block(x, lp, cfg, *, positions, cur_pos, cache, decode_positions,
+           paged):
     """One attention + dense-MLP residual block. Returns (x, new_cache)."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    y, new_cache = attention_layer(lp["attn"], h, cfg, cache=cache["attn"],
-                                   paged=paged)
+    y, new_cache = attention_layer(
+        lp["attn"], h, cfg, positions,
+        cache=None if cache is None else cache["attn"], cur_pos=cur_pos,
+        decode_positions=decode_positions, paged=paged)
     x = x + y
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
     return x + mlp_layer(lp["mlp"], h), {"attn": new_cache}
 
 
-def forward_stack(params_stack, x, cfg, *, cache, paged):
-    """Run the layer stack over paged pools. ``cache`` is the pools'
-    ``layers`` subtree; each layer works on its slice of the stacked pools,
-    so the K/V writes land in ``cache`` in place. Returns (x, cache)."""
+def forward_stack(params_stack, x, cfg, *, positions=None, cache=None,
+                  cur_pos=None, collect_cache=False, decode_positions=None,
+                  paged=None):
+    """Run the layer stack (the reference's scan is a loop over layer
+    slices). Returns (x, cache).
+
+    * loss: ``positions`` only; returns (x, None).
+    * prefill: ``collect_cache=True``; returns each slot's roped
+      {"k", "v"} stacked to (n_periods, B, S, KV, d).
+    * ring decode: ``cache`` (the ``layers`` subtree of ``Model.init_cache``)
+      with ``cur_pos`` and ``decode_positions``; each layer writes its ring
+      slice in place and ``cache`` is returned.
+    * paged: ``cache`` = the pools' ``layers`` subtree and ``paged``; each
+      layer writes its slice of the stacked pools in place."""
     _require_dense(cfg)
+    collected = []
     for period in range(n_periods(cfg)):
         lp = map_tensors(lambda t: t[period], params_stack["s0"])
-        layer_cache = map_tensors(lambda t: t[period], cache["s0"])
-        x, _ = _block(x, lp, cfg, cache=layer_cache, paged=paged)
+        layer_cache = (None if cache is None
+                       else map_tensors(lambda t: t[period], cache["s0"]))
+        x, nc = _block(x, lp, cfg, positions=positions, cur_pos=cur_pos,
+                       cache=layer_cache, decode_positions=decode_positions,
+                       paged=paged)
+        if collect_cache:
+            collected.append(nc["attn"])
+    if collect_cache:
+        cache = {"s0": {"attn": {
+            name: torch.stack([c[name] for c in collected])
+            for name in ("k", "v")}}}
     return x, cache

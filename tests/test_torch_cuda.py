@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from repro_torch.core.quantize import kv_quantize_pages
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.msb_matmul import ops as mm_ops
 from repro_torch.kernels.msb_matmul import ref as mm_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -161,3 +163,87 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         pa_ops.paged_attention_decode_quant(q, kc, ks, vc, vs, kh, vh,
                                             bt.to(torch.int32), one, one,
                                             kv_bits=8)
+
+
+def _segments(b, s):
+    """Three contiguous segments per row, then pad positions (-1)."""
+    segs = np.full((b, s), -1, np.int32)
+    for i in range(b):
+        cuts = [0, 13 + 5 * i, 70 + 7 * i, s - 9 - i]
+        for j in range(3):
+            segs[i, cuts[j]:cuts[j + 1]] = j
+    return segs
+
+
+FLASH_CASES = {   # causal, window, softcap, H, KV, Sq, Skv, d
+    "causal-s100-d16": (True, 0, 0.0, 4, 2, 100, 100, 16),
+    "causal-rep4-s300-d128": (True, 0, 0.0, 8, 2, 300, 300, 128),
+    "noncausal-s70x130-d64": (False, 0, 0.0, 4, 4, 70, 130, 64),
+    "window50-softcap30-s257-d128": (True, 50, 30.0, 4, 2, 257, 257, 128),
+    "causal-s64-d256": (True, 0, 0.0, 2, 1, 64, 64, 256),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    """Kernel D against its plain version on the same inputs. Tolerance:
+    1e-5 in f32 (f32 sums in another order); 2e-2 in bf16 (bf16 outputs,
+    and a p rounded to bf16 on both sides may round the other way when the
+    f32 values it came from differ in the last bit)."""
+    causal, window, softcap, h, kv, sq, skv, d = FLASH_CASES[case]
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+        for shape in ((2, h, sq, d), (2, kv, skv, d), (2, kv, skv, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa_ops.flash_attention_fwd.launches
+    out = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    assert fa_ops.flash_attention_fwd.launches == before + 1
+    ref = fa_ref.flash_attention_ref(q, k, v, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    # (B, S, H, d) activations passed as head-major strided views
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    out2 = fa_ops.flash_attention_fwd(qt, k, v, **kw)
+    assert torch.equal(out2, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_segments(cuda, dtype):
+    """Segments: agrees with the plain full softmax, pad rows exactly 0,
+    and new K/V for every other segment leave a segment's rows
+    bit-identical on the card."""
+    rng = np.random.default_rng(22)
+    b, h, kv, s, d = 2, 4, 2, 200, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+        for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+    segs = torch.from_numpy(_segments(b, s)).to(cuda)
+    out = fa_ops.flash_attention_fwd(q, k, v, segs, segs)
+    ref = fa_ref.flash_attention_segmented_ref(q, k, v, segs, segs)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    pads = (segs == -1)[:, None, :, None].expand_as(out)
+    assert (out[pads] == 0).all()
+    other = (segs != 1)[:, None, :, None]
+    k2 = torch.where(other, torch.randn_like(k) * 10, k)
+    v2 = torch.where(other, torch.randn_like(v) * 10, v)
+    out2 = fa_ops.flash_attention_fwd(q, k2, v2, segs, segs)
+    mine = (segs == 1)[:, None, :, None].expand_as(out)
+    assert torch.equal(out2[mine], out[mine])
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_refuses(cuda):
+    q = torch.zeros(1, 2, 8, 24, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention_fwd(q, q[:, :1], q[:, :1])
+    q = torch.zeros(1, 2, 8, 16, device=cuda)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention_fwd(q.half(), q[:, :1].half(), q[:, :1].half())
+    with pytest.raises(ValueError, match="int32"):
+        seg = torch.zeros(1, 8, dtype=torch.int64, device=cuda)
+        fa_ops.flash_attention_fwd(q, q[:, :1], q[:, :1], seg, seg)

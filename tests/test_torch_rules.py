@@ -13,10 +13,11 @@ import repro_torch
 from repro_torch.configs import smoke_config
 from repro_torch.core import QuantPolicy, pack_params, quantize_params
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.msb_matmul import ops as mm_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import Model
-from repro_torch.serve import ContinuousEngine
+from repro_torch.serve import ContinuousEngine, ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -71,6 +72,8 @@ ENTRY_POINTS = {
         {"w": torch.zeros(64, 64)}, QuantPolicy(min_size=1)),
     "pack_params": lambda: pack_params({"w": torch.zeros(2)}),
     "ContinuousEngine": lambda: ContinuousEngine(_tiny(), {}),
+    "Model.init_cache": lambda: _tiny().init_cache(1, 4),
+    "ServeEngine": lambda: ServeEngine(_tiny(), {}, max_seq=8),
 }
 
 
@@ -83,7 +86,8 @@ def test_device_none_means_cuda_and_raises_without_it(name, monkeypatch):
 
 def test_cpu_tensors_take_the_plain_versions():
     before = (mm_ops.msb_matmul.launches,
-              pa_ops.paged_attention_decode.launches)
+              pa_ops.paged_attention_decode.launches,
+              fa_ops.flash_attention_fwd.launches)
     x = torch.ones(2, 64)
     packed = torch.zeros(64, 32, dtype=torch.uint8)
     scales = torch.ones(64, 1, 8)
@@ -95,8 +99,12 @@ def test_cpu_tensors_take_the_plain_versions():
         q, pool, pool, torch.ones(1, 1, dtype=torch.int32),
         torch.tensor([2], dtype=torch.int32))
     assert torch.allclose(out, torch.ones(1, 2, 4))
+    k = torch.ones(1, 1, 3, 16)
+    out = fa_ops.flash_attention_fwd(torch.ones(1, 2, 3, 16), k, k)
+    assert torch.allclose(out, torch.ones(1, 2, 3, 16))
     assert (mm_ops.msb_matmul.launches,
-            pa_ops.paged_attention_decode.launches) == before
+            pa_ops.paged_attention_decode.launches,
+            fa_ops.flash_attention_fwd.launches) == before
 
 
 UNPORTED = {
@@ -138,3 +146,13 @@ def test_package_version_and_plain_init_is_seeded():
     b = model.init(torch.Generator().manual_seed(3), device="cpu")
     assert torch.equal(a["dec"]["s0"]["attn"]["wq"], b["dec"]["s0"]["attn"]["wq"])
     assert np.isfinite(a["embed"].numpy()).all()
+
+
+def test_cross_attention_names_its_roadmap_item():
+    from repro_torch.models.layers import attention_layer
+    model = _tiny()
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    lp = {k: v[0] for k, v in params["dec"]["s0"]["attn"].items()}
+    with pytest.raises(NotImplementedError, match="item 10"):
+        attention_layer(lp, torch.zeros(1, 1, 64), model.cfg,
+                        cache={"k": None, "v": None}, cross=True)
