@@ -12,11 +12,13 @@ one line each (details indented), any failure exits non-zero:
    flash_attention)
 3. msb_matmul vs its plain version at the main path's shapes, with times
 4. paged_attention_decode vs its plain version on a full-width bf16 pool
-5. paged_attention_decode_quant vs its plain version on full-width 8- and
-   4-bit quantized pools
+5. paged_attention_decode_quant (split-KV) vs its plain version on
+   full-width 8- and 4-bit quantized pools; every row bit-identical alone
+   and in the batch
 6. flash_attention_fwd vs its plain version at the static path's prefill
-   shape and at long, ragged, windowed + softcapped, segmented and f32
-   shapes; pad rows exactly 0, cross-segment isolation bit for bit
+   shape and at long, ragged, windowed + softcapped, segmented (bf16: the
+   tensor-core kernel) and f32 (the SIMT kernel) shapes; pad rows exactly
+   0, cross-segment isolation bit for bit
 7. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
    the card, pack, ContinuousEngine at decode_horizon 8 and 1 over kv16
    pools; the kernels' launch counters are zeroed just before the
@@ -31,9 +33,13 @@ one line each (details indented), any failure exits non-zero:
    the CPU from the same weights, at kv_bits 16, 8 and 4, and through the
    static engine
 
-The second-to-last line is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
-stream is timed cold (L2 flushed before every launch), as decode meets it.
+The second-to-last line is the kernel table as JSON (kernel C once per
+code width); the last line is ``{"ok": true, "device": {...}}``. Times
+come from CUDA events; a weight stream is timed cold (L2 flushed before
+every launch), as decode meets it. Phases 5 and 6 report the median of 20
+launches (the mean beside it) for the kernel and its SDPA yardstick; the
+build prints ptxas's registers, shared memory and spills for every
+kernel.
 """
 from __future__ import annotations
 
@@ -77,26 +83,42 @@ class Timer:
     """Mean milliseconds of ``fn()`` over ``reps`` launches, each timed with
     CUDA events; ``cold`` flushes L2 (a 128 MB write) before every launch."""
 
+    SLEEP_CYCLES = 2_000_000     # ~1 ms at the H100's clocks
+
     def __init__(self, torch, device):
         self.torch = torch
         self.flush = torch.empty(32 << 20, dtype=torch.float32, device=device)
 
     def __call__(self, fn, reps=10, cold=True, warmup=2):
+        return float(np.mean(self.times(fn, reps, cold, warmup)))
+
+    def times(self, fn, reps=10, cold=True, warmup=2):
+        """Milliseconds of each of ``reps`` timed launches. A short device
+        sleep is queued before the start event, so the host has queued the
+        whole call before the device reaches it: the events bracket device
+        work only, not the wrapper's Python time."""
         torch = self.torch
         for _ in range(warmup):
             fn()
-        total = 0.0
+        out = []
         for _ in range(reps):
             if cold:
                 self.flush.zero_()
+            torch.cuda._sleep(self.SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
             end.record()
             end.synchronize()
-            total += start.elapsed_time(end)
-        return total / reps
+            out.append(start.elapsed_time(end))
+        return out
+
+    def stats(self, fn, reps=20, cold=True):
+        """(median, mean) milliseconds over ``reps`` launches: the median
+        for the tables (robust to one noisy launch), the mean beside it."""
+        t = self.times(fn, reps, cold)
+        return float(np.median(t)), float(np.mean(t))
 
 
 def bound(nbytes, flops, dtype_name):
@@ -127,10 +149,12 @@ def phase_build():
     wall = time.perf_counter() - t0
     log(f"[build] {wall:.2f} s wall for {len(secs)} sources, in parallel: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
-    for name, text in _build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    for name in _build.KERNELS:
+        for r in _build.ptxas_report(name):
+            log(f"  ptxas {name}: {r['kernel']}: {r['registers']} "
+                f"registers, {r['smem']} B static smem, {r['stack']} B stack,"
+                f" spills {r['spill_stores']} B stored / {r['spill_loads']} B "
+                "loaded")
 
 
 def rand_packed(torch, gen, k, n, kblocked, device):
@@ -311,8 +335,21 @@ def phase_paged_attention_quant(torch, timer, device):
                 fail("paged_attention_quant: zero-length rows are not "
                      "exactly 0")
             err = max(err, e)
-        ms = timer(lambda: ops.paged_attention_decode_quant(*args,
-                                                            kv_bits=bits))
+        # a row's bits do not depend on the rest of the batch (split
+        # boundaries by page index alone): each row alone, with a block
+        # table only as wide as it needs, equals its row in the batch
+        for i, n in enumerate(lens):
+            w = max(1, -(-n // ps))
+            alone = ops.paged_attention_decode_quant(
+                q[i:i + 1].contiguous(), kc, ks, vc, vs, kh, vh,
+                bt[i:i + 1, :w].contiguous(), kv_lens[i:i + 1].contiguous(),
+                hot_rows[i:i + 1].contiguous(), kv_bits=bits,
+                softcap=30.0)
+            if not torch.equal(alone[0], out[i]):
+                fail(f"paged_attention_quant kv{bits}: the row of {n} keys "
+                     "differs alone and in the batch")
+        ms, ms_mean = timer.stats(lambda: ops.paged_attention_decode_quant(
+            *args, kv_bits=bits))
         plain = timer(lambda: ref.paged_attention_decode_quant_ref(
             *args, kv_bits=bits), reps=3)
         # library yardstick: one SDPA call on a pre-dequantized, pre-gathered
@@ -326,8 +363,8 @@ def phase_paged_attention_quant(torch, timer, device):
         mask = (torch.arange(s, device=device)[None, :]
                 < kv_lens[:, None])[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = timer(lambda: sdpa(q[:, :, None], kg, vg, attn_mask=mask,
-                                 enable_gqa=True))
+        lib, lib_mean = timer.stats(lambda: sdpa(
+            q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
         del kg, vg
         # bytes the function needs: committed positions as codes (+ one
         # codebook row per touched group), frontier positions from the bf16
@@ -348,12 +385,55 @@ def phase_paged_attention_quant(torch, timer, device):
                    bound_by=b_by)
         rows.append(row)
         log(f"  paged_attention_quant {row['shape']}: err {err:.3g} kernel "
-            f"{ms:.4f} ms | plain {plain:.4f} | library (SDPA, pre-dequantized"
-            f" pre-gathered) {lib:.4f} | bound {b_ms:.4f} ({b_by})")
+            f"{ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | plain "
+            f"{plain:.4f} | library (SDPA, pre-dequantized pre-gathered) "
+            f"{lib:.4f} median (mean {lib_mean:.4f}) | bound {b_ms:.4f} "
+            f"({b_by}), {100 * b_ms / ms:.1f} % of it reached")
+        packed_prefill_case(torch, timer, device, gen, ops, ref, bits,
+                            (kc, ks, vc, vs, kh, vh), bt, ps)
         del args, kc, ks, vc, vs, kh, vh
     log(f"[paged_attention_quant] {len(rows)} cases agree with the plain "
-        "version (tol 2e-2 abs; zero-length rows exactly 0)")
+        "version (tol 2e-2 abs; zero-length rows exactly 0; every row "
+        "bit-identical alone and in the batch)")
     return rows
+
+
+def packed_prefill_case(torch, timer, device, gen, ops, ref, bits, pools,
+                        bt, ps, width=64):
+    """Kernel C as packed prefill launches it: a 512-token wave of three
+    segments (positions 0-127 of a new prompt, 256-383 of one being
+    continued, 0-255), one row per token with its causal bound and its
+    segment's frontier page, block-table rows ``width`` pages wide (the
+    serving phases' max_seq 1024). Checked against the plain version and
+    timed; the grid and the f32 scratch it needs are logged."""
+    h, d = 16, 128
+    chunks = [(0, 128), (256, 384), (0, 256)]
+    seg = np.concatenate([np.full(e - s0, i) for i, (s0, e) in
+                          enumerate(chunks)])
+    pos = np.concatenate([np.arange(s0, e) for s0, e in chunks])
+    frontier = np.array([e // ps for _, e in chunks])[seg]
+    tseg = torch.from_numpy(seg).to(device)
+    ints = [torch.from_numpy(a.astype(np.int32)).to(device)
+            for a in (pos + 1, seg + 1, frontier)]
+    q = torch.randn((len(pos), h, d), generator=gen,
+                    device=device).to(torch.bfloat16)
+    args = (q, *pools, bt[:len(chunks), :width][tseg].contiguous(), ints[0],
+            ints[1])
+    out = ops.paged_attention_decode_quant(*args, kv_bits=bits,
+                                           n_full=ints[2])
+    out_ref = ref.paged_attention_decode_quant_ref(*args, kv_bits=bits,
+                                                   n_full=ints[2])
+    e = (out.float() - out_ref.float()).abs().max().item()
+    if not e <= 2e-2:
+        fail(f"paged_attention_quant kv{bits} packed prefill: max err {e} "
+             "> 2e-2")
+    ms, ms_mean = timer.stats(lambda: ops.paged_attention_decode_quant(
+        *args, kv_bits=bits, n_full=ints[2]))
+    ns = ops.n_splits(width)
+    log(f"  paged_attention_quant kv{bits} packed prefill T={len(pos)} "
+        f"H={h} d={d} table {width} pages: err {e:.3g} kernel {ms:.4f} ms "
+        f"median of 20 (mean {ms_mean:.4f}); grid {len(pos)}x{h}x{ns}, "
+        f"scratch {len(pos) * h * ns * (d + 2) * 4 / 1e6:.1f} MB")
 
 
 def visible_pairs(sq, skv, causal, window, segs=None):
@@ -430,12 +510,13 @@ def phase_flash_attention(torch, timer, device):
                 fail("flash_attention: another segment's K/V changed a "
                      "segment's rows")
             del k2, v2, out2
-        ms = timer(lambda: ops.flash_attention_fwd(q, k, v, *sg, **kw))
+        ms, ms_mean = timer.stats(lambda: ops.flash_attention_fwd(
+            q, k, v, *sg, **kw))
         plain_ms = timer(lambda: plain(q, k, v, *sg, **kw), reps=3)
-        lib = None
+        lib = lib_mean = None
         if not (seg or window or softcap):   # one PyTorch call computes it
-            lib = timer(lambda: sdpa(q, k, v, is_causal=causal,
-                                     enable_gqa=True))
+            lib, lib_mean = timer.stats(lambda: sdpa(
+                q, k, v, is_causal=causal, enable_gqa=True))
         pairs = visible_pairs(s, s, causal, window, segs_np)
         if segs_np is None:
             pairs *= b
@@ -447,10 +528,12 @@ def phase_flash_attention(torch, timer, device):
                    ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
                    bound_by=b_by)
         rows.append(row)
+        lib_txt = ("n/a" if lib is None else
+                   f"{lib:.4f} median (mean {lib_mean:.4f})")
         log(f"  flash_attention {row['shape']}: err {err:.3g} (tol {tol}) "
-            f"kernel {ms:.4f} ms | plain {plain_ms:.4f} | library "
-            f"{'n/a' if lib is None else f'{lib:.4f}'} | bound {b_ms:.4f} "
-            f"({b_by})")
+            f"kernel {ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | plain "
+            f"{plain_ms:.4f} | library {lib_txt} | bound {b_ms:.4f} "
+            f"({b_by}), {100 * b_ms / ms:.1f} % of it reached")
         del q, k, v, out, out_ref
     log(f"[flash_attention] {len(rows)} shapes agree with the plain version"
         " (tol 2e-2 abs bf16, 1e-5 f32; pad rows exactly 0; segment "
@@ -609,7 +692,9 @@ def serve_horizons(model, packed, prompts, engine_kw, max_new, kv_bits,
     and 1 (the first alone until its prompt is cached, so the second hits
     the prefix cache). Launch counters are zeroed just before the H=8 run
     and read just after; ``path_kernels`` must all have launched. Returns
-    ({horizon: outputs}, H=8 launch counts, pool bytes)."""
+    ({horizon: outputs}, H=8 launch counts, pool bytes). Each run's line
+    gives its peak device memory."""
+    import torch
     from repro_torch.serve import ContinuousEngine
     # lazy CUDA/library set-up stays out of the timed runs
     run_engine(ContinuousEngine(model, packed, kv_bits=kv_bits, **engine_kw),
@@ -618,11 +703,13 @@ def serve_horizons(model, packed, prompts, engine_kw, max_new, kv_bits,
     for horizon in (8, 1):
         eng = ContinuousEngine(model, packed, decode_horizon=horizon,
                                kv_bits=kv_bits, **engine_kw)
+        torch.cuda.reset_peak_memory_stats()
         if horizon == 8:
             zero_launch_counters()
         t0 = time.perf_counter()
         out, t_pre, t_dec = run_engine(eng, prompts, True, max_new)
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         if horizon == 8:
             counts = read_launch_counters()
             kv_bytes = pool_bytes(eng.cache.pools)
@@ -643,7 +730,7 @@ def serve_horizons(model, packed, prompts, engine_kw, max_new, kv_bits,
             f"{t_pre:.3f} s = {pre_tok / t_pre:.1f} tok/s, decode {dec_tok} "
             f"tokens in {t_dec:.3f} s = {dec_tok / t_dec:.1f} tok/s, prefix "
             f"hits {hits} ({saved} positions saved), decode dispatches "
-            f"{eng.n_decode_steps}")
+            f"{eng.n_decode_steps}, peak device memory {peak / 1e9:.3f} GB")
         results[horizon] = out
         del eng
     log(f"  kv{kv_bits} launches in the H=8 run: {counts}")
@@ -805,8 +892,13 @@ def device_breakdown(prof, wall, n_steps, what):
     busy = sum(by_name.values()) / n_steps
     log(f"  {what}: wall {wall:.2f} ms/step, device busy {busy:.2f} ms/step "
         f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%)")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, ms in ranked[:10]:
         log(f"    {ms / n_steps:8.3f} ms/step  {name[:90]}")
+    for name, ms in ranked[10:]:     # the port's attention kernels, always
+        if "paged_attention" in name or "flash_attention" in name:
+            log(f"    {ms / n_steps:8.3f} ms/step  {name[:90]} (outside the "
+                "top ten)")
 
 
 def profile_decode(torch, engine, prompts, max_new, n_steps=4):
@@ -956,7 +1048,6 @@ def main():
     mm = next(r for r in mm_rows if (r["m"], r["k"], r["n"]) == (8, 2048,
                                                                    8192))
     pa = pa_rows[-1]
-    paq = next(r for r in paq_rows if r["bits"] == 4)
     fa = fa_rows[0]             # the static path's prefill shape
     kernels = [
         dict(name="msb_matmul", route="cuda",
@@ -976,15 +1067,18 @@ def main():
              ms=pa["ms"], plain_ms=pa["plain_ms"], bound_ms=pa["bound_ms"],
              bound_by=pa["bound_by"], library_ms=pa["library_ms"],
              shape=pa["shape"]),
-        dict(name="paged_attention_decode_quant", route="cuda",
-             source="src/repro_torch/csrc/paged_attention.cu",
+    ] + [
+        dict(name=f"paged_attention_decode_quant_kv{paq['bits']}",
+             route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/"
                       "paged_attention.py:142",
-             launches=q_counts[4]["paged_attention_decode_quant"],
-             max_abs_err=max(r["max_abs_err"] for r in paq_rows),
-             ms=paq["ms"], plain_ms=paq["plain_ms"],
-             bound_ms=paq["bound_ms"], bound_by=paq["bound_by"],
-             library_ms=paq["library_ms"], shape=paq["shape"]),
+             launches=q_counts[paq["bits"]]["paged_attention_decode_quant"],
+             max_abs_err=paq["max_abs_err"], ms=paq["ms"],
+             plain_ms=paq["plain_ms"], bound_ms=paq["bound_ms"],
+             bound_by=paq["bound_by"], library_ms=paq["library_ms"],
+             shape=paq["shape"])
+        for paq in paq_rows
+    ] + [
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/"

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -84,6 +85,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise KernelBuildError("\n".join(failed))
@@ -98,6 +100,38 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_report(name: str):
+    """ptxas's resources for every kernel of ``csrc/<name>.cu``, from this
+    process's build or the log kept beside the built library: a list of
+    dicts with ``kernel`` (the mangled name), ``registers``, ``smem`` (static
+    shared bytes), ``stack``, ``spill_stores`` and ``spill_loads`` (bytes).
+    Empty when the source has not been built."""
+    log = BUILD_LOGS.get(name)
+    if log is None and lib_path(name).with_suffix(".log").exists():
+        log = lib_path(name).with_suffix(".log").read_text()
+    rows, cur = [], None
+    for line in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(kernel=m.group(1), registers=None, smem=0, stack=0,
+                       spill_stores=0, spill_loads=0)
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 def check(err: int, what: str):

@@ -2,8 +2,9 @@
 
 ``flash_attention_fwd`` dispatches on the tensor's device and nothing else:
 a CPU tensor takes the plain version (``ref.py``), a CUDA tensor launches
-the hand-written kernel (``csrc/flash_attention.cu``) or raises. Its
-``.launches`` counts the kernel's launches.
+the hand-written kernel (``csrc/flash_attention.cu``: the tensor-core
+kernel for bf16, the SIMT kernel for f32, chosen by dtype alone) or
+raises. Its ``.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
@@ -46,6 +47,13 @@ def _launch(q, k, v, q_segs, kv_segs, causal, window, softcap, scale):
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{what}: the last dim of q, k and v must be "
                          "contiguous")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError(f"{what}: bf16 q, k and v must start on a 16-byte "
+                         "boundary with batch, head and row strides a "
+                         "multiple of 8 elements (the tensor-core kernel "
+                         "copies 16-byte rows)")
     ts = [q, k, v]
     if q_segs is not None:
         for name, t, n in (("q_segs", q_segs, sq), ("kv_segs", kv_segs, skv)):

@@ -5,7 +5,8 @@
 CPU tensor takes the plain version (``ref.py``), a CUDA tensor launches the
 hand-written kernel (the two entry points of ``csrc/paged_attention.cu``)
 or raises. Each wrapper's ``.launches``
-counts its kernel's launches.
+counts its kernel's launches: one a call, though kernel C runs as two CUDA
+kernels (the split-KV walk, then the merge of its partials).
 """
 from __future__ import annotations
 
@@ -18,7 +19,12 @@ from ...core.quantize import KVQuantSpec
 from .ref import paged_attention_decode_quant_ref, paged_attention_decode_ref
 
 _SMEM_MAX = 227 * 1024        # dynamic shared memory a block can use
-_THREADS, _ACC_MAX = 128, 8   # must match csrc/paged_attention.cu
+_THREADS, _ACC_MAX = 128, 8   # kernel B; must match csrc/paged_attention.cu
+_SPLIT_WARPS = 4              # kernel C's warps a block; as in the source
+PAGES_PER_SPLIT = 8           # kernel C: pages of a split (128 tokens at
+                              # page_size 16)
+SPLIT_BLOCKS = 16             # kernel C: most blocks a row gets; as in the
+                              # source
 
 
 def smem_bytes(rep, d, ps):
@@ -104,9 +110,33 @@ def _lib_quant():
     fn = _build.load("paged_attention").paged_attention_decode_quant
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 12 + [ci] * 8 + [cf, cf, ci, ci, vp]
+        fn.argtypes = [vp] * 14 + [ci] * 10 + [cf, cf, ci, ci, vp]
         fn.restype = ci
     return fn
+
+
+def n_splits(max_pages):
+    """Blocks of kernel C's grid per (row, query head): enough splits to
+    cover a block-table row of ``max_pages`` pages, at most
+    ``SPLIT_BLOCKS``; block z then walks splits z, z + n_splits, ... of its
+    row. The width of the table is known on the host, so no device sync is
+    needed; blocks past a row's own pages exit at once. The scratch is
+    (B, H, n_splits) times d + 2 floats, so at most B * H * 16 * (d + 2) *
+    4 bytes however wide the table is."""
+    return max(1, min(-(-int(max_pages) // PAGES_PER_SPLIT), SPLIT_BLOCKS))
+
+
+def quant_lane_elems(kv_bits, d):
+    """Elements of one lane's code vector in kernel C: 16 bytes of codes
+    (16 at 8 bits, 32 at 4 bits), 8 bytes at 4 bits when ``d % 32 != 0``.
+    Raises unless ``d`` splits into a power-of-two count (<= 32) of them."""
+    e = 32 if kv_bits == 4 and d % 32 == 0 else 16
+    lanes = d // e
+    if d % e or lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(f"paged_attention_decode_quant: head_dim {d} must "
+                         "be a power of two in [16, 512] (d / "
+                         f"{e} lanes per token row at kv_bits={kv_bits})")
+    return e
 
 
 def _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
@@ -144,26 +174,33 @@ def _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
                     ("hot_rows", hot_rows)):
         if t.dtype != torch.int32 or tuple(t.shape) != (b,):
             raise ValueError(f"{what}: {name} must be int32 ({b},)")
-    rep = h // kv
-    if rep * d > _THREADS * _ACC_MAX:
-        raise ValueError(f"{what}: rep*d={rep * d} exceeds "
-                         f"{_THREADS * _ACC_MAX}")
-    if smem_bytes(rep, d, ps) > _SMEM_MAX:
-        raise ValueError(f"{what}: page too large for shared memory")
+    quant_lane_elems(int(kv_bits), d)
+    if 4 * _SPLIT_WARPS * (d + 2) > _SMEM_MAX:
+        raise ValueError(f"{what}: head_dim {d} too large for shared memory")
     ts = (q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
           block_tables, kv_lens, n_full, hot_rows)
     if any(t.device != q.device for t in ts):
         raise ValueError(f"{what}: all tensors must be on one device")
     if any(not t.is_contiguous() for t in ts):
         raise ValueError(f"{what}: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts[1:7]):
+        raise ValueError(f"{what}: code, scale and hot pools must start on "
+                         "a 16-byte boundary")
     out = torch.empty_like(q)
     if b == 0:
         return out
+    max_pages = block_tables.shape[1]
+    ns = n_splits(max_pages)
+    part_ml = torch.empty((2, b, h, ns), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((b, h, ns, d), dtype=torch.float32,
+                           device=q.device)
     scale = float(scale if scale is not None else d ** -0.5)
     err = _lib_quant()(
-        *(t.data_ptr() for t in ts), out.data_ptr(), b, h, kv, d, ps,
-        block_tables.shape[1], spec.tokens_per_block, spec.n_blocks,
-        scale, float(softcap), int(kv_bits), int(q.dtype == torch.bfloat16),
+        *(t.data_ptr() for t in ts), part_ml.data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(), b, h, kv, d, ps, max_pages, spec.tokens_per_block,
+        spec.n_blocks, ns, PAGES_PER_SPLIT, scale, float(softcap),
+        int(kv_bits), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, what)
     paged_attention_decode_quant.launches += 1

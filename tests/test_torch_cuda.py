@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.quantize import kv_quantize_pages
+from repro_torch.core.quantize import KVQuantSpec, kv_quantize_pages
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.msb_matmul import ops as mm_ops
@@ -139,6 +139,120 @@ def test_paged_attention_quant_kernel_matches_plain(cuda, bits, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
 
 
+def _rand_quant_pools(rng, bits, n_pages, n_hot, ps, kv, d, dtype, device):
+    """Random codes and codebooks in the layout of ``KVQuantSpec`` (int8
+    codes in [-127, 127] with positive f32 absmax at 8 bits, packed
+    nibbles with sorted positive bf16 codebooks at 4), made directly
+    instead of quantized (the DP is slow at full width), and random hot
+    rows in ``dtype``."""
+    spec = KVQuantSpec(bits, ps, kv, d)
+    out = []
+    for _ in ("k", "v"):
+        codes = rng.integers(0, 256, (n_pages,) + spec.codes_tail,
+                             dtype=np.uint8)
+        if bits == 8:
+            codes = np.maximum(codes.view(np.int8), -127)
+        sc = np.sort(rng.random((n_pages,) + spec.scales_tail,
+                                dtype=np.float32) * 3, axis=-1)
+        out += [torch.from_numpy(codes).to(device),
+                torch.from_numpy(sc).to(device=device,
+                                        dtype=spec.scale_dtype)]
+    for _ in ("k", "v"):
+        hot = rng.standard_normal((n_hot, ps, kv, d)).astype(np.float32)
+        out.append(torch.from_numpy(hot).to(device=device, dtype=dtype))
+    return out
+
+
+def _quant_case(rng, bits, dtype, lens, device, ps=16, kv=8, h=16, d=128,
+                n_full=None, width=None):
+    """Random full-width pools and a batch of rows with ``lens`` keys, each
+    on its own pages; block tables ``width`` pages wide (default: enough
+    for the longest row)."""
+    width = width or max(1, -(-max(lens) // ps))
+    n_pages = 1 + len(lens) * width
+    pools = _rand_quant_pools(rng, bits, n_pages, len(lens) + 1, ps, kv, d,
+                              dtype, device)
+    bt = (1 + rng.permutation(n_pages - 1)).reshape(len(lens), width)
+    q = torch.from_numpy(rng.standard_normal((len(lens), h, d)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    kv_lens = np.asarray(lens, np.int32)
+    n_full = kv_lens // ps if n_full is None else np.asarray(n_full, np.int32)
+    ints = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
+        device) for a in (bt, kv_lens, np.arange(1, len(lens) + 1), n_full)]
+    return (q, *pools, ints[0], ints[1], ints[2]), ints[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_quant_rows_do_not_depend_on_batch(cuda, bits,
+                                                           dtype):
+    """Kernel C's split boundaries depend on the page index alone: a row run
+    alone (with a block table only as wide as it needs, so a smaller grid)
+    gives the same bits as inside a batch of mixed lengths, and the batch
+    agrees with the plain version."""
+    rng = np.random.default_rng(30 + bits)
+    lens = [0, 1, 15, 16, 17, 300, 2048, 4100]
+    args, n_full = _quant_case(rng, bits, dtype, lens, cuda)
+    out = pa_ops.paged_attention_decode_quant(*args, kv_bits=bits,
+                                              n_full=n_full)
+    ref = pa_ref.paged_attention_decode_quant_ref(*args, kv_bits=bits,
+                                                  n_full=n_full)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    assert (out[0] == 0).all()
+    q, kc, ks, vc, vs, kh, vh, bt, kv_lens, hot_rows = args
+    for i, n in enumerate(lens):
+        width = max(1, -(-n // 16))
+        alone = pa_ops.paged_attention_decode_quant(
+            q[i:i + 1].contiguous(), kc, ks, vc, vs, kh, vh,
+            bt[i:i + 1, :width].contiguous(), kv_lens[i:i + 1].contiguous(),
+            hot_rows[i:i + 1].contiguous(), kv_bits=bits,
+            n_full=n_full[i:i + 1].contiguous())
+        assert torch.equal(alone[0], out[i]), f"row of {n} keys"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_paged_attention_quant_split_edges(cuda, bits):
+    """Lengths on and around the split edges (128 keys a split at page
+    size 16), across several splits and past SPLIT_BLOCKS splits (a block
+    walks two or three), against the plain version."""
+    rng = np.random.default_rng(32 + bits)
+    edge = pa_ops.PAGES_PER_SPLIT * 16
+    nb = pa_ops.SPLIT_BLOCKS
+    lens = [edge - 1, edge, edge + 1, 2 * edge, 2 * edge + 16, 3 * edge - 1,
+            5 * edge + 7, 1, nb * edge, nb * edge + 1, 2 * nb * edge + 5]
+    args, n_full = _quant_case(rng, bits, torch.bfloat16, lens, cuda)
+    for softcap, scale in ((0.0, None), (30.0, 0.3)):
+        out = pa_ops.paged_attention_decode_quant(
+            *args, kv_bits=bits, n_full=n_full, softcap=softcap, scale=scale)
+        ref = pa_ref.paged_attention_decode_quant_ref(
+            *args, kv_bits=bits, n_full=n_full, softcap=softcap, scale=scale)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_quant_packed_prefill_frontiers(cuda, bits, dtype):
+    """Rows whose frontier page is not ``kv_len // ps``: past the causal
+    bound (each prompt token of a packed prefill against its segment's
+    frontier) and before it (``n_full < kv_len // ps``, the pages between
+    read from their codes, as the plain version reads them)."""
+    rng = np.random.default_rng(34 + bits)
+    lens = [5, 40, 130, 300, 17, 256, 1000, 16]
+    n_full = [3, 4, 10, 30, 0, 10, 61, 0]
+    args, nf = _quant_case(rng, bits, dtype, lens, cuda, n_full=n_full,
+                           width=64)
+    out = pa_ops.paged_attention_decode_quant(*args, kv_bits=bits, n_full=nf)
+    ref = pa_ref.paged_attention_decode_quant_ref(*args, kv_bits=bits,
+                                                  n_full=nf)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     p, s = _weights(np.random.default_rng(0), 128, 128, False, cuda)
@@ -163,6 +277,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         pa_ops.paged_attention_decode_quant(q, kc, ks, vc, vs, kh, vh,
                                             bt.to(torch.int32), one, one,
                                             kv_bits=8)
+    bt32 = bt.to(torch.int32)
+    for bits in (8, 4):                    # head_dim 48: 3 lanes a row
+        q48 = torch.zeros(1, 4, 48, device=cuda)
+        pools = _quant_pools(np.random.default_rng(1), bits, 4, 2, 4, 2, 48,
+                             torch.float32, cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            pa_ops.paged_attention_decode_quant(q48, *pools, bt32, one, one,
+                                                kv_bits=bits)
+    kc, ks, vc, vs, kh, vh = _quant_pools(np.random.default_rng(2), 8, 4, 2,
+                                          4, 2, 16, torch.float32, cuda)
+    shifted = torch.zeros(kh.numel() + 1, device=cuda)[1:].view(kh.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pa_ops.paged_attention_decode_quant(q, kc, ks, vc, vs, shifted, vh,
+                                            bt32, one, one, kv_bits=8)
 
 
 def _segments(b, s):
@@ -181,6 +309,9 @@ FLASH_CASES = {   # causal, window, softcap, H, KV, Sq, Skv, d
     "noncausal-s70x130-d64": (False, 0, 0.0, 4, 4, 70, 130, 64),
     "window50-softcap30-s257-d128": (True, 50, 30.0, 4, 2, 257, 257, 128),
     "causal-s64-d256": (True, 0, 0.0, 2, 1, 64, 64, 256),
+    "noncausal-s100x190-d256": (False, 0, 0.0, 4, 2, 100, 190, 256),
+    "window40-softcap50-s150-d64": (True, 40, 50.0, 4, 1, 150, 150, 64),
+    "causal-s200x330-d128": (True, 0, 0.0, 4, 2, 200, 330, 128),
 }
 
 
@@ -211,13 +342,14 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernel_segments(cuda, dtype):
+def test_flash_attention_kernel_segments(cuda, dtype, d):
     """Segments: agrees with the plain full softmax, pad rows exactly 0,
     and new K/V for every other segment leave a segment's rows
-    bit-identical on the card."""
+    bit-identical on the card (S = 200, not a multiple of the 64 tile)."""
     rng = np.random.default_rng(22)
-    b, h, kv, s, d = 2, 4, 2, 200, 128
+    b, h, kv, s = 2, 4, 2, 200
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(device=cuda, dtype=dtype)
         for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
@@ -247,3 +379,17 @@ def test_flash_attention_wrapper_refuses(cuda):
     with pytest.raises(ValueError, match="int32"):
         seg = torch.zeros(1, 8, dtype=torch.int64, device=cuda)
         fa_ops.flash_attention_fwd(q, q[:, :1], q[:, :1], seg, seg)
+    # bf16 (tensor cores): 16-byte aligned pointers and row strides only
+    qb = torch.zeros(1, 2, 8, 16, device=cuda, dtype=torch.bfloat16)
+    kb = qb[:, :1]
+    shifted = torch.zeros(qb.numel() + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_attention_fwd(shifted, kb, kb)
+    wide = torch.zeros(1, 8, 2, 20, device=cuda, dtype=torch.bfloat16)
+    strided = wide[..., :16].transpose(1, 2)      # row stride 40 elements
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_attention_fwd(strided, kb, kb)
+    q264 = torch.zeros(1, 2, 8, 264, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention_fwd(q264, q264[:, :1], q264[:, :1])
