@@ -10,8 +10,12 @@ one line each (details indented), any failure exits non-zero:
 2. build  — nvcc builds the kernel sources of ``src/repro_torch/csrc`` in
    parallel (msb_matmul; paged_attention, which holds kernels B and C;
    flash_attention)
-3. msb_matmul vs its plain version at the main path's shapes, with times
-4. paged_attention_decode vs its plain version on a full-width bf16 pool
+3. msb_matmul vs its plain version at the main path's shapes (decode M,
+   packed-prefill M, the static prefill's M=4096, the f32 unembedding),
+   with times; rows bit-identical at M = 1, 8, 17, 512 and 4096
+4. paged_attention_decode (split-KV) vs its plain version on full-width
+   bf16 pools and at a 512-token packed-prefill wave; every row
+   bit-identical alone and in the batch
 5. paged_attention_decode_quant (split-KV) vs its plain version on
    full-width 8- and 4-bit quantized pools; every row bit-identical alone
    and in the batch
@@ -33,13 +37,13 @@ one line each (details indented), any failure exits non-zero:
    the CPU from the same weights, at kv_bits 16, 8 and 4, and through the
    static engine
 
-The second-to-last line is the kernel table as JSON (kernel C once per
-code width); the last line is ``{"ok": true, "device": {...}}``. Times
-come from CUDA events; a weight stream is timed cold (L2 flushed before
-every launch), as decode meets it. Phases 5 and 6 report the median of 20
-launches (the mean beside it) for the kernel and its SDPA yardstick; the
-build prints ptxas's registers, shared memory and spills for every
-kernel.
+The second-to-last line is the kernel table as JSON (kernel A at the
+decode shape and at M=4096, kernel C once per code width); the last line
+is ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
+stream is timed cold (L2 flushed before every launch), as decode meets it.
+Phases 3-6 report the median of 20 launches (the mean beside it) for the
+kernel and its library yardstick; the build prints ptxas's registers,
+shared memory and spills for every kernel.
 """
 from __future__ import annotations
 
@@ -168,6 +172,14 @@ def rand_packed(torch, gen, k, n, kblocked, device):
 
 
 def phase_msb_matmul(torch, timer, device):
+    """Kernel A against its plain version at the main path's shapes: decode
+    and packed-prefill M (1-512) at every projection shape and the f32
+    k-blocked unembedding, and the static prefill's M=4096 at the three
+    projection shapes (the plain version timed with 2 reps there). Kernel
+    and library (``torch.matmul`` on the pre-dequantized weights) are
+    medians of 20 cold launches. Also checks, bit for bit, that rows do
+    not depend on M: each M=4096 product's first rows equal the same rows
+    computed at M = 1, 8, 17 and 512."""
     from repro_torch.kernels.msb_matmul import ops, ref
     gen = torch.Generator(device=device).manual_seed(1)
     cases = [(k, n, False, torch.bfloat16) for k, n in
@@ -177,7 +189,8 @@ def phase_msb_matmul(torch, timer, device):
     for k, n, kb, xdt in cases:
         packed, scales = rand_packed(torch, gen, k, n, kb, device)
         w = ref.dequant_ref(packed, scales, kblocked=kb).to(xdt)
-        for m in (1, 8, 128, 512):
+        big = xdt == torch.bfloat16 and n != 1024
+        for m in (1, 8, 128, 512) + ((4096,) if big else ()):
             x = torch.randn((m, k), generator=gen, device=device).to(xdt)
             bias = (torch.randn((n,), generator=gen, device=device)
                     if (k, n, m) == (2048, 1024, 8) else None)
@@ -191,11 +204,18 @@ def phase_msb_matmul(torch, timer, device):
                 fail(f"msb_matmul M={m} K={k} N={n} kblocked={kb}: max err "
                      f"{err} > {tol}")
             worst = max(worst, err / max(scale, 1e-30))
-            ms = timer(lambda: ops.msb_matmul(x, packed, scales, bias,
-                                              kblocked=kb))
+            if m == 4096:
+                for mm in (1, 8, 17, 512):
+                    alone = ops.msb_matmul(x[:mm].contiguous(), packed, scales)
+                    if not torch.equal(alone, y[:mm]):
+                        fail(f"msb_matmul K={k} N={n}: rows at M={mm} differ "
+                             "from the same rows at M=4096")
+            ms, ms_mean = timer.stats(lambda: ops.msb_matmul(
+                x, packed, scales, bias, kblocked=kb))
             plain = timer(lambda: ref.msb_matmul_ref(x, packed, scales, bias,
-                                                     kblocked=kb), reps=3)
-            lib = timer(lambda: torch.matmul(x, w))
+                                                     kblocked=kb),
+                          reps=2 if m == 4096 else 3, warmup=1)
+            lib, _ = timer.stats(lambda: torch.matmul(x, w))
             xb = x.element_size()
             nbytes = (m * k * xb + k * n // 2 + scales.numel() * 4
                       + m * n * xb + (n * 4 if bias is not None else 0))
@@ -207,32 +227,46 @@ def phase_msb_matmul(torch, timer, device):
                        library_ms=lib, bound_ms=b_ms, bound_by=b_by)
             rows.append(row)
             log(f"  msb_matmul {row['shape']}: err {err:.3g} (tol {tol:.3g}) "
-                f"kernel {ms:.4f} ms | plain {plain:.4f} | library "
-                f"{lib:.4f} | bound {b_ms:.4f} ({b_by})")
+                f"kernel {ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | "
+                f"plain {plain:.4f} | library {lib:.4f} | bound {b_ms:.4f} "
+                f"({b_by}), {100 * b_ms / ms:.1f} % of it reached")
         del packed, scales, w
     log(f"[msb_matmul] {len(rows)} shapes agree with the plain version "
-        f"(worst err/max|ref| {worst:.3g})")
+        f"(worst err/max|ref| {worst:.3g}); rows at M = 1, 8, 17, 512 "
+        "bit-identical to the same rows at M=4096")
     return rows
 
 
+def kv16_pools(torch, gen, lens, device, h=16, kv=8, d=128, ps=16,
+               width=None):
+    """Random bf16 pools, block tables ``width`` pages wide (default: the
+    longest row's), each row on its own pages, and bf16 queries."""
+    b = len(lens)
+    width = width or max(1, -(-max(lens) // ps))
+    n_pages = 1 + b * width
+    k_pool = torch.randn((n_pages, ps, kv, d), generator=gen,
+                         device=device).to(torch.bfloat16)
+    v_pool = torch.randn((n_pages, ps, kv, d), generator=gen,
+                         device=device).to(torch.bfloat16)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=device) + 1
+    bt = perm[:b * width].reshape(b, width).to(torch.int32)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=device)
+    q = torch.randn((b, h, d), generator=gen, device=device).to(torch.bfloat16)
+    return q, k_pool, v_pool, bt, kv_lens
+
+
 def phase_paged_attention(torch, timer, device):
+    """Kernel B against its plain version on full-width bf16 pools (one
+    row of 2048 keys; the decode shape, rows of 0-2048 keys), every row
+    bit-identical alone and in the batch, then the 512-token packed-prefill
+    wave kv16 prefill launches. Kernel and SDPA: medians of 20."""
     from repro_torch.kernels.paged_attention import ops, ref
     gen = torch.Generator(device=device).manual_seed(2)
     h, kv, d, ps = 16, 8, 128, 16
     rows = []
     for lens in ([2048], [0, 1, 17, 100, 513, 1000, 1999, 2048]):
         b = len(lens)
-        max_pages = 2048 // ps
-        n_pages = 1 + b * max_pages
-        k_pool = torch.randn((n_pages, ps, kv, d), generator=gen,
-                             device=device).to(torch.bfloat16)
-        v_pool = torch.randn((n_pages, ps, kv, d), generator=gen,
-                             device=device).to(torch.bfloat16)
-        perm = torch.randperm(n_pages - 1, generator=gen, device=device) + 1
-        bt = perm[:b * max_pages].reshape(b, max_pages).to(torch.int32)
-        kv_lens = torch.tensor(lens, dtype=torch.int32, device=device)
-        q = torch.randn((b, h, d), generator=gen,
-                        device=device).to(torch.bfloat16)
+        q, k_pool, v_pool, bt, kv_lens = kv16_pools(torch, gen, lens, device)
         for softcap in (0.0, 30.0):
             out = ops.paged_attention_decode(q, k_pool, v_pool, bt, kv_lens,
                                              softcap=softcap)
@@ -246,8 +280,18 @@ def phase_paged_attention(torch, timer, device):
             zero = [i for i, n in enumerate(lens) if n == 0]
             if zero and out[zero].abs().max().item() != 0.0:
                 fail("paged_attention: zero-length rows are not exactly 0")
-        ms = timer(lambda: ops.paged_attention_decode(q, k_pool, v_pool, bt,
-                                                      kv_lens))
+        # a row's bits do not depend on the rest of the batch
+        for i, n in enumerate(lens):
+            w = max(1, -(-n // ps))
+            alone = ops.paged_attention_decode(
+                q[i:i + 1].contiguous(), k_pool, v_pool,
+                bt[i:i + 1, :w].contiguous(), kv_lens[i:i + 1].contiguous(),
+                softcap=30.0)
+            if not torch.equal(alone[0], out[i]):
+                fail(f"paged_attention: the row of {n} keys differs alone "
+                     "and in the batch")
+        ms, ms_mean = timer.stats(lambda: ops.paged_attention_decode(
+            q, k_pool, v_pool, bt, kv_lens))
         plain = timer(lambda: ref.paged_attention_decode_ref(
             q, k_pool, v_pool, bt, kv_lens), reps=3)
         # library yardstick: one SDPA call on the pre-gathered cache
@@ -258,8 +302,9 @@ def phase_paged_attention(torch, timer, device):
         mask = (torch.arange(s, device=device)[None, :]
                 < kv_lens[:, None])[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = timer(lambda: sdpa(q[:, :, None], kg, vg, attn_mask=mask,
-                                 enable_gqa=True))
+        lib, lib_mean = timer.stats(lambda: sdpa(
+            q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
+        del kg, vg
         tokens = sum(lens)
         nbytes = (2 * tokens * kv * d * 2 + q.numel() * 2 * 2
                   + sum(-(-n // ps) for n in lens) * 4 + b * 4)
@@ -270,10 +315,18 @@ def phase_paged_attention(torch, timer, device):
                    bound_by=b_by)
         rows.append(row)
         log(f"  paged_attention {row['shape']}: err {err:.3g} kernel "
-            f"{ms:.4f} ms | plain {plain:.4f} | library {lib:.4f} | bound "
-            f"{b_ms:.4f} ({b_by})")
+            f"{ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | plain "
+            f"{plain:.4f} | library (SDPA, pre-gathered) {lib:.4f} median "
+            f"(mean {lib_mean:.4f}) | bound {b_ms:.4f} ({b_by}), "
+            f"{100 * b_ms / ms:.1f} % of it reached")
+    # the packed-prefill wave: pools of three segments, tables 64 pages
+    q, k_pool, v_pool, bt, _ = kv16_pools(torch, gen, [128, 384, 256],
+                                          device, width=64)
+    packed_prefill_case(torch, timer, device, gen, ops, ref, 16,
+                        (k_pool, v_pool), bt, ps)
     log(f"[paged_attention] {len(rows)} cases agree with the plain version "
-        "(tol 2e-2 abs; zero-length rows exactly 0)")
+        "(tol 2e-2 abs; zero-length rows exactly 0; every row bit-identical "
+        "alone and in the batch); packed-prefill wave checked")
     return rows
 
 
@@ -400,12 +453,13 @@ def phase_paged_attention_quant(torch, timer, device):
 
 def packed_prefill_case(torch, timer, device, gen, ops, ref, bits, pools,
                         bt, ps, width=64):
-    """Kernel C as packed prefill launches it: a 512-token wave of three
-    segments (positions 0-127 of a new prompt, 256-383 of one being
-    continued, 0-255), one row per token with its causal bound and its
-    segment's frontier page, block-table rows ``width`` pages wide (the
-    serving phases' max_seq 1024). Checked against the plain version and
-    timed; the grid and the f32 scratch it needs are logged."""
+    """Kernel B (bits 16) or C (8, 4) as packed prefill launches it: a
+    512-token wave of three segments (positions 0-127 of a new prompt,
+    256-383 of one being continued, 0-255), one row per token with its
+    causal bound (and, quantized, its segment's frontier page), block-table
+    rows ``width`` pages wide (the serving phases' max_seq 1024). Checked
+    against the plain version and timed (median of 20); the grid and the
+    f32 scratch it needs are logged."""
     h, d = 16, 128
     chunks = [(0, 128), (256, 384), (0, 256)]
     seg = np.concatenate([np.full(e - s0, i) for i, (s0, e) in
@@ -417,23 +471,29 @@ def packed_prefill_case(torch, timer, device, gen, ops, ref, bits, pools,
             for a in (pos + 1, seg + 1, frontier)]
     q = torch.randn((len(pos), h, d), generator=gen,
                     device=device).to(torch.bfloat16)
-    args = (q, *pools, bt[:len(chunks), :width][tseg].contiguous(), ints[0],
-            ints[1])
-    out = ops.paged_attention_decode_quant(*args, kv_bits=bits,
-                                           n_full=ints[2])
-    out_ref = ref.paged_attention_decode_quant_ref(*args, kv_bits=bits,
-                                                   n_full=ints[2])
+    rows = bt[:len(chunks), :width][tseg].contiguous()
+    if bits == 16:
+        args = (q, *pools, rows, ints[0])
+        run = lambda: ops.paged_attention_decode(*args)      # noqa: E731
+        out_ref = ref.paged_attention_decode_ref(*args)
+        name = "paged_attention kv16"
+    else:
+        args = (q, *pools, rows, ints[0], ints[1])
+        run = lambda: ops.paged_attention_decode_quant(      # noqa: E731
+            *args, kv_bits=bits, n_full=ints[2])
+        out_ref = ref.paged_attention_decode_quant_ref(*args, kv_bits=bits,
+                                                       n_full=ints[2])
+        name = f"paged_attention_quant kv{bits}"
+    out = run()
     e = (out.float() - out_ref.float()).abs().max().item()
     if not e <= 2e-2:
-        fail(f"paged_attention_quant kv{bits} packed prefill: max err {e} "
-             "> 2e-2")
-    ms, ms_mean = timer.stats(lambda: ops.paged_attention_decode_quant(
-        *args, kv_bits=bits, n_full=ints[2]))
+        fail(f"{name} packed prefill: max err {e} > 2e-2")
+    ms, ms_mean = timer.stats(run)
     ns = ops.n_splits(width)
-    log(f"  paged_attention_quant kv{bits} packed prefill T={len(pos)} "
-        f"H={h} d={d} table {width} pages: err {e:.3g} kernel {ms:.4f} ms "
-        f"median of 20 (mean {ms_mean:.4f}); grid {len(pos)}x{h}x{ns}, "
-        f"scratch {len(pos) * h * ns * (d + 2) * 4 / 1e6:.1f} MB")
+    log(f"  {name} packed prefill T={len(pos)} H={h} d={d} table {width} "
+        f"pages: err {e:.3g} kernel {ms:.4f} ms median of 20 (mean "
+        f"{ms_mean:.4f}); grid {len(pos)}x{h}x{ns}, scratch "
+        f"{len(pos) * h * ns * (d + 2) * 4 / 1e6:.1f} MB")
 
 
 def visible_pairs(sq, skv, causal, window, segs=None):
@@ -655,6 +715,8 @@ def phase_serve(torch, device):
                    model, packed, device)
     profile_decode(torch, ContinuousEngine(model, packed, **engine_kw),
                    prompts, max_new)
+    profile_prefill(torch, ContinuousEngine(model, packed, **engine_kw),
+                    prompts, max_new)
     log(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.3f} GB in "
         f"use, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     log("[serve] ok: all requests 32 tokens, prefix hit, clean page audit")
@@ -927,6 +989,31 @@ def profile_decode(torch, engine, prompts, max_new, n_steps=4):
     engine.close()
 
 
+def profile_prefill(torch, engine, prompts, max_new, n_steps=1):
+    """Where a continuous prefill wave's time goes: torch.profiler over the
+    engine's first ``n_steps`` steps on all ``prompts`` (one packed wave of
+    up to prefill_chunk tokens a prompt), then the rest run out
+    unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts:
+        engine.submit(p, max_new)
+    torch.cuda.synchronize()
+    kinds = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+            kinds.append(engine.last_step_kind)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_steps * 1e3
+    device_breakdown(prof, wall, n_steps,
+                     f"prefill step profile ({n_steps} steps: {kinds})")
+    while engine.has_work:
+        engine.step()
+    engine.close()
+
+
 def profile_static(torch, engine, prompts, n_steps=4):
     """Where the static engine's time goes: torch.profiler over one
     prefill of ``prompts`` and then over ``n_steps`` ring decode steps."""
@@ -1044,20 +1131,27 @@ def main():
     s_counts = phase_serve_static(torch, device, ctx)
     del ctx
     phase_paths(torch)
-    # representative rows: the decode shapes of the main path
-    mm = next(r for r in mm_rows if (r["m"], r["k"], r["n"]) == (8, 2048,
-                                                                   8192))
+    # representative rows: the decode shapes of the main path, and A also
+    # at the static prefill's M=4096
+    def mm_row(m, k, n):
+        return next(r for r in mm_rows if (r["m"], r["k"], r["n"]) ==
+                    (m, k, n))
     pa = pa_rows[-1]
     fa = fa_rows[0]             # the static path's prefill shape
     kernels = [
-        dict(name="msb_matmul", route="cuda",
+        dict(name=name, route="cuda",
              source="src/repro_torch/csrc/msb_matmul.cu",
              replaces="src/repro/kernels/msb_matmul/msb_matmul.py:117",
-             launches=counts["msb_matmul"],
+             launches=launches,
              max_abs_err=max(r["max_abs_err"] for r in mm_rows),
              ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
              bound_by=mm["bound_by"], library_ms=mm["library_ms"],
-             shape=mm["shape"]),
+             shape=mm["shape"])
+        for name, launches, mm in (
+            ("msb_matmul", counts["msb_matmul"], mm_row(8, 2048, 8192)),
+            ("msb_matmul_m4096", s_counts["msb_matmul"],
+             mm_row(4096, 2048, 8192)))
+    ] + [
         dict(name="paged_attention_decode", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/"

@@ -10,72 +10,88 @@
 //             n-blocked (K, N/64, 8): scales[k, n/64, level]
 //             k-blocked (K/64, N, 8): scales[k/64, n, level]
 //   x       (M, K) bf16 or f32; bias optional f32 (N,); out (M, N) in x's type
+// Each weight is +-codebook[level] rounded to x's type, as msb_matmul_ref
+// rounds it; products are summed in f32.
 //
-// What bounds it on the card: decode shapes (M <= 8) are memory-bound on the
-// weight stream. With the f32 codebooks quantize_params produces, that stream
-// is 0.5 B/weight of codes plus 0.5 B/weight of scales, so the bound is
+// What bounds it on the card. Decode shapes (M <= 8) stream the weights:
+// 0.5 B/weight of codes plus 0.5 B/weight of f32 codebooks, so the bound is
 //   (K*N/2 + K*N/64*8*4) B / 3.35 TB/s
-// (2048 x 2048: 4.2 MB -> 1.25 us). Prefill shapes (M = 512) are bound by
-// the arithmetic, which this SIMT version does in f32 FMA.
+// (2048 x 8192: 16.8 MB -> 5.0 us). Prefill shapes (M = 4096) are bound by
+// the products: 2*M*K*N flops on the bf16 tensor cores (989 TFLOP/s dense;
+// 4096 x 2048 x 8192: 0.139 ms).
 //
-// Design (simple and correct first; wgmma, TMA and warp specialisation are
-// later work):
-//   * one thread block per (BM x 64) output tile and K split; K is walked in
-//     steps of 64 = one MSB block, so a step's codebooks are one 64 x 8 table
-//     (indexed by the row for n-blocked scales, by the column for k-blocked);
-//   * each step stages the packed bytes (64 x 32 B) and that table in shared
-//     memory and decodes the nibbles there (sign, 3-bit level, lookup in the
-//     shared codebook; no per-weight gather from device memory), rounding
-//     each weight to x's type as the reference does;
-//   * every output element is owned by one thread that sums its K range in
-//     ascending k with f32 FMA. The K split count depends on (K, N) only and
-//     the splits are added in ascending order by a second pass, so the
-//     reduction order of an output row never depends on M or on other rows:
-//     decode buckets 1/2/4/8 and horizon 1 vs 8 give bit-identical logits;
-//   * for small N the K split (at most K/256 splits) fills the 132 SMs.
+// bf16 x: one tensor-core kernel for every M (mma.sync.m16n8k16, bf16 in,
+// f32 accumulate). Tiles (BM x BN, warps) depend on M (Tile below):
+//   * a ring of STAGES cp.async stages holds, per K step of 64 (one MSB
+//     block), the x tile (BM x 64 bf16, rows past M zero-filled), the packed
+//     bytes (64 x BN/2) and the step's codebooks (BN * 8 f32);
+//   * the block decodes a landed stage into a bf16 W tile (64 x BN) in
+//     shared memory, double-buffered: step i + 1 is decoded right after
+//     step i's products are issued, while the tensor cores run them, and
+//     one barrier a step suffices. n-blocked:
+//     a thread decodes 32 columns of one k row, which share one codebook:
+//     its 8 entries rounded to bf16 are split into high and low bytes, and
+//     four weights at a time take their bytes with one prmt each, the sign
+//     flipped from the nibble by a third (2 instructions a weight).
+//     k-blocked (off the main path: a codebook per column) looks each
+//     weight up one by one;
+//   * the warps read x with ldmatrix and W with ldmatrix.trans (W's storage
+//     pairs neighbouring columns, the B fragment neighbouring k, so the
+//     transpose is done by the load).
+// Rows independent of M: every output element is summed from its own row
+// and column; the K split count depends on (K, N) only (ops.k_splits) and
+// each split's k16 steps run in ascending order into a zeroed accumulator.
+// The splits are added in ascending order to a running f32 total starting
+// from 0, then the bias: inside the block at large M (one block walks all
+// of K; no scratch), or by split_reduce_kernel at small M, where the
+// splits run on separate blocks to spread the weight stream over the SMs.
+// Both orders are the same f32 additions, so a row's bits depend on (K, N)
+// and the row alone, whatever M and the tile.
+//
+// f32 x (the k-blocked unembedding): SIMT f32 FMA (TF32 would miss the
+// 1e-5 tolerance): each 256-thread block owns a BM x 64 tile and one K
+// split, stages the packed bytes and a 64 x 8 f32 codebook table a step,
+// decodes them into an f32 tile and runs 64 FMAs a thread; splits summed
+// by split_reduce_kernel in ascending order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BK = 64;       // K step == MSB block
-constexpr int BN = 64;       // N tile == MSB block
-constexpr int LEVELS = 8;
-constexpr int THREADS = 256;
+typedef __nv_bfloat16 bf16;
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, like astype
-}
+constexpr int BK = 64;       // K step == MSB block
+constexpr int LEVELS = 8;
+
+// ---------------------------------------------------------------------------
+// f32 x: SIMT kernel
+// ---------------------------------------------------------------------------
+
+constexpr int SIMT_BN = 64;
+constexpr int SIMT_THREADS = 256;
 
 // grid: (N / 64, ceil(M / BM), splits). partial == nullptr: write y (+bias)
 // to out; else write the split's f32 sum to partial[split, m, n].
-template <typename T, int BM, bool KBLOCKED>
-__global__ void __launch_bounds__(THREADS)
-msb_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
-                  const float* __restrict__ scales, const float* __restrict__ bias,
-                  T* __restrict__ out, float* __restrict__ partial,
-                  int M, int K, int N, int k_per_split) {
+template <int BM, bool KBLOCKED>
+__global__ void __launch_bounds__(SIMT_THREADS)
+msb_matmul_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+                      const float* __restrict__ scales, const float* __restrict__ bias,
+                      float* __restrict__ out, float* __restrict__ partial,
+                      int M, int K, int N, int k_per_split) {
   __shared__ float xs[BM][BK];
-  __shared__ float ws[BK][BN];
+  __shared__ float ws[BK][SIMT_BN];
   __shared__ float cb[BK][LEVELS];
-  __shared__ __align__(16) uint8_t pk[BK][BN / 2];
+  __shared__ __align__(16) uint8_t pk[BK][SIMT_BN / 2];
 
-  constexpr int RPT = BM / (THREADS / BN);   // output rows per thread
-  const int n0 = blockIdx.x * BN;
+  constexpr int RPT = BM / (SIMT_THREADS / SIMT_BN);   // output rows per thread
+  const int n0 = blockIdx.x * SIMT_BN;
   const int m0 = blockIdx.y * BM;
   const int k_begin = blockIdx.z * k_per_split;
   const int k_end = k_begin + k_per_split;
   const int tid = threadIdx.x;
-  const int col = tid % BN;
-  const int rgrp = tid / BN;
+  const int col = tid % SIMT_BN;
+  const int rgrp = tid / SIMT_BN;
   const int half = N / 2;
 
   float acc[RPT];
@@ -83,30 +99,30 @@ msb_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
+    for (int i = tid; i < BM * BK; i += SIMT_THREADS) {
       const int r = i / BK, kk = i % BK;
       const int m = m0 + r;
-      xs[r][kk] = (m < M) ? to_f(x[(size_t)m * K + k0 + kk]) : 0.f;
+      xs[r][kk] = (m < M) ? x[(size_t)m * K + k0 + kk] : 0.f;
     }
     {  // 64 rows x 32 bytes: 8 bytes per thread
       const int r = tid / 4, c8 = (tid % 4) * 8;
       *reinterpret_cast<uint2*>(&pk[r][c8]) = *reinterpret_cast<const uint2*>(
           packed + (size_t)(k0 + r) * half + n0 / 2 + c8);
     }
-    for (int i = tid; i < BK * LEVELS; i += THREADS) {
+    for (int i = tid; i < BK * LEVELS; i += SIMT_THREADS) {
       const int r = i / LEVELS, z = i % LEVELS;
       const size_t off =
           KBLOCKED ? ((size_t)(k0 / BK) * N + n0 + r) * LEVELS + z
-                   : ((size_t)(k0 + r) * (N / BN) + n0 / BN) * LEVELS + z;
+                   : ((size_t)(k0 + r) * (N / SIMT_BN) + n0 / SIMT_BN) * LEVELS + z;
       cb[r][z] = scales[off];
     }
     __syncthreads();
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int kk = i / BN, nn = i % BN;
+    for (int i = tid; i < BK * SIMT_BN; i += SIMT_THREADS) {
+      const int kk = i / SIMT_BN, nn = i % SIMT_BN;
       const uint8_t byte = pk[kk][nn / 2];
       const int nib = (nn & 1) ? (byte >> 4) : (byte & 0xF);
       const float mag = KBLOCKED ? cb[nn][nib & 7] : cb[kk][nib & 7];
-      ws[kk][nn] = to_f(from_f<T>((nib & 8) ? -mag : mag));
+      ws[kk][nn] = (nib & 8) ? -mag : mag;
     }
     __syncthreads();
 #pragma unroll 8
@@ -114,26 +130,26 @@ msb_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
       const float w = ws[kk][col];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
-        acc[i] = fmaf(xs[rgrp + i * (THREADS / BN)][kk], w, acc[i]);
+        acc[i] = fmaf(xs[rgrp + i * (SIMT_THREADS / SIMT_BN)][kk], w, acc[i]);
     }
     __syncthreads();
   }
 
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    const int m = m0 + rgrp + i * (THREADS / BN);
+    const int m = m0 + rgrp + i * (SIMT_THREADS / SIMT_BN);
     if (m >= M) continue;
     const int n = n0 + col;
     if (partial != nullptr) {
       partial[((size_t)blockIdx.z * M + m) * N + n] = acc[i];
     } else {
       const float b = bias != nullptr ? bias[n] : 0.f;
-      out[(size_t)m * N + n] = from_f<T>(acc[i] + b);
+      out[(size_t)m * N + n] = acc[i] + b;
     }
   }
 }
 
-// out[m, n] = sum over splits in ascending order (+ bias), cast to T.
+// out[m, n] = sum over splits in ascending order from 0 (+ bias), cast to T.
 template <typename T>
 __global__ void split_reduce_kernel(const float* __restrict__ partial,
                                     const float* __restrict__ bias,
@@ -144,57 +160,432 @@ __global__ void split_reduce_kernel(const float* __restrict__ partial,
     float v = 0.f;
     for (int s = 0; s < splits; ++s) v += partial[(size_t)s * total + i];
     if (bias != nullptr) v += bias[i % N];
-    out[i] = from_f<T>(v);
-  }
-}
-
-template <typename T, int BM, bool KB>
-void launch(const void* x, const void* packed, const void* scales,
-            const void* bias, void* out, void* partial, int M, int K, int N,
-            int splits, cudaStream_t stream) {
-  dim3 grid(N / BN, (M + BM - 1) / BM, splits);
-  float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  msb_matmul_kernel<T, BM, KB><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scales), static_cast<const float*>(bias),
-      static_cast<T*>(out), part, M, K, N, K / splits);
-  if (splits > 1) {
-    const size_t total = (size_t)M * N;
-    int blocks = (int)((total + 255) / 256);
-    if (blocks > 4096) blocks = 4096;
-    split_reduce_kernel<T><<<blocks, 256, 0, stream>>>(
-        part, static_cast<const float*>(bias), static_cast<T*>(out), M, N,
-        splits);
+    if constexpr (sizeof(T) == 4) out[i] = v;
+    else out[i] = __float2bfloat16(v);
   }
 }
 
 template <typename T>
-void dispatch(const void* x, const void* packed, const void* scales,
-              const void* bias, void* out, void* partial, int M, int K, int N,
-              int splits, int kblocked, cudaStream_t s) {
-  if (M <= 8) {
-    if (kblocked) launch<T, 8, true>(x, packed, scales, bias, out, partial, M, K, N, splits, s);
-    else launch<T, 8, false>(x, packed, scales, bias, out, partial, M, K, N, splits, s);
-  } else {
-    if (kblocked) launch<T, 32, true>(x, packed, scales, bias, out, partial, M, K, N, splits, s);
-    else launch<T, 32, false>(x, packed, scales, bias, out, partial, M, K, N, splits, s);
+void launch_reduce(const float* partial, const float* bias, T* out, int M, int N,
+                   int splits, cudaStream_t stream) {
+  const size_t total = (size_t)M * N;
+  int blocks = (int)((total + 255) / 256);
+  if (blocks > 4096) blocks = 4096;
+  split_reduce_kernel<T><<<blocks, 256, 0, stream>>>(partial, bias, out, M, N, splits);
+}
+
+template <int BM, bool KB>
+int launch_f32(const float* x, const uint8_t* packed, const float* scales,
+               const float* bias, float* out, float* partial, int M, int K, int N,
+               int splits, cudaStream_t stream) {
+  dim3 grid(N / SIMT_BN, (M + BM - 1) / BM, splits);
+  float* part = splits > 1 ? partial : nullptr;
+  msb_matmul_f32_kernel<BM, KB><<<grid, SIMT_THREADS, 0, stream>>>(
+      x, packed, scales, bias, out, part, M, K, N, K / splits);
+  if (splits > 1) {
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    launch_reduce<float>(part, bias, out, M, N, splits, stream);
   }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 x: tensor-core kernel
+// ---------------------------------------------------------------------------
+
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int STAGES_, int MIN_BLOCKS_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
+  static constexpr int STAGES = STAGES_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;   // a warp's tile
+  static constexpr int MT = WTM / 16, NT = WTN / 8;               // its mma tiles
+  static constexpr int LDX = BK + 8;    // bf16 row stride of the x tile
+  static constexpr int LDW = BN + 8;    // bf16 row stride of the W tile
+  static constexpr int X_BYTES = BM * LDX * 2;
+  static constexpr int PK_BYTES = BK * BN / 2;
+  static constexpr int CB_BYTES = BN * LEVELS * 4;   // BK x BN/64 or BN codebooks
+  static constexpr int STAGE_BYTES = X_BYTES + PK_BYTES + CB_BYTES;
+  static constexpr int W_BYTES = BK * LDW * 2;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * W_BYTES;
+  static constexpr int WPT = BK * BN / 8 / THREADS;   // packed words a thread decodes
+  static constexpr int TPR = BN / 8 / WPT;             // decoding threads per k row
+  static_assert(BK * TPR == THREADS && (WPT == 2 || WPT == 4) && 64 % (8 * WPT) == 0,
+                "one slice of a k row, inside one 64-column codebook, per thread");
+  static_assert(MT >= 1 && NT % 2 == 0, "warp tile of m16 x (2 n8) tiles");
+};
+// M <= 128: 16-row blocks, K splits on separate blocks (decode)
+using SmallTile = Tile<16, 64, 1, 4, 5, 4>;
+// M > 128: one block walks all of K, 16 warps of 32 x 32 (about 128
+// registers with the running total); 8 warps of 64 x 32 (218 registers,
+// one block an SM) were slower, and a 64 x 128 tile was no faster summed
+// over a layer's projections at M = 256 to 2048.
+using LargeTile = Tile<128, 128, 4, 4, 3, 1>;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; zero-filled when !in (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col). Not
+// volatile: registers only, so the compiler may interleave the products
+// with the decode's integer work.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// PTX prmt in its generic mode: byte n of the result is byte s[4n+2:4n] of
+// {b, a} (a = bytes 0-3), or that byte's sign replicated when s[4n+3] is set.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// An 8-entry f32 codebook rounded to bf16, as its high bytes (hi[0..1]) and
+// low bytes (lo[0..1]), entry i in byte i of each pair.
+struct Codebook {
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ explicit Codebook(const float* c) {
+    const float4 a = *reinterpret_cast<const float4*>(c);
+    const float4 b = *reinterpret_cast<const float4*>(c + 4);
+    const uint32_t e01 = pack_bf16(a.x, a.y), e23 = pack_bf16(a.z, a.w);
+    const uint32_t e45 = pack_bf16(b.x, b.y), e67 = pack_bf16(b.z, b.w);
+    hi[0] = prmt(e01, e23, 0x7531);
+    hi[1] = prmt(e45, e67, 0x7531);
+    lo[0] = prmt(e01, e23, 0x6420);
+    lo[1] = prmt(e45, e67, 0x6420);
+  }
+
+  // The 8 weights of one packed word (nibble i = column i) as 4 bf16 pairs
+  // (columns 2j, 2j + 1 in out[j]): +-codebook[level], the sign flipped on
+  // the rounded value, exactly as rounding -codebook[level] gives.
+  __device__ __forceinline__ void decode(uint32_t w, uint32_t* out) const {
+    const uint32_t lv = w & 0x77777777u;   // levels: prmt selectors, copy mode
+    const uint32_t w4 = w << 4;            // even columns' signs at byte msbs
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t sel = half ? lv >> 16 : lv;
+      const uint32_t h = prmt(hi[0], hi[1], sel);
+      const uint32_t l = prmt(lo[0], lo[1], sel);
+      // 0xff in byte i where column 4 * half + i is negative
+      const uint32_t sg = prmt(w4, w, half ? 0xFBEAu : 0xD9C8u);
+      const uint32_t hs = h ^ (sg & 0x80808080u);
+      out[2 * half] = prmt(l, hs, 0x5140);
+      out[2 * half + 1] = prmt(l, hs, 0x7362);
+    }
+  }
+};
+
+// Weight of nibble `nib` with the f32 codebook c, rounded to bf16 bits.
+__device__ __forceinline__ uint32_t weight_bits(const float* c, uint32_t nib) {
+  const bf16 v = __float2bfloat16(c[nib & 7]);
+  return (uint32_t)(*reinterpret_cast<const unsigned short*>(&v)) ^ ((nib & 8u) << 12);
+}
+
+// grid: (ceil(N / BN), ceil(M / BM), splits on separate blocks or 1).
+// partial != nullptr: block z sums split z alone and writes it to
+// partial[z, m, n]. Else the block walks all of K, adds each split's sum to
+// its running total at the split's end, and writes bf16(total + bias).
+template <class TL, bool KBLOCKED>
+__global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS)
+msb_matmul_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
+                     const float* __restrict__ scales, const float* __restrict__ bias,
+                     bf16* __restrict__ out, float* __restrict__ partial, int M, int K,
+                     int N, int k_per_split) {
+  constexpr int BM = TL::BM, BN = TL::BN, MT = TL::MT, NT = TL::NT;
+  constexpr int LDX = TL::LDX, LDW = TL::LDW, STAGES = TL::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int k_begin = blockIdx.z * k_per_split;
+  const int n_steps = ((partial != nullptr) ? k_per_split : K) / BK;
+  const int split_steps = k_per_split / BK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
+  const int g = lane >> 2, tq = lane & 3;
+
+  auto xs_of = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + s * TL::STAGE_BYTES);
+  };
+  auto pk_of = [&](int s) { return smem + s * TL::STAGE_BYTES + TL::X_BYTES; };
+  auto cb_of = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * TL::STAGE_BYTES + TL::X_BYTES +
+                                    TL::PK_BYTES);
+  };
+  auto ws_of = [&](int b) {
+    return reinterpret_cast<bf16*>(smem + STAGES * TL::STAGE_BYTES + b * TL::W_BYTES);
+  };
+
+  // Step i's x tile, packed bytes and codebooks -> stage i % STAGES, one
+  // commit group (empty past the last step, so the group count stays fixed).
+  auto load = [&](int i) {
+    if (i < n_steps) {
+      const int s = i % STAGES, k0 = k_begin + i * BK;
+      const uint32_t xs = smem_u32(xs_of(s)), pk = smem_u32(pk_of(s));
+      const uint32_t cb = smem_u32(cb_of(s));
+      for (int c = tid; c < BM * 8; c += TL::THREADS) {
+        const int r = c / 8, j = c % 8;
+        const bool in = m0 + r < M;
+        cp_async16(xs + (r * LDX + j * 8) * 2,
+                   in ? x + (size_t)(m0 + r) * K + k0 + j * 8 : x, in);
+      }
+      for (int c = tid; c < BK * BN / 32; c += TL::THREADS) {
+        const int r = c / (BN / 32), j = c % (BN / 32);
+        const bool in = n0 + j * 32 < N;
+        cp_async16(pk + c * 16, in ? packed + (size_t)(k0 + r) * (N / 2) + n0 / 2 + j * 16
+                                   : packed, in);
+      }
+      for (int c = tid; c < BN * LEVELS / 4; c += TL::THREADS) {
+        const float* src;
+        bool in;
+        if constexpr (KBLOCKED) {   // BN codebooks of this 64-k block
+          const int col = c / 2;
+          in = n0 + col < N;
+          src = scales + ((size_t)(k0 / BK) * N + n0 + col) * LEVELS + (c % 2) * 4;
+        } else {                    // BK rows x BN / 64 codebooks
+          const int r = c / (BN / 32), j = c % (BN / 32);
+          in = n0 + (j / 2) * 64 < N;
+          src = scales + ((size_t)(k0 + r) * (N / 64) + n0 / 64 + j / 2) * LEVELS +
+                (j % 2) * 4;
+        }
+        cp_async16(cb + c * 16, in ? src : scales, in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Stage s -> W tile b: thread tid decodes the WPT packed words (8
+  // columns each) from column c0 of k row r.
+  auto decode = [&](int s, int b) {
+    constexpr int WPT = TL::WPT;
+    const int r = tid / TL::TPR, c0 = (tid % TL::TPR) * WPT * 8;
+    uint32_t words[WPT];
+    const uint8_t* src = pk_of(s) + r * (BN / 2) + c0 / 2;
+    if constexpr (WPT == 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src);
+      words[0] = v.x; words[1] = v.y; words[2] = v.z; words[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(src);
+      words[0] = v.x; words[1] = v.y;
+    }
+    bf16* dst = ws_of(b) + r * LDW + c0;
+    if constexpr (!KBLOCKED) {
+      const Codebook cb(cb_of(s) + (r * (BN / 64) + c0 / 64) * LEVELS);
+#pragma unroll
+      for (int j = 0; j < WPT; ++j) {
+        uint32_t o[4];
+        cb.decode(words[j], o);
+        *reinterpret_cast<uint4*>(dst + j * 8) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    } else {
+      const float* cbs = cb_of(s) + c0 * LEVELS;   // column c0 + c at c * 8
+#pragma unroll
+      for (int j = 0; j < WPT; ++j) {
+        uint32_t o[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int c = j * 8 + 2 * p;
+          const uint32_t n_lo = (words[j] >> (8 * p)) & 0xFu;
+          const uint32_t n_hi = (words[j] >> (8 * p + 4)) & 0xFu;
+          o[p] = weight_bits(cbs + c * LEVELS, n_lo) |
+                 (weight_bits(cbs + (c + 1) * LEVELS, n_hi) << 16);
+        }
+        *reinterpret_cast<uint4*>(dst + j * 8) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+  };
+
+  float acc[MT][NT][4], total[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = total[i][j][e] = 0.f;
+
+  // ldmatrix lanes: x rows (lane & 15), k offset (lane >> 4) * 8; W (trans)
+  // k rows (lane & 7) + ((lane >> 3) & 1) * 8, columns (lane >> 4) * 8
+  const int x_row = wm * TL::WTM + (lane & 15), x_col = (lane >> 4) * 8;
+  const int w_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int w_col = wn * TL::WTN + (lane >> 4) * 8;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load(s);
+  cp_async_wait<STAGES - 2>();   // step 0 has landed
+  __syncthreads();
+  decode(0, 0);
+
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<STAGES - 3>();   // step i + 1 has landed
+    __syncthreads();               // W tile i visible; step i - 1 done by all
+    load(i + STAGES - 1);
+    const bf16* xs = xs_of(i % STAGES);
+    const bf16* wt = ws_of(i & 1);
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t af[MT][4], bfr[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(af[mt], smem_u32(xs + (x_row + mt * 16) * LDX + kc * 16 + x_col));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, smem_u32(wt + (kc * 16 + w_row) * LDW + w_col + np * 16));
+        bfr[2 * np][0] = r[0];
+        bfr[2 * np][1] = r[1];
+        bfr[2 * np + 1][0] = r[2];
+        bfr[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
+    }
+    // step i + 1's weights, after step i's products are issued (faster
+    // than decoding first: the integer work fills the tensor cores' wait)
+    if (i + 1 < n_steps) decode((i + 1) % STAGES, (i + 1) & 1);
+    if ((i + 1) % split_steps == 0) {   // a split ends: total += its sum
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            total[mt][nt][e] += acc[mt][nt][e];
+            acc[mt][nt][e] = 0.f;
+          }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = n0 + wn * TL::WTN + nt * 8 + 2 * tq;
+      if (n >= N) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = m0 + wm * TL::WTM + mt * 16 + g + 8 * hh;
+        if (m >= M) continue;
+        float v0 = total[mt][nt][2 * hh], v1 = total[mt][nt][2 * hh + 1];
+        if (partial != nullptr) {
+          *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.z * M + m) * N + n) =
+              make_float2(v0, v1);
+          continue;
+        }
+        if (bias != nullptr) {   // as split_reduce_kernel: the bias after the splits
+          v0 += bias[n];
+          v1 += bias[n + 1];
+        }
+        *reinterpret_cast<uint32_t*>(out + (size_t)m * N + n) = pack_bf16(v0, v1);
+      }
+    }
+}
+
+template <class TL, bool KB>
+int launch_tc(const bf16* x, const uint8_t* packed, const float* scales, const float* bias,
+              bf16* out, float* partial, int M, int K, int N, int splits, int grid_splits,
+              cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(msb_matmul_tc_kernel<TL, KB>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM, grid_splits);
+  float* part = grid_splits > 1 ? partial : nullptr;
+  msb_matmul_tc_kernel<TL, KB><<<grid, TL::THREADS, TL::SMEM, stream>>>(
+      x, packed, scales, bias, out, part, M, K, N, K / splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || grid_splits == 1) return (int)e;
+  launch_reduce<bf16>(part, bias, out, M, N, grid_splits, stream);
+  return (int)cudaGetLastError();
+}
+
+template <class TL>
+int launch_tc_kb(const void* x, const void* packed, const void* scales, const void* bias,
+                 void* out, void* partial, int M, int K, int N, int splits,
+                 int grid_splits, int kblocked, cudaStream_t s) {
+  auto* xx = static_cast<const bf16*>(x);
+  auto* pk = static_cast<const uint8_t*>(packed);
+  auto* sc = static_cast<const float*>(scales);
+  auto* bs = static_cast<const float*>(bias);
+  auto* o = static_cast<bf16*>(out);
+  auto* p = static_cast<float*>(partial);
+  return kblocked ? launch_tc<TL, true>(xx, pk, sc, bs, o, p, M, K, N, splits, grid_splits, s)
+                  : launch_tc<TL, false>(xx, pk, sc, bs, o, p, M, K, N, splits, grid_splits, s);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). The caller has checked shapes,
-// types, contiguity and 16-byte alignment, and allocated out (M, N) and,
-// when splits > 1, the f32 workspace partial (splits, M, N). Requires
-// K % (64 * splits) == 0 and N % 64 == 0. Returns cudaGetLastError().
+// Plain C entry point (bound with ctypes). The caller (ops.plan) has chosen
+// the tile bm and where the K splits run, checked shapes, types,
+// contiguity and 16-byte alignment, and allocated out (M, N) and, when
+// grid_splits > 1 (or, for f32, splits > 1), the f32 workspace partial
+// (splits, M, N). bf16: bm is 16 (grid_splits == splits) or 128
+// (grid_splits == 1); f32: bm is 8 or 32 and the splits always run on
+// separate blocks. Requires K % (64 * splits) == 0 and N % 64 == 0; returns
+// cudaErrorInvalidValue otherwise, else cudaGetLastError().
 extern "C" int msb_matmul(const void* x, const void* packed, const void* scales,
                           const void* bias, void* out, void* partial, int M,
-                          int K, int N, int splits, int kblocked, int x_is_bf16,
-                          void* stream) {
+                          int K, int N, int splits, int grid_splits, int bm,
+                          int kblocked, int x_is_bf16, void* stream) {
+  if (splits < 1 || K % (BK * splits) || N % 64 || M < 0)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
-    dispatch<__nv_bfloat16>(x, packed, scales, bias, out, partial, M, K, N, splits, kblocked, s);
-  else
-    dispatch<float>(x, packed, scales, bias, out, partial, M, K, N, splits, kblocked, s);
-  return (int)cudaGetLastError();
+  if (!x_is_bf16) {
+    auto* xx = static_cast<const float*>(x);
+    auto* pk = static_cast<const uint8_t*>(packed);
+    auto* sc = static_cast<const float*>(scales);
+    auto* bs = static_cast<const float*>(bias);
+    auto* o = static_cast<float*>(out);
+    auto* p = static_cast<float*>(partial);
+    if (bm == 8)
+      return kblocked ? launch_f32<8, true>(xx, pk, sc, bs, o, p, M, K, N, splits, s)
+                      : launch_f32<8, false>(xx, pk, sc, bs, o, p, M, K, N, splits, s);
+    if (bm == 32)
+      return kblocked ? launch_f32<32, true>(xx, pk, sc, bs, o, p, M, K, N, splits, s)
+                      : launch_f32<32, false>(xx, pk, sc, bs, o, p, M, K, N, splits, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (bm == SmallTile::BM && grid_splits == splits)
+    return launch_tc_kb<SmallTile>(x, packed, scales, bias, out, partial, M, K, N, splits,
+                                   grid_splits, kblocked, s);
+  if (bm == LargeTile::BM && grid_splits == 1)
+    return launch_tc_kb<LargeTile>(x, packed, scales, bias, out, partial, M, K, N, splits,
+                                   grid_splits, kblocked, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -37,14 +37,10 @@
 // below the card's ratio. At decode sizes (a few MB) the real limit is
 // latency: how many loads are in flight across the card.
 //
-// Kernel B (simple and correct first): one thread block (128 threads) per
-// (row, kv head), serving the rep query heads that share the kv head; a
-// loop over ceil(kv_len / ps) pages stages each page's (ps, d) K and V rows
-// in shared memory, one warp per (query head, key) score with a
-// fixed-order shuffle reduction, then an f32 online-softmax update. Its
-// serial page walk is latency-bound; it moves onto kernel C's walk next.
-//
-// Kernel C (split-KV, "flash-decoding"):
+// Both kernels run one split-KV walk ("flash-decoding"); they differ only
+// in how a lane reads a token row (RowSlice): kernel B reads E values of T
+// straight from the pools with 16-byte loads, kernel C dequantizes codes
+// (and reads its frontier page from the hot pools). The walk:
 //   * a split is a fixed run of pages_per_split pages of a row; grid
 //     (B, H, n_splits) with n_splits = min(splits the block table's width
 //     needs, SPLIT_BLOCKS): block z of a row serves one query head over
@@ -57,10 +53,11 @@
 //     split starts at or past the row's ceil(kv_len / ps) pages returns at
 //     once;
 //   * no block barrier inside the page walk: each warp owns token rows of
-//     the block's splits, LPR = d / E lanes per row, each lane one 16-byte
-//     vector of codes (8 bytes at d = 16, 4-bit) = E elements; the group's
-//     absmax or 8-entry codebook is one load per row; values are
-//     dequantized in registers, dot products reduced by a fixed-order xor
+//     the block's splits, LPR = d / E lanes per row, each lane E = 16
+//     elements (32 at 4 bits when d % 32 == 0): kv16 values (two or four
+//     16-byte loads), or one 16-byte vector of codes (8 bytes at d = 16,
+//     4-bit) whose group's absmax or 8-entry codebook is one load per row,
+//     dequantized in registers; dot products reduced by a fixed-order xor
 //     shuffle, and every warp keeps its own online-softmax state and
 //     accumulator;
 //   * the warps merge once, in warp order, through shared memory, and the
@@ -74,9 +71,6 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int ACC_MAX = 8;   // rep * d <= ACC_MAX * THREADS
-
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
@@ -88,133 +82,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-// Stages page j of kv head h of row b (kv16 pools) into ks / vs (ps, d).
-template <typename T>
-struct PoolPages {
-  const T* __restrict__ k_pool;
-  const T* __restrict__ v_pool;
-  const int* __restrict__ table;  // this row's block-table row
-  int h, KV, d, ps;
-
-  __device__ __forceinline__ void operator()(int j, float* ks, float* vs) const {
-    const int page = table[j];
-    const size_t row_stride = (size_t)KV * d;
-    for (int i = threadIdx.x; i < ps * d; i += THREADS) {
-      const int t = i / d, dd = i - t * d;
-      const size_t off = ((size_t)page * ps + t) * row_stride + (size_t)h * d + dd;
-      ks[i] = to_f(k_pool[off]);
-      vs[i] = to_f(v_pool[off]);
-    }
-  }
-};
-
-// The page walk of one (row b, kv head h) block; `stage` puts page j's K and
-// V rows in shared memory.
-template <typename T, typename Stage>
-__device__ __forceinline__ void attend_row(const T* __restrict__ q, T* __restrict__ out,
-                                           int kv_len, int H, int KV, int d, int ps,
-                                           float scale, float softcap, const Stage& stage) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int rep = H / KV;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, n_warps = THREADS / 32;
-  float* qs = smem;               // (rep, d)
-  float* ks = qs + rep * d;       // (ps, d)
-  float* vs = ks + ps * d;        // (ps, d)
-  float* ss = vs + ps * d;        // (rep, ps) scores, then probabilities
-  float* ms = ss + rep * ps;      // (rep,) running max
-  float* ls = ms + rep;           // (rep,) running sum
-  float* cs = ls + rep;           // (rep,) rescale factor of this page
-
-  const size_t q_off = ((size_t)b * H + (size_t)h * rep) * d;
-  for (int i = tid; i < rep * d; i += THREADS) qs[i] = to_f(q[q_off + i]);
-  if (tid < rep) {
-    ms[tid] = -INFINITY;
-    ls[tid] = 0.f;
-  }
-  float acc[ACC_MAX];
-#pragma unroll
-  for (int j = 0; j < ACC_MAX; ++j) acc[j] = 0.f;
-  __syncthreads();
-
-  const int n_used = (kv_len + ps - 1) / ps;
-  for (int j = 0; j < n_used; ++j) {
-    stage(j, ks, vs);
-    __syncthreads();
-    for (int p = warp; p < rep * ps; p += n_warps) {
-      const int r = p / ps, t = p - r * ps;
-      float s = 0.f;
-      for (int dd = lane; dd < d; dd += 32) s = fmaf(qs[r * d + dd], ks[t * d + dd], s);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) {
-        s *= scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        ss[p] = (j * ps + t < kv_len) ? s : -INFINITY;
-      }
-    }
-    __syncthreads();
-    if (tid < rep) {
-      // every visited page holds at least one unmasked key, so mx is finite
-      float mx = ms[tid];
-      for (int t = 0; t < ps; ++t) mx = fmaxf(mx, ss[tid * ps + t]);
-      const float corr = expf(ms[tid] - mx);
-      float sum = 0.f;
-      for (int t = 0; t < ps; ++t) {
-        const float sv = ss[tid * ps + t];
-        const float pv = (sv == -INFINITY) ? 0.f : expf(sv - mx);
-        ss[tid * ps + t] = pv;
-        sum += pv;
-      }
-      ls[tid] = ls[tid] * corr + sum;
-      ms[tid] = mx;
-      cs[tid] = corr;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < ACC_MAX; ++jj) {
-      const int i = tid + jj * THREADS;
-      if (i < rep * d) {
-        const int r = i / d, dd = i - r * d;
-        float a = acc[jj] * cs[r];
-        for (int t = 0; t < ps; ++t) a = fmaf(ss[r * ps + t], vs[t * d + dd], a);
-        acc[jj] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int jj = 0; jj < ACC_MAX; ++jj) {
-    const int i = tid + jj * THREADS;
-    if (i < rep * d) {
-      const int r = i / d;
-      const float v = kv_len > 0 ? acc[jj] / fmaxf(ls[r], 1e-30f) : 0.f;
-      out[q_off + i] = from_f<T>(v);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-paged_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                              const T* __restrict__ v_pool,
-                              const int* __restrict__ block_tables,
-                              const int* __restrict__ kv_lens, T* __restrict__ out,
-                              int H, int KV, int d, int ps, int max_pages,
-                              float scale, float softcap) {
-  const int b = blockIdx.x;
-  const PoolPages<T> stage{k_pool, v_pool, block_tables + (size_t)b * max_pages,
-                           (int)blockIdx.y, KV, d, ps};
-  attend_row<T>(q, out, kv_lens[b], H, KV, d, ps, scale, softcap, stage);
-}
-
-size_t smem_bytes(int rep, int d, int ps) {
-  return sizeof(float) * ((size_t)rep * d + 2 * (size_t)ps * d + (size_t)rep * ps +
-                          3 * (size_t)rep);
-}
-
 // Opts a kernel into more than 48 KB of dynamic shared memory when needed.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
@@ -223,25 +90,8 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* block_tables, const void* kv_lens, void* out, int B,
-           int H, int KV, int d, int ps, int max_pages, float scale,
-           float softcap, cudaStream_t stream) {
-  const size_t smem = smem_bytes(H / KV, d, ps);
-  cudaError_t e = allow_smem(paged_attention_decode_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(B, KV);
-  paged_attention_decode_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(block_tables),
-      static_cast<const int*>(kv_lens), static_cast<T*>(out), H, KV, d, ps,
-      max_pages, scale, softcap);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// Kernel C: split-KV walk over quantized pools
+// The split-KV walk (kernels B and C) and the merge of its partials
 // ---------------------------------------------------------------------------
 
 constexpr int SPLIT_WARPS = 4;
@@ -249,14 +99,14 @@ constexpr int SPLIT_THREADS = 32 * SPLIT_WARPS;
 constexpr int COMBINE_THREADS = 128;
 constexpr int SPLIT_BLOCKS = 16;   // most blocks a row gets (grid z)
 
-struct QuantArgs {
+struct SplitArgs {
   const void* q;
-  const uint8_t* k_codes;
-  const void* k_scales;
-  const uint8_t* v_codes;
+  const uint8_t* k_pool;   // kv16: the K pool (n_pages, ps, KV, d) of T;
+  const void* k_scales;    // quantized: codes and their scales
+  const uint8_t* v_pool;
   const void* v_scales;
-  const void* k_hot;
-  const void* v_hot;
+  const void* k_hot;       // quantized only: the hot pools and, per row,
+  const void* v_hot;       // the frontier page and its hot row
   const int* block_tables;
   const int* kv_lens;
   const int* n_full;
@@ -297,32 +147,43 @@ __device__ __forceinline__ float code4(const uint32_t* w, const uint32_t* cb, in
   return __uint_as_float((bits << 16) ^ ((nib & 8u) << 28));
 }
 
+// Element e of 32-bit words holding values of T (bf16 pairs or f32), as f32.
+template <typename T>
+__device__ __forceinline__ float value16(const uint32_t* w, int e) {
+  if constexpr (sizeof(T) == 4) return __uint_as_float(w[e]);
+  const uint32_t x = w[e >> 1];
+  return __uint_as_float((e & 1) ? (x & 0xFFFF0000u) : (x << 16));
+}
+
 // 16 bytes of T at p (16-byte aligned) as 16 / sizeof(T) floats.
 template <typename T>
 __device__ __forceinline__ void load16(const T* p, float* f) {
   const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(w[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-    }
-  }
+  for (int i = 0; i < 16 / (int)sizeof(T); ++i) f[i] = value16<T>(w, i);
 }
 
-// One lane's view of one token row: E dequantized values (codes, with the
-// group's factor or codebook) or E full-precision values (hot row).
+// One lane's view of one token row: E values of T read straight from the
+// pool (BITS == 16, kernel B), or E dequantized values (codes with the
+// group's factor or codebook) or E full-precision values (hot row) (BITS
+// 8 or 4, kernel C).
 template <typename T, int BITS, int E>
 struct RowSlice {
-  static constexpr int CB = E * BITS / 8;   // code bytes per lane
+  static constexpr int CB = BITS == 16 ? E * (int)sizeof(T) : E * BITS / 8;  // bytes
   uint32_t w[CB / 4];
   uint32_t cb[4];    // 4-bit codebook (16 bytes)
   float factor;      // 8-bit absmax / 127
   const T* hot;      // non-null: read the hot row instead
+
+  // kv16: E values of T at p (16-byte aligned), all loads issued here.
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int i = 0; i < CB / 16; ++i) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      w[4 * i] = v.x; w[4 * i + 1] = v.y; w[4 * i + 2] = v.z; w[4 * i + 3] = v.w;
+    }
+  }
 
   __device__ __forceinline__ void load(const uint8_t* codes, const void* scales,
                                        size_t code_off, size_t srow, const T* hot_row) {
@@ -341,7 +202,10 @@ struct RowSlice {
   // Calls f(e, value) for e = 0 .. E-1 in order; value rounded to T.
   template <typename F>
   __device__ __forceinline__ void each(F f) const {
-    if (hot) {
+    if constexpr (BITS == 16) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) f(e, value16<T>(w, e));
+    } else if (hot) {
       constexpr int PE = 16 / sizeof(T);
 #pragma unroll
       for (int p = 0; p < E / PE; ++p) {
@@ -360,13 +224,25 @@ struct RowSlice {
   }
 };
 
-// Blocks an SM must hold: 6 at 16-element lanes (80 registers, a few
-// bytes spilled), 4 at 32 (128). Left to itself ptxas takes 96 and 163,
+// Blocks an SM must hold. Quantized: 6 at 16-element lanes (80 registers, a
+// few bytes spilled), 4 at 32 (128). Left to itself ptxas takes 96 and 163,
 // and at chip_smoke.py's decode shape (B=8, H=16, rows up to 2048 keys)
 // the 768 busy blocks then need a second wave, which was slower (PERF.md).
+// kv16 holds E values of T a row slice, four slices live (this pass and
+// the next, K and V): 6 blocks at bf16, 4 at f32.
 template <typename T, int BITS, int E>
-__global__ void __launch_bounds__(SPLIT_THREADS, E == 16 ? 6 : 4)
-paged_attention_quant_split_kernel(const QuantArgs a) {
+constexpr int split_min_blocks() {
+  if constexpr (BITS == 16) return sizeof(T) == 2 ? 6 : 4;
+  return E == 16 ? 6 : 4;
+}
+
+// One block per (row b, query head hq, z): splits z, z + n_splits, ... of
+// row b, each pages_per_split pages. BITS == 16 reads every page from the
+// kv16 pools; BITS 8 or 4 reads page n_full[b] from the hot pools and every
+// other page from the codes.
+template <typename T, int BITS, int E>
+__global__ void __launch_bounds__(SPLIT_THREADS, (split_min_blocks<T, BITS, E>()))
+paged_attention_split_kernel(const SplitArgs a) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, hq = blockIdx.y, split = blockIdx.z;
   const int h = hq / (a.H / a.KV);
@@ -397,27 +273,35 @@ paged_attention_quant_split_kernel(const QuantArgs a) {
   float m = -INFINITY, l = 0.f;
 
   const int* table = a.block_tables + (size_t)b * a.max_pages;
-  const int n_full = a.n_full[b], hot = a.hot_rows[b];
+  int n_full = -1, hot = 0;
+  if constexpr (BITS != 16) {
+    n_full = a.n_full[b];
+    hot = a.hot_rows[b];
+  }
   const size_t code_row = (size_t)d * BITS / 8;
   const T* k_hot = static_cast<const T*>(a.k_hot);
   const T* v_hot = static_cast<const T*>(a.v_hot);
 
-  // Loads of one pass: this lane's token row of K and V (codes and their
-  // group's factor or codebook, or the hot row). The next pass's loads are
-  // issued before this pass computes, so two passes are in flight. A
-  // lane's local token is tracked as (k, off) = (i / span, i % span),
-  // stepped without a division.
+  // Loads of one pass: this lane's token row of K and V (kv16 values, or
+  // codes and their group's factor or codebook, or the hot row). The next
+  // pass's loads are issued before this pass computes, so two passes are
+  // in flight. A lane's local token is tracked as (k, off) = (i / span,
+  // i % span), stepped without a division.
   auto issue = [&](int k, int off, RowSlice<T, BITS, E>& kr, RowSlice<T, BITS, E>& vr) {
     if (k * span + off >= n_tok) return;
     const int pos = (split + k * ns) * span + off;
     const int j = pos / a.ps, t = pos - j * a.ps;
-    if (j != n_full) {
+    if constexpr (BITS == 16) {
+      const size_t at = (((size_t)table[j] * a.ps + t) * a.KV + h) * d + c0;
+      kr.load(reinterpret_cast<const T*>(a.k_pool) + at);
+      vr.load(reinterpret_cast<const T*>(a.v_pool) + at);
+    } else if (j != n_full) {
       const int page = table[j];
       const size_t row = ((size_t)page * a.ps + t) * a.KV + h;
       const size_t srow = ((size_t)page * a.KV + h) * a.nb + t / a.tpb;
       const size_t at = row * code_row + (size_t)c0 * BITS / 8;
-      kr.load(a.k_codes, a.k_scales, at, srow, nullptr);
-      vr.load(a.v_codes, a.v_scales, at, srow, nullptr);
+      kr.load(a.k_pool, a.k_scales, at, srow, nullptr);
+      vr.load(a.v_pool, a.v_scales, at, srow, nullptr);
     } else {
       const size_t at = (((size_t)hot * a.ps + t) * a.KV + h) * d + c0;
       kr.load(nullptr, nullptr, 0, 0, k_hot + at);
@@ -500,7 +384,7 @@ paged_attention_quant_split_kernel(const QuantArgs a) {
 // memory.
 template <typename T>
 __global__ void __launch_bounds__(COMBINE_THREADS)
-paged_attention_quant_combine_kernel(const QuantArgs a) {
+paged_attention_combine_kernel(const SplitArgs a) {
   extern __shared__ float fs[];   // (n_splits,) factors
   __shared__ float l_tot;
   const int b = blockIdx.x, hq = blockIdx.y;
@@ -534,55 +418,85 @@ paged_attention_quant_combine_kernel(const QuantArgs a) {
 }
 
 template <typename T, int BITS, int E>
-int launch_quant(const QuantArgs& a, cudaStream_t stream) {
+int launch_split(const SplitArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * SPLIT_WARPS * ((size_t)a.d + 2);
-  cudaError_t e = allow_smem(paged_attention_quant_split_kernel<T, BITS, E>, smem);
+  cudaError_t e = allow_smem(paged_attention_split_kernel<T, BITS, E>, smem);
   if (e != cudaSuccess) return (int)e;
-  paged_attention_quant_split_kernel<T, BITS, E>
+  paged_attention_split_kernel<T, BITS, E>
       <<<dim3(a.B, a.H, a.n_splits), SPLIT_THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t csmem = sizeof(float) * a.n_splits;
-  e = allow_smem(paged_attention_quant_combine_kernel<T>, csmem);
+  e = allow_smem(paged_attention_combine_kernel<T>, csmem);
   if (e != cudaSuccess) return (int)e;
-  paged_attention_quant_combine_kernel<T>
+  paged_attention_combine_kernel<T>
       <<<dim3(a.B, a.H), COMBINE_THREADS, csmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_quant_bits(const QuantArgs& a, int bits, cudaStream_t stream) {
-  if (bits == 8) return launch_quant<T, 8, 16>(a, stream);
-  if (a.d % 32 == 0) return launch_quant<T, 4, 32>(a, stream);
-  return launch_quant<T, 4, 16>(a, stream);
+int launch_bits(const SplitArgs& a, int bits, cudaStream_t stream) {
+  if (bits == 16) return launch_split<T, 16, 16>(a, stream);
+  if (bits == 8) return launch_split<T, 8, 16>(a, stream);
+  if (a.d % 32 == 0) return launch_split<T, 4, 32>(a, stream);
+  return launch_split<T, 4, 16>(a, stream);
+}
+
+// Checks what both entry points take, then launches. E = 32 at 4 bits when
+// d % 32 == 0, else 16: d / E lanes a token row must be a power of two
+// <= 32, so d is a power of two in [16, 512] ([16, 1024] at 4 bits).
+int run(const SplitArgs& a, int bits, int is_bf16, void* stream) {
+  const int e = (bits == 4 && a.d % 32 == 0) ? 32 : 16;
+  const int lpr = a.d / e;
+  if ((bits != 16 && bits != 8 && bits != 4) || a.d % e || lpr > 32 || (lpr & (lpr - 1)) ||
+      a.KV <= 0 || a.H % a.KV || a.pages_per_split <= 0 || a.n_splits < 1 ||
+      a.n_splits > SPLIT_BLOCKS ||
+      (a.n_splits < SPLIT_BLOCKS && a.n_splits * a.pages_per_split < a.max_pages))
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_bits<__nv_bfloat16>(a, bits, s) : launch_bits<float>(a, bits, s);
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). The caller has checked shapes,
-// types and contiguity, that rep * d <= 1024, that the shared-memory need
-// fits, and allocated out (B, H, d). They return a CUDA error code (0 = ok).
+// Plain C entry points (bound with ctypes). They return a CUDA error code
+// (0 = ok). The caller has checked shapes, types and contiguity, that the
+// pools are 16-byte aligned, and allocated out (B, H, d) and the f32
+// scratch part_ml (2, B, H, n_splits) and part_acc (B, H, n_splits, d), with
+// n_splits = min(ceil(max_pages / pages_per_split), SPLIT_BLOCKS), at least
+// 1. d must be a power of two in [16, 512] ([16, 1024] at 4 bits);
+// anything else returns cudaErrorInvalidValue.
+
+// Kernel B: kv16 pools (n_pages, ps, KV, d) in q's type.
 extern "C" int paged_attention_decode(const void* q, const void* k_pool,
                                       const void* v_pool, const void* block_tables,
-                                      const void* kv_lens, void* out, int B, int H,
-                                      int KV, int d, int ps, int max_pages,
+                                      const void* kv_lens, void* part_ml, void* part_acc,
+                                      void* out, int B, int H, int KV, int d, int ps,
+                                      int max_pages, int n_splits, int pages_per_split,
                                       float scale, float softcap, int is_bf16,
                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, block_tables, kv_lens, out, B,
-                                 H, KV, d, ps, max_pages, scale, softcap, s);
-  return launch<float>(q, k_pool, v_pool, block_tables, kv_lens, out, B, H, KV,
-                       d, ps, max_pages, scale, softcap, s);
+  const SplitArgs a{q,
+                    static_cast<const uint8_t*>(k_pool),
+                    nullptr,
+                    static_cast<const uint8_t*>(v_pool),
+                    nullptr,
+                    nullptr,
+                    nullptr,
+                    static_cast<const int*>(block_tables),
+                    static_cast<const int*>(kv_lens),
+                    nullptr,
+                    nullptr,
+                    static_cast<float*>(part_ml),
+                    static_cast<float*>(part_acc),
+                    out,
+                    B, H, KV, d, ps, max_pages, 1, 1, n_splits, pages_per_split,
+                    scale, softcap};
+  return run(a, 16, is_bf16, stream);
 }
 
 // Kernel C. bits is 8 or 4; tpb and nb are the pools' token rows per
-// codebook group and groups per page; n_splits = min(ceil(max_pages /
-// pages_per_split), SPLIT_BLOCKS), at least 1. part_ml (2, B, H, n_splits) and
-// part_acc (B, H, n_splits, d) are f32 scratch. The caller has checked that the code, scale
-// and hot pools are 16-byte aligned and that d / E (E = 16 at 8 bits, 32 at
-// 4 bits when d % 32 == 0, else 16) is a power of two <= 32; anything else
-// returns cudaErrorInvalidValue.
+// codebook group and groups per page.
 extern "C" int paged_attention_decode_quant(
     const void* q, const void* k_codes, const void* k_scales, const void* v_codes,
     const void* v_scales, const void* k_hot, const void* v_hot, const void* block_tables,
@@ -590,14 +504,8 @@ extern "C" int paged_attention_decode_quant(
     void* part_acc, void* out, int B, int H, int KV, int d, int ps, int max_pages,
     int tpb, int nb, int n_splits, int pages_per_split, float scale, float softcap,
     int bits, int is_bf16, void* stream) {
-  const int e = (bits == 4 && d % 32 == 0) ? 32 : 16;
-  const int lpr = d / e;
-  if ((bits != 8 && bits != 4) || d % e || lpr > 32 || (lpr & (lpr - 1)) || KV <= 0 ||
-      H % KV || pages_per_split <= 0 || n_splits < 1 || n_splits > SPLIT_BLOCKS ||
-      (n_splits < SPLIT_BLOCKS && n_splits * pages_per_split < max_pages))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const QuantArgs a{q,
+  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
+  const SplitArgs a{q,
                     static_cast<const uint8_t*>(k_codes),
                     k_scales,
                     static_cast<const uint8_t*>(v_codes),
@@ -613,7 +521,5 @@ extern "C" int paged_attention_decode_quant(
                     out,
                     B, H, KV, d, ps, max_pages, tpb, nb, n_splits, pages_per_split,
                     scale, softcap};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_quant_bits<__nv_bfloat16>(a, bits, s)
-                 : launch_quant_bits<float>(a, bits, s);
+  return run(a, bits, is_bf16, stream);
 }

@@ -1,5 +1,5 @@
-from .ops import k_splits, msb_matmul, packed_matmul
+from .ops import k_splits, msb_matmul, packed_matmul, plan
 from .ref import dequant_ref, msb_matmul_ref
 
 __all__ = ["dequant_ref", "k_splits", "msb_matmul", "msb_matmul_ref",
-           "packed_matmul"]
+           "packed_matmul", "plan"]

@@ -2,12 +2,14 @@
 
 ``msb_matmul`` dispatches on the tensor's device and nothing else: a CPU
 tensor takes the plain version (``ref.msb_matmul_ref``), a CUDA tensor
-launches the hand-written kernel (``csrc/msb_matmul.cu``) or raises.
-``msb_matmul.launches`` counts kernel launches.
+launches the hand-written kernel (``csrc/msb_matmul.cu``: bf16 x on the
+tensor cores, f32 x on SIMT f32 FMA) or raises. ``plan`` is its launch
+plan, ``msb_matmul.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,12 +28,41 @@ def k_splits(k, n):
     return s
 
 
+class Plan(NamedTuple):
+    """One launch: output tiles of ``bm`` x ``bn``; K cut into ``splits``
+    runs of ``k_per_split`` (summed in ascending order); ``grid_splits``
+    is ``splits`` when each split runs on its own blocks (then summed by a
+    second pass over an f32 (splits, M, N) scratch), 1 when one block walks
+    all of K and sums the splits itself."""
+    bm: int
+    bn: int
+    splits: int
+    k_per_split: int
+    grid_splits: int
+
+
+SMALL_M = 128     # bf16 up to here: 16 x 64 tiles, splits on separate
+                  # blocks; past it 128 x 128 tiles walking all of K
+
+
+def plan(m, k, n, bf16=True):
+    """The kernel's launch plan for x (M, K) @ W (K, N). The tile may
+    depend on M; the K plan (``splits``, ``k_per_split``) depends on
+    (K, N) only, so an output row's bits are the same at every M."""
+    splits = k_splits(k, n)
+    if not bf16:       # f32 SIMT kernel: splits always on separate blocks
+        return Plan(8 if m <= 8 else 32, 64, splits, k // splits, splits)
+    if m <= SMALL_M:
+        return Plan(16, 64, splits, k // splits, splits)
+    return Plan(128, 128, splits, k // splits, 1)
+
+
 def _lib():
     lib = _build.load("msb_matmul")
     fn = lib.msb_matmul
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp] * 6 + [ci] * 8 + [vp]
         fn.restype = ci
     return fn
 
@@ -61,18 +92,20 @@ def _launch(x, packed, scales, bias, kblocked):
         raise ValueError("msb_matmul: all tensors must be on one device")
     if any(not t.is_contiguous() for t in ts):
         raise ValueError("msb_matmul: tensors must be contiguous")
-    if packed.data_ptr() % 8:
-        raise ValueError("msb_matmul: packed must be 8-byte aligned")
+    if any(t.data_ptr() % 16 for t in (x, packed, scales)):
+        raise ValueError("msb_matmul: x, packed and scales must start on a "
+                         "16-byte boundary")
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return out
-    splits = k_splits(k, n)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-               if splits > 1 else None)
+    bf16 = x.dtype == torch.bfloat16
+    p = plan(m, k, n, bf16)
+    partial = (torch.empty((p.grid_splits, m, n), dtype=torch.float32,
+                           device=dev) if p.grid_splits > 1 else None)
     err = _lib()(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
                  None if partial is None else partial.data_ptr(), m, k, n,
-                 splits, int(kblocked), int(x.dtype == torch.bfloat16),
+                 p.splits, p.grid_splits, p.bm, int(kblocked), int(bf16),
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "msb_matmul")
     msb_matmul.launches += 1

@@ -1,12 +1,14 @@
 """Wrappers of the paged-attention decode kernels.
 
-``paged_attention_decode`` (kv16 pools) and ``paged_attention_decode_quant``
-(MSB-quantized pools) dispatch on the tensor's device and nothing else: a
-CPU tensor takes the plain version (``ref.py``), a CUDA tensor launches the
-hand-written kernel (the two entry points of ``csrc/paged_attention.cu``)
-or raises. Each wrapper's ``.launches``
-counts its kernel's launches: one a call, though kernel C runs as two CUDA
-kernels (the split-KV walk, then the merge of its partials).
+``paged_attention_decode`` (kv16 pools, kernel B) and
+``paged_attention_decode_quant`` (MSB-quantized pools, kernel C) dispatch
+on the tensor's device and nothing else: a CPU tensor takes the plain
+version (``ref.py``), a CUDA tensor launches the hand-written kernel (the
+two entry points of ``csrc/paged_attention.cu``) or raises. Both run one
+split-KV walk and its merge, so each takes head_dim a power of two in
+[16, 512] and 16-byte aligned pools. Each wrapper's ``.launches`` counts
+its kernel's launches: one a call, though each runs as two CUDA kernels
+(the split-KV walk, then the merge of its partials).
 """
 from __future__ import annotations
 
@@ -18,72 +20,93 @@ from .. import _build
 from ...core.quantize import KVQuantSpec
 from .ref import paged_attention_decode_quant_ref, paged_attention_decode_ref
 
-_SMEM_MAX = 227 * 1024        # dynamic shared memory a block can use
-_THREADS, _ACC_MAX = 128, 8   # kernel B; must match csrc/paged_attention.cu
-_SPLIT_WARPS = 4              # kernel C's warps a block; as in the source
-PAGES_PER_SPLIT = 8           # kernel C: pages of a split (128 tokens at
-                              # page_size 16)
-SPLIT_BLOCKS = 16             # kernel C: most blocks a row gets; as in the
-                              # source
+PAGES_PER_SPLIT = 8           # pages of a split (128 tokens at page_size 16)
+SPLIT_BLOCKS = 16             # most blocks a row gets; as in the source
 
 
-def smem_bytes(rep, d, ps):
-    return 4 * (rep * d + 2 * ps * d + rep * ps + 3 * rep)
+def n_splits(max_pages):
+    """Blocks of the split grid per (row, query head): enough splits to
+    cover a block-table row of ``max_pages`` pages, at most
+    ``SPLIT_BLOCKS``; block z then walks splits z, z + n_splits, ... of its
+    row. The width of the table is known on the host, so no device sync is
+    needed; blocks past a row's own pages exit at once. The scratch is
+    (B, H, n_splits) times d + 2 floats, so at most B * H * 16 * (d + 2) *
+    4 bytes however wide the table is."""
+    return max(1, min(-(-int(max_pages) // PAGES_PER_SPLIT), SPLIT_BLOCKS))
+
+
+def lane_elems(kv_bits, d, what="paged_attention_decode"):
+    """Elements of one lane's slice of a token row in the split walk: 16
+    (kv16 values, or 16 bytes of 8-bit codes), 32 at 4 bits (16 bytes of
+    nibbles), 16 at 4 bits when ``d % 32 != 0``. Raises unless ``d`` splits
+    into a power-of-two count (<= 32) of them, i.e. unless ``d`` is a power
+    of two in [16, 512] ([16, 1024] at 4 bits)."""
+    e = 32 if kv_bits == 4 and d % 32 == 0 else 16
+    lanes = d // e
+    if d % e or lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(f"{what}: head_dim {d} must be a power of two in "
+                         f"[16, {32 * e}] (d / {e} lanes per token row at "
+                         f"kv_bits={kv_bits})")
+    return e
+
+
+def _split_scratch(b, h, d, max_pages, device):
+    """n_splits and the f32 partials (2, B, H, n_splits), (B, H, n_splits,
+    d) of one split launch."""
+    ns = n_splits(max_pages)
+    return (ns, torch.empty((2, b, h, ns), dtype=torch.float32, device=device),
+            torch.empty((b, h, ns, d), dtype=torch.float32, device=device))
 
 
 def _lib():
     fn = _build.load("paged_attention").paged_attention_decode
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf,
-                       ci, vp]
+        fn.argtypes = [vp] * 8 + [ci] * 8 + [cf, cf, ci, vp]
         fn.restype = ci
     return fn
 
 
 def _launch(q, k_pool, v_pool, block_tables, kv_lens, softcap, scale):
+    what = "paged_attention_decode"
     b, h, d = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
-        raise ValueError("paged_attention_decode: pools must both be "
-                         "(n_pages, page_size, KV, d)")
+        raise ValueError(f"{what}: pools must both be (n_pages, page_size, "
+                         "KV, d)")
     _, ps, kv, dk = k_pool.shape
     if dk != d or h % kv:
-        raise ValueError(f"paged_attention_decode: q {tuple(q.shape)} does "
-                         f"not fit pools {tuple(k_pool.shape)}")
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not fit pools "
+                         f"{tuple(k_pool.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32) or \
             k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("paged_attention_decode: q and pools must share one "
-                        "type, bf16 or f32")
+        raise TypeError(f"{what}: q and pools must share one type, bf16 or "
+                        "f32")
     if block_tables.dtype != torch.int32 or block_tables.dim() != 2 or \
             block_tables.shape[0] != b:
-        raise ValueError("paged_attention_decode: block_tables must be "
-                         f"int32 ({b}, max_pages)")
+        raise ValueError(f"{what}: block_tables must be int32 ({b}, "
+                         "max_pages)")
     if kv_lens.dtype != torch.int32 or tuple(kv_lens.shape) != (b,):
-        raise ValueError(f"paged_attention_decode: kv_lens must be int32 "
-                         f"({b},)")
-    rep = h // kv
-    if rep * d > _THREADS * _ACC_MAX:
-        raise ValueError(f"paged_attention_decode: rep*d={rep * d} exceeds "
-                         f"{_THREADS * _ACC_MAX}")
-    if smem_bytes(rep, d, ps) > _SMEM_MAX:
-        raise ValueError("paged_attention_decode: page too large for shared "
-                         "memory")
+        raise ValueError(f"{what}: kv_lens must be int32 ({b},)")
+    lane_elems(16, d, what)
     ts = (q, k_pool, v_pool, block_tables, kv_lens)
     if any(t.device != q.device for t in ts):
-        raise ValueError("paged_attention_decode: all tensors must be on one "
-                         "device")
+        raise ValueError(f"{what}: all tensors must be on one device")
     if any(not t.is_contiguous() for t in ts):
-        raise ValueError("paged_attention_decode: tensors must be contiguous")
+        raise ValueError(f"{what}: tensors must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{what}: pools must start on a 16-byte boundary")
     out = torch.empty_like(q)
     if b == 0:
         return out
+    max_pages = block_tables.shape[1]
+    ns, part_ml, part_acc = _split_scratch(b, h, d, max_pages, q.device)
     scale = float(scale if scale is not None else d ** -0.5)
-    err = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-                 b, h, kv, d, ps, block_tables.shape[1], scale, float(softcap),
+    err = _lib()(*(t.data_ptr() for t in ts), part_ml.data_ptr(),
+                 part_acc.data_ptr(), out.data_ptr(), b, h, kv, d, ps,
+                 max_pages, ns, PAGES_PER_SPLIT, scale, float(softcap),
                  int(q.dtype == torch.bfloat16),
                  torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_attention_decode")
+    _build.check(err, what)
     paged_attention_decode.launches += 1
     return out
 
@@ -113,30 +136,6 @@ def _lib_quant():
         fn.argtypes = [vp] * 14 + [ci] * 10 + [cf, cf, ci, ci, vp]
         fn.restype = ci
     return fn
-
-
-def n_splits(max_pages):
-    """Blocks of kernel C's grid per (row, query head): enough splits to
-    cover a block-table row of ``max_pages`` pages, at most
-    ``SPLIT_BLOCKS``; block z then walks splits z, z + n_splits, ... of its
-    row. The width of the table is known on the host, so no device sync is
-    needed; blocks past a row's own pages exit at once. The scratch is
-    (B, H, n_splits) times d + 2 floats, so at most B * H * 16 * (d + 2) *
-    4 bytes however wide the table is."""
-    return max(1, min(-(-int(max_pages) // PAGES_PER_SPLIT), SPLIT_BLOCKS))
-
-
-def quant_lane_elems(kv_bits, d):
-    """Elements of one lane's code vector in kernel C: 16 bytes of codes
-    (16 at 8 bits, 32 at 4 bits), 8 bytes at 4 bits when ``d % 32 != 0``.
-    Raises unless ``d`` splits into a power-of-two count (<= 32) of them."""
-    e = 32 if kv_bits == 4 and d % 32 == 0 else 16
-    lanes = d // e
-    if d % e or lanes > 32 or lanes & (lanes - 1):
-        raise ValueError(f"paged_attention_decode_quant: head_dim {d} must "
-                         "be a power of two in [16, 512] (d / "
-                         f"{e} lanes per token row at kv_bits={kv_bits})")
-    return e
 
 
 def _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
@@ -174,9 +173,7 @@ def _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
                     ("hot_rows", hot_rows)):
         if t.dtype != torch.int32 or tuple(t.shape) != (b,):
             raise ValueError(f"{what}: {name} must be int32 ({b},)")
-    quant_lane_elems(int(kv_bits), d)
-    if 4 * _SPLIT_WARPS * (d + 2) > _SMEM_MAX:
-        raise ValueError(f"{what}: head_dim {d} too large for shared memory")
+    lane_elems(int(kv_bits), d, what)
     ts = (q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
           block_tables, kv_lens, n_full, hot_rows)
     if any(t.device != q.device for t in ts):
@@ -190,11 +187,7 @@ def _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
     if b == 0:
         return out
     max_pages = block_tables.shape[1]
-    ns = n_splits(max_pages)
-    part_ml = torch.empty((2, b, h, ns), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((b, h, ns, d), dtype=torch.float32,
-                           device=q.device)
+    ns, part_ml, part_acc = _split_scratch(b, h, d, max_pages, q.device)
     scale = float(scale if scale is not None else d ** -0.5)
     err = _lib_quant()(
         *(t.data_ptr() for t in ts), part_ml.data_ptr(), part_acc.data_ptr(),

@@ -62,6 +62,58 @@ def test_msb_matmul_rows_do_not_depend_on_batch(cuda):
         assert torch.equal(mm_ops.msb_matmul(x[:m].contiguous(), p, s), y8[:m])
 
 
+M_ALL = (1, 2, 4, 8, 16, 17, 64, 512, 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kblocked", [False, True])
+@pytest.mark.parametrize("k,n", [(2048, 1024), (8192, 2048), (256, 320)])
+def test_msb_matmul_rows_do_not_depend_on_m(cuda, k, n, kblocked):
+    """bf16 on the tensor cores: every row of an M=4096 product is
+    bit-identical to the same row computed at M = 1 ... 512, through both
+    tiles of the launch plan (16-row tiles with K splits on separate
+    blocks, 128-row tiles walking all of K), with and without bias. N=320
+    is not a multiple of the 128-column tile."""
+    rng = np.random.default_rng(40 + k + kblocked)
+    p, s = _weights(rng, k, n, kblocked, cuda)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        cuda)
+    x = torch.from_numpy(rng.standard_normal((4096, k)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    assert len({mm_ops.plan(m, k, n).bm for m in M_ALL}) == 2
+    for b in (None, bias):
+        y = mm_ops.msb_matmul(x, p, s, b, kblocked=kblocked)
+        for m in M_ALL[:-1]:
+            ym = mm_ops.msb_matmul(x[-m:].contiguous(), p, s, b,
+                                   kblocked=kblocked)
+            assert torch.equal(ym, y[-m:]), f"M={m}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("kblocked", [False, True])
+@pytest.mark.parametrize("m", [1, 8, 17, 130, 600, 4096])
+def test_msb_matmul_tensor_cores_match_plain(cuda, m, kblocked, bias):
+    """bf16 x against the plain version at M up to 4096, n- and k-blocked,
+    with and without bias; N=448 leaves a half tile at the edge of the
+    128-column tiles. Tolerance 1e-2 * max|ref|: the same bf16 weights and
+    products, f32 sums in another order, bf16 output."""
+    rng = np.random.default_rng(50 + m + 2 * kblocked + bias)
+    k, n = 512, 448
+    p, s = _weights(rng, k, n, kblocked, cuda)
+    b = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+         if bias else None)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    before = mm_ops.msb_matmul.launches
+    y = mm_ops.msb_matmul(x, p, s, b, kblocked=kblocked)
+    assert mm_ops.msb_matmul.launches == before + 1
+    y_ref = mm_ref.msb_matmul_ref(x, p, s, b, kblocked=kblocked)
+    assert y.dtype == torch.bfloat16 and y.shape == (m, n)
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=0,
+                               atol=1e-2 * y_ref.float().abs().max().item())
+
+
 @pytest.mark.cuda
 def test_paged_attention_kernel_matches_plain(cuda):
     rng = np.random.default_rng(12)
@@ -80,6 +132,116 @@ def test_paged_attention_kernel_matches_plain(cuda):
                                                 scale=scale)
         torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
         assert (out[2] == 0).all()
+
+
+def _kv16_case(rng, dtype, lens, device, ps=16, kv=8, h=16, d=128,
+               width=None):
+    """Random full-width kv16 pools and a batch of rows with ``lens``
+    keys, each on its own pages; block tables ``width`` pages wide
+    (default: enough for the longest row)."""
+    width = width or max(1, -(-max(lens) // ps))
+    n_pages = 1 + len(lens) * width
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (n_pages, ps, kv, d)).astype(np.float32)).to(device=device,
+                                                     dtype=dtype)
+        for _ in "kv")
+    bt = (1 + rng.permutation(n_pages - 1)).reshape(len(lens), width)
+    q = torch.from_numpy(rng.standard_normal((len(lens), h, d)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    ints = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
+        device) for a in (bt, lens)]
+    return q, kp, vp, ints[0], ints[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_rows_do_not_depend_on_batch(cuda, dtype, softcap):
+    """Kernel B on the split walk: a row run alone (with a block table only
+    as wide as it needs, so a smaller grid) gives the same bits as inside a
+    batch of mixed lengths up to past 16 splits (4100 keys), and the batch
+    agrees with the plain version (1e-5 in f32, f32 sums in another order;
+    2e-2 in bf16, bf16 outputs). Zero-length rows are exactly 0."""
+    rng = np.random.default_rng(60 + int(softcap))
+    lens = [0, 1, 15, 16, 17, 300, 2048, 4100]
+    q, kp, vp, bt, kv_lens = _kv16_case(rng, dtype, lens, cuda)
+    before = pa_ops.paged_attention_decode.launches
+    out = pa_ops.paged_attention_decode(q, kp, vp, bt, kv_lens,
+                                        softcap=softcap)
+    assert pa_ops.paged_attention_decode.launches == before + 1
+    ref = pa_ref.paged_attention_decode_ref(q, kp, vp, bt, kv_lens,
+                                            softcap=softcap)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    assert (out[0] == 0).all()
+    for i, n in enumerate(lens):
+        width = max(1, -(-n // 16))
+        alone = pa_ops.paged_attention_decode(
+            q[i:i + 1].contiguous(), kp, vp, bt[i:i + 1, :width].contiguous(),
+            kv_lens[i:i + 1].contiguous(), softcap=softcap)
+        assert torch.equal(alone[0], out[i]), f"row of {n} keys"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_split_edges(cuda, dtype):
+    """Kernel B at lengths on and around the split edges (128 keys a split
+    at page size 16), across several splits and past SPLIT_BLOCKS splits
+    (a block walks two or three), with scale and softcap, against the
+    plain version."""
+    rng = np.random.default_rng(62)
+    edge = pa_ops.PAGES_PER_SPLIT * 16
+    nb = pa_ops.SPLIT_BLOCKS
+    lens = [edge - 1, edge, edge + 1, 2 * edge, 2 * edge + 16, 3 * edge - 1,
+            5 * edge + 7, 1, nb * edge, nb * edge + 1, 2 * nb * edge + 5]
+    args = _kv16_case(rng, dtype, lens, cuda)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for softcap, scale in ((0.0, None), (30.0, 0.3)):
+        out = pa_ops.paged_attention_decode(*args, softcap=softcap,
+                                            scale=scale)
+        ref = pa_ref.paged_attention_decode_ref(*args, softcap=softcap,
+                                                scale=scale)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_packed_prefill_causal_bounds(cuda, dtype):
+    """Kernel B as kv16 packed prefill launches it: one row per prompt
+    token, its segment's block-table row, kv_len = min(q_pos + 1, kv_len).
+    Agrees with the plain version, and new keys and values past a row's
+    causal bound (the rest of its segment) leave the row's bits as they
+    were."""
+    rng = np.random.default_rng(63)
+    ps, width = 16, 64
+    chunks = [(0, 128), (256, 384), (0, 256)]
+    seg = np.concatenate([np.full(e - s0, i) for i, (s0, e) in
+                          enumerate(chunks)])
+    pos = np.concatenate([np.arange(s0, e) for s0, e in chunks])
+    q, kp, vp, bt, _ = _kv16_case(rng, dtype, [e for _, e in chunks], cuda,
+                                  width=width)
+    q = torch.from_numpy(rng.standard_normal((len(pos), 16, 128)).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    ends = np.array([e for _, e in chunks])[seg]
+    bound = np.minimum(pos + 1, ends).astype(np.int32)
+    rows = bt[torch.from_numpy(seg).to(cuda)].contiguous()
+    kv_lens = torch.from_numpy(bound).to(cuda)
+    out = pa_ops.paged_attention_decode(q, kp, vp, rows, kv_lens)
+    ref = pa_ref.paged_attention_decode_ref(q, kp, vp, rows, kv_lens)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    # rewrite every position of segment 1 past 300 (its bound rows 256-299
+    # must not move; rows 300-383 see the new keys)
+    s1 = bt[1].long()
+    kp2, vp2 = kp.clone(), vp.clone()
+    tail = torch.arange(300, 384, device=cuda)
+    kp2[s1[tail // ps], tail % ps] = 7.0
+    vp2[s1[tail // ps], tail % ps] = -7.0
+    out2 = pa_ops.paged_attention_decode(q, kp2, vp2, rows, kv_lens)
+    keep = torch.from_numpy(~((seg == 1) & (pos >= 300))).to(cuda)
+    assert torch.equal(out2[keep], out[keep])
+    assert not torch.equal(out2[~keep], out[~keep])
 
 
 def _quant_pools(rng, bits, n_pages, n_hot, ps, kv, d, dtype, device):
@@ -270,6 +432,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         pa_ops.paged_attention_decode(q, pool, pool, bt,
                                       torch.ones(1, dtype=torch.int32,
                                                  device=cuda))
+    one32 = torch.ones(1, dtype=torch.int32, device=cuda)
+    for d in (48, 1024):                   # B: a power of two in [16, 512]
+        qd = torch.zeros(1, 4, d, device=cuda)
+        pd = torch.zeros(4, 4, 2, d, device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            pa_ops.paged_attention_decode(qd, pd, pd, bt.to(torch.int32),
+                                          one32)
+    shifted = torch.zeros(pool.numel() + 1, device=cuda)[1:].view(pool.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pa_ops.paged_attention_decode(q, shifted, pool, bt.to(torch.int32),
+                                      one32)
+    xb = torch.zeros(2, 128, device=cuda, dtype=torch.bfloat16)
+    odd = torch.zeros(2 * 128 + 1, device=cuda,
+                      dtype=torch.bfloat16)[1:].view(2, 128)
+    with pytest.raises(ValueError, match="16-byte"):   # A: cp.async rows
+        mm_ops.msb_matmul(odd, p, s)
+    assert mm_ops.msb_matmul(xb, p, s).shape == (2, 128)
     kc, ks, vc, vs, kh, vh = _quant_pools(np.random.default_rng(0), 4, 4, 2,
                                           4, 2, 16, torch.float32, cuda)
     one = torch.ones(1, dtype=torch.int32, device=cuda)

@@ -21,7 +21,7 @@ from repro_torch.serve import ContinuousEngine, ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
 
 
 def _forbidden_imports(path):

@@ -20,6 +20,7 @@ import torch
 
 from repro.kernels.paged_attention.ref import \
     paged_attention_decode_quant_ref as j_paq_ref
+from repro_torch.configs import archs, smoke_config
 from repro_torch.core.quantize import kv_quantize_pages
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
@@ -192,3 +193,18 @@ def test_merge_of_no_split_is_exactly_zero():
     m = torch.full((3,), -float("inf"))
     out = merge_blocks(m, torch.zeros(3), torch.zeros(3, D), 0)
     assert out.shape == (D,) and (out == 0).all()
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+def test_lane_slices_take_every_attention_head_dim(kv_bits):
+    """Kernels B (kv16) and C share the walk's head_dim rule, a power of
+    two in [16, 512] (to 1024 at 4 bits): every registered arch with
+    KV-cache attention, and every smoke config, passes it; xlstm's 192
+    (its mLSTM heads, no KV cache) and other widths raise."""
+    served = [c for c in archs.ALL if c.layer_pattern != "xlstm"]
+    for cfg in served + [smoke_config(c.name) for c in served]:
+        e = pa_ops.lane_elems(kv_bits, cfg.head_dim_)
+        assert cfg.head_dim_ % e == 0 and (cfg.head_dim_ // e) <= 32
+    for d in (8, 24, 48, 192) + ((1024,) if kv_bits != 4 else (2048,)):
+        with pytest.raises(ValueError, match="head_dim"):
+            pa_ops.lane_elems(kv_bits, d)
