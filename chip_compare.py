@@ -10,8 +10,12 @@ decode shape and a 512-token packed-prefill wave; each against its plain
 version, kernel and library yardsticks as medians of 20 cold launches) on
 the ``repro_torch`` package under ``--src``, then internlm2-1.8b at full
 width (random weights from seed 0, 4-bit DP quantization on the card):
-four timed ``Model.prefill`` calls of B=8 prompts of 512 tokens and one
-``ServeEngine.score`` of (8, 513) tokens. Every line carries ``--tag``; the
+four timed ``Model.prefill`` calls of B=8 prompts of 512 tokens, one
+``ServeEngine.score`` of (8, 513) tokens, and ``chip_smoke.py``'s
+decode-step profile of ``ContinuousEngine`` (B=8, decode_horizon 1, phase
+7's prompts) at kv16 and kv4: the engine is warmed first where the tree's
+``warmup()`` exists (CUDA graphs), and runs eagerly where it raises
+``NotImplementedError``. Every line carries ``--tag``; the
 card's name and power limit are printed beside the prefill rates. Compare
 two trees by running both from one command, in the order parent, change,
 change, parent (one process each: a process imports one package). Needs
@@ -86,6 +90,20 @@ def main():
     torch.cuda.synchronize()
     cs.log(f"  {args.tag} score (8, 513): NLL {nll:.6f} in "
            f"{time.perf_counter() - t0:.3f} s")
+    del eng
+
+    from repro_torch.serve import ContinuousEngine
+    serve_prompts = cs.serve_prompts(cfg)
+    for bits in (16, 4):
+        cont = ContinuousEngine(model, packed, kv_bits=bits,
+                                **cs.SERVE_ENGINE)
+        try:
+            cont.warmup()
+            mode = "graphs"
+        except NotImplementedError:
+            mode = "eager"
+        cs.log(f"  {args.tag} kv{bits} decode step ({mode}):")
+        cs.profile_decode(torch, cont, serve_prompts, 32, warm=False)
 
 
 if __name__ == "__main__":

@@ -25,17 +25,32 @@ one line each (details indented), any failure exits non-zero:
    0, cross-segment isolation bit for bit
 7. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
    the card, pack, ContinuousEngine at decode_horizon 8 and 1 over kv16
-   pools; the kernels' launch counters are zeroed just before the
-   horizon-8 run and those of its path must be non-zero after it
+   pools, each engine's dispatch set captured as CUDA graphs by warmup()
+   first (report printed; no capture after it); the kernels' launch
+   counters are zeroed just before the horizon-8 run and those of its path
+   must be non-zero after it. Before the timed runs, graph replay is held
+   against the same dispatches run eagerly (one packed-prefill bucket, one
+   decode-horizon batch): outputs and pools bit-identical, pool addresses
+   unchanged. Decode-step and prefill-wave profiles over graph replays
 8. serve kv8/kv4 — the same packed weights and requests over MSB-quantized
-   KV pools (kv_bits 8, then 4) at decode_horizon 8 and 1, counters zeroed
-   before each horizon-8 run; commit cost and a kv4 decode-step profile
+   KV pools (kv_bits 8, then 4) at decode_horizon 8 and 1, warmed and
+   checked as in phase 7, counters zeroed before each horizon-8 run;
+   commit cost and a kv4 decode-step profile
 9. serve static — the same packed weights through ServeEngine: generate
    (prefill on flash_attention_fwd, then ring decode) and score, counters
    zeroed before each; greedy tokens against ContinuousEngine's
 10. kernel path vs plain path — smoke internlm2 served on the card and on
    the CPU from the same weights, at kv_bits 16, 8 and 4, and through the
    static engine
+11. front door — phase 7's packed weights behind ``APIServer`` over an
+   ``EngineSupervisor`` with ``warmup=True``, at kv16, at kv16 with one
+   step hung until the watchdog rebuilds the engine, and at kv4: /healthz
+   goes from warming to ok, phase 7's prompts (streaming and not, 32
+   tokens, temperature 0) come back over HTTP with the tokens of the
+   direct horizon-8 run (at kv4, the requests whose prefill chunks all
+   ended on a page boundary or at the prompt's end in both runs; after the
+   hang, up to near ties), /metrics shows no capture after warm-up but the
+   re-warm's, clean shutdown with a page audit
 
 The second-to-last line is the kernel table as JSON (kernel A at the
 decode shape and at M=4096, kernel C once per code width); the last line
@@ -638,6 +653,39 @@ def compare_tokens(torch, name, a, b, prompts, model, params, device):
     log(f"  {name}: tokens identical or near-tie only")
 
 
+def record_chunks(engine, prompts):
+    """Have ``engine`` record each request's packed-prefill chunks:
+    returns {prompt index: [(start, length), ...]}, filled as it serves."""
+    index = {np.asarray(p, np.int32).tobytes(): i
+             for i, p in enumerate(prompts)}
+    chunks = {}
+    run = engine._run_prefill_packed
+
+    def spy(segs, bucket):
+        for seq, start, n in segs:
+            i = index.get(np.asarray(seq.req.prompt, np.int32).tobytes())
+            chunks.setdefault(i, []).append((int(start), int(n)))
+        return run(segs, bucket)
+
+    engine._run_prefill_packed = spy
+    return chunks
+
+
+def schedule_free(chunks, prompts, ps):
+    """Prompt indices whose kv8/kv4 tokens do not depend on how requests
+    were batched: every prefill chunk ends on a page boundary or at the
+    prompt's end, and a prefix adopted from the prompt sharing it (the
+    first two) came from a request that qualifies too. Quantized pools are
+    read from their codes for every page a row has filled and from the hot
+    row for the page it is on, so a chunk that ends mid-page reads that
+    page exact where another wave reads it quantized, in the reference as
+    in the port (tests/test_torch_schedule.py)."""
+    whole = {i for i, c in chunks.items() if i is not None and all(
+        (s + n) % ps == 0 or s + n == len(prompts[i]) for s, n in c)}
+    return {i for i in whole
+            if chunks[i][0][0] == 0 or {0, 1} <= whole}
+
+
 def run_engine(engine, prompts, first_alone, max_new):
     """Submit ``prompts[0]`` alone, step until its prompt is cached (so the
     prompt sharing its prefix can hit), then the rest; run to the end.
@@ -665,6 +713,25 @@ def run_engine(engine, prompts, first_alone, max_new):
         pass
     out.update(engine.collect())
     return out, times["prefill"], times["decode"]
+
+
+# the continuous engine of phases 7, 8 and 11
+SERVE_ENGINE = dict(max_batch=8, page_size=16, num_pages=1024,
+                    prefill_chunk=128, max_seq=1024)
+
+
+def serve_prompts(cfg):
+    """Phase 7's 8 prompts (seed 0): 64-384 tokens, the first two sharing
+    a 256-token prefix. Two end mid-page (300 and 200 tokens, pages of 16),
+    so the direct runs' packed-prefill waves also cut prompts mid-page."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, 256)
+    lens = [320, 300, 64, 384, 128, 200, 96, 256]
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                    n - 256)])
+               for n in lens[:2]]
+    prompts += [rng.integers(0, cfg.vocab_size, n) for n in lens[2:]]
+    return [p.astype(np.int32) for p in prompts]
 
 
 def phase_serve(torch, device):
@@ -695,22 +762,15 @@ def phase_serve(torch, device):
         f"{cfg.d_model}, vocab {cfg.vocab_padded}): init {t_init:.2f} s, "
         f"DP quantize of {len(report)} tensors on the card {t_quant:.2f} s, "
         f"packed params {pbytes / 1e9:.3f} GB")
-    rng = np.random.default_rng(0)
-    shared = rng.integers(0, cfg.vocab_size, 256)
-    lens = [320, 300, 64, 384, 128, 200, 96, 256]
-    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
-                                                    lens[0] - 256)]),
-               np.concatenate([shared, rng.integers(0, cfg.vocab_size,
-                                                    lens[1] - 256)])]
-    prompts += [rng.integers(0, cfg.vocab_size, n) for n in lens[2:]]
-    prompts = [p.astype(np.int32) for p in prompts]
+    prompts = serve_prompts(cfg)
     max_new = 32
-    engine_kw = dict(max_batch=8, page_size=16, num_pages=1024,
-                     prefill_chunk=128, max_seq=1024)
-    results, counts, kv_bytes = serve_horizons(
+    engine_kw = SERVE_ENGINE
+    results, counts, kv_bytes, chunks = serve_horizons(
         model, packed, prompts, engine_kw, max_new, 16,
         ("msb_matmul", "paged_attention_decode"))
     log(f"  kv16 pools: {kv_bytes / 1e9:.3f} GB")
+    direct = {16: results[8]}
+    direct_chunks = {16: chunks}
     compare_tokens(torch, "H=8 vs H=1", results[8], results[1], prompts,
                    model, packed, device)
     profile_decode(torch, ContinuousEngine(model, packed, **engine_kw),
@@ -721,7 +781,8 @@ def phase_serve(torch, device):
         f"use, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     log("[serve] ok: all requests 32 tokens, prefix hit, clean page audit")
     return counts, dict(model=model, packed=packed, prompts=prompts,
-                        engine_kw=engine_kw, max_new=max_new)
+                        engine_kw=engine_kw, max_new=max_new, direct=direct,
+                        direct_chunks=direct_chunks)
 
 
 def pool_bytes(pools):
@@ -748,34 +809,122 @@ def read_launch_counters():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def warm(torch, eng, name):
+    """``eng.warmup()`` with its report on one line: entries, wall seconds,
+    the captured forwards' Python seconds, instantiation seconds, and the
+    bytes of the engine's graph pool."""
+    torch.cuda.synchronize()
+    rep = eng.warmup()
+    torch.cuda.synchronize()
+    if rep["traces"] != rep["entries"]:
+        fail(f"{name}: warmup captured {rep['traces']} of {rep['entries']} "
+             "entries")
+    log(f"  {name} warmup: {rep['entries']} graphs {rep['shapes']} in "
+        f"{rep['seconds']:.2f} s (capture {rep['capture_seconds']:.2f} s, "
+        f"instantiate {rep['instantiate_seconds']:.2f} s), graph pool "
+        f"{rep['graph_bytes'] / 1e9:.3f} GB")
+    return rep
+
+
+def _clone(tree):
+    return {k: _clone(v) for k, v in tree.items()} if isinstance(
+        tree, dict) else tree.clone()
+
+
+def check_graphs(torch, model, packed, prompts, engine_kw, kv_bits):
+    """Graph replay against the same dispatch run eagerly. An untimed
+    decode_horizon-8 engine serves three prompts, capturing lazily; the
+    first packed-prefill and the first decode-horizon dispatch of the
+    largest size each reaches are recorded (host inputs, block-table rows, the pools before, the outputs, the pools
+    after). Each is run again eagerly through ``Model.paged_*``
+    (``DispatchGraphs.forward``) on a copy of the pools before it: logits
+    or tokens and every pool leaf must be bit-identical outside scratch page
+    0 and hot row 0, which pad rows write in any order. No pool leaf may
+    move during the run."""
+    from repro_torch.serve import ContinuousEngine
+    eng = ContinuousEngine(model, packed, decode_horizon=8, kv_bits=kv_bits,
+                           **engine_kw)
+    ptrs = [t.data_ptr() for _, t in _leaves(eng.cache.pools)]
+    graphs, run, recs = eng.graphs, eng.graphs.run, {}
+
+    def spy(kind, size, inputs, bt):
+        keep = size > recs.get(kind, {}).get("size", 0)
+        if keep:
+            recs[kind] = dict(size=size, bt=bt.clone(),
+                              inputs={n: a.copy() for n, a in inputs.items()},
+                              before=_clone(eng.cache.pools))
+        outs = run(kind, size, inputs, bt)
+        if keep:
+            recs[kind].update(outs=[o.clone() for o in outs],
+                              after=_clone(eng.cache.pools))
+        return outs
+
+    graphs.run = spy
+    for p in prompts[:3]:
+        eng.submit(p, 16)
+    eng.run()
+    del graphs.run
+    if set(recs) != {"prefill_packed", "decode_horizon"}:
+        fail(f"kv{kv_bits} graph check: dispatched {sorted(recs)}")
+    if [t.data_ptr() for _, t in _leaves(eng.cache.pools)] != ptrs:
+        fail(f"kv{kv_bits}: a pool leaf moved during the run")
+    notes = []
+    for kind, rec in sorted(recs.items()):
+        pools = _clone(rec["before"])
+        x = {n: torch.from_numpy(a).cuda() for n, a in rec["inputs"].items()}
+        outs, _ = graphs.forward(kind, x, rec["bt"], pools)
+        for got, want in zip(rec["outs"], outs):
+            if not torch.equal(got, want):
+                fail(f"kv{kv_bits} {kind}: graph replay output differs from "
+                     "the eager dispatch")
+        after = dict(_leaves(rec["after"]))
+        scratch = True
+        for path, leaf in _leaves(pools):
+            if not torch.equal(after[path][:, 1:], leaf[:, 1:]):
+                fail(f"kv{kv_bits} {kind}: pool {path} differs between "
+                     "graph replay and the eager dispatch")
+            scratch &= torch.equal(after[path][:, :1], leaf[:, :1])
+        notes.append(f"{kind} {rec['size']} ({len(after)} leaves; scratch "
+                     f"{'identical too' if scratch else 'differs'})")
+        del pools, rec["before"], rec["after"]
+    eng.close()
+    log(f"  kv{kv_bits} graph replay vs eager: outputs and pools "
+        f"bit-identical for {', '.join(notes)}; pool addresses unchanged")
+
+
 def serve_horizons(model, packed, prompts, engine_kw, max_new, kv_bits,
                    path_kernels):
-    """One untimed warm-up request, then all ``prompts`` at decode_horizon 8
-    and 1 (the first alone until its prompt is cached, so the second hits
-    the prefix cache). Launch counters are zeroed just before the H=8 run
-    and read just after; ``path_kernels`` must all have launched. Returns
-    ({horizon: outputs}, H=8 launch counts, pool bytes). Each run's line
-    gives its peak device memory."""
+    """The graph check, then all ``prompts`` at decode_horizon 8 and 1 (the
+    first alone until its prompt is cached, so the second hits the prefix
+    cache), each engine warmed first; no capture may follow its warmup.
+    Launch counters are zeroed just before the H=8 run and read just after;
+    ``path_kernels`` must all have launched. Returns ({horizon: outputs},
+    H=8 launch counts, pool bytes, the H=8 run's prefill chunks by prompt).
+    Each run's line gives its peak device memory."""
     import torch
-    from repro_torch.serve import ContinuousEngine
-    # lazy CUDA/library set-up stays out of the timed runs
-    run_engine(ContinuousEngine(model, packed, kv_bits=kv_bits, **engine_kw),
-               prompts[2:3], False, 2)
+    from repro_torch.serve import ContinuousEngine, jit_trace_count
+    check_graphs(torch, model, packed, prompts, engine_kw, kv_bits)
     results = {}
     for horizon in (8, 1):
         eng = ContinuousEngine(model, packed, decode_horizon=horizon,
                                kv_bits=kv_bits, **engine_kw)
+        name = f"kv{kv_bits} H={horizon}"
+        warm(torch, eng, name)
+        n0 = jit_trace_count()
         torch.cuda.reset_peak_memory_stats()
         if horizon == 8:
+            chunks = record_chunks(eng, prompts)
             zero_launch_counters()
         t0 = time.perf_counter()
         out, t_pre, t_dec = run_engine(eng, prompts, True, max_new)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        if jit_trace_count() != n0:
+            fail(f"serve {name}: {jit_trace_count() - n0} captures after "
+                 "warmup")
         if horizon == 8:
             counts = read_launch_counters()
             kv_bytes = pool_bytes(eng.cache.pools)
-        name = f"kv{kv_bits} H={horizon}"
         if sorted(out) != list(range(len(prompts))) or any(
                 len(t) != max_new for t in out.values()):
             fail(f"serve {name}: not every request returned {max_new} "
@@ -792,14 +941,15 @@ def serve_horizons(model, packed, prompts, engine_kw, max_new, kv_bits,
             f"{t_pre:.3f} s = {pre_tok / t_pre:.1f} tok/s, decode {dec_tok} "
             f"tokens in {t_dec:.3f} s = {dec_tok / t_dec:.1f} tok/s, prefix "
             f"hits {hits} ({saved} positions saved), decode dispatches "
-            f"{eng.n_decode_steps}, peak device memory {peak / 1e9:.3f} GB")
+            f"{eng.n_decode_steps}, peak device memory {peak / 1e9:.3f} GB, "
+            "captures after warmup 0")
         results[horizon] = out
         del eng
     log(f"  kv{kv_bits} launches in the H=8 run: {counts}")
     if not all(counts[k] > 0 for k in path_kernels):
         fail(f"serve kv{kv_bits}: a kernel of the path never launched: "
              f"{counts}")
-    return results, counts, kv_bytes
+    return results, counts, kv_bytes, chunks
 
 
 def phase_serve_quant(torch, device, ctx):
@@ -814,9 +964,11 @@ def phase_serve_quant(torch, device, ctx):
     counts = {}
     for bits in (8, 4):
         spec = KVQuantSpec(bits, ps, kv, hd)
-        results, counts[bits], kv_bytes = serve_horizons(
+        results, counts[bits], kv_bytes, chunks = serve_horizons(
             model, packed, prompts, engine_kw, max_new, bits,
             ("msb_matmul", "paged_attention_decode_quant"))
+        ctx["direct"][bits] = results[8]
+        ctx["direct_chunks"][bits] = chunks
         log(f"  kv{bits} pools: {kv_bytes / 1e9:.3f} GB; per page per K-or-V "
             f"per layer {spec.page_bytes()} B against {native} B native "
             f"({native / spec.page_bytes():.2f}x)")
@@ -944,16 +1096,20 @@ def time_commit(torch, device, model, engine_kw, b=8, reps=10):
 
 def device_breakdown(prof, wall, n_steps, what):
     """Device time by kernel from a profiler run over ``n_steps`` steps of
-    ``wall`` ms each: the busy share of the wall time and the top ten."""
-    by_name = {}
+    ``wall`` ms each: the busy share of the wall time, the host time spent
+    launching CUDA graphs, and the top ten."""
+    by_name, graph_launch = {}, 0.0
     for evt in prof.key_averages():
         dev = getattr(evt, "self_device_time_total",
                       getattr(evt, "self_cuda_time_total", 0))
         if dev > 0 and evt.device_type.name == "CUDA":
             by_name[evt.key] = by_name.get(evt.key, 0.0) + dev / 1e3
+        if evt.key == "cudaGraphLaunch":
+            graph_launch += evt.self_cpu_time_total / 1e3
     busy = sum(by_name.values()) / n_steps
     log(f"  {what}: wall {wall:.2f} ms/step, device busy {busy:.2f} ms/step "
-        f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%)")
+        f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%); "
+        f"host in cudaGraphLaunch {graph_launch / n_steps:.2f} ms/step")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, ms in ranked[:10]:
         log(f"    {ms / n_steps:8.3f} ms/step  {name[:90]}")
@@ -963,18 +1119,28 @@ def device_breakdown(prof, wall, n_steps, what):
                 "top ten)")
 
 
-def profile_decode(torch, engine, prompts, max_new, n_steps=4):
-    """Where a full-batch decode step's time goes: torch.profiler over
-    ``n_steps`` H=1 decode steps once all 8 requests decode. Prints device
-    time by kernel, the device-busy share of the steps' wall time, and
-    the wall time per step."""
+def profile_decode(torch, engine, prompts, max_new, n_steps=4, warm=True):
+    """Where a full-batch decode step's time goes, once all 8 requests
+    decode: the wall time of ``n_steps`` H=1 decode steps unprofiled, then
+    torch.profiler over ``n_steps`` more (graph replays: the engine is
+    warmed first, unless ``warm=False``). Prints device time by kernel,
+    the device-busy share of the profiled steps' wall time, and both wall
+    times per step (the profiler's tracing slows each graph launch)."""
     from torch.profiler import ProfilerActivity, profile
+    if warm:
+        engine.warmup()
     for p in prompts:
         engine.submit(p, max_new)
     while engine.scheduler.waiting or any(
             s.state != "decode" for s in engine.scheduler.running):
         engine.step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        engine.step()
+    torch.cuda.synchronize()
+    log(f"  decode step unprofiled (B=8, H=1, {n_steps} steps): wall "
+        f"{(time.perf_counter() - t0) / n_steps * 1e3:.2f} ms/step")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -992,9 +1158,10 @@ def profile_decode(torch, engine, prompts, max_new, n_steps=4):
 def profile_prefill(torch, engine, prompts, max_new, n_steps=1):
     """Where a continuous prefill wave's time goes: torch.profiler over the
     engine's first ``n_steps`` steps on all ``prompts`` (one packed wave of
-    up to prefill_chunk tokens a prompt), then the rest run out
-    unprofiled."""
+    up to prefill_chunk tokens a prompt; a graph replay: the engine is
+    warmed first), then the rest run out unprofiled."""
     from torch.profiler import ProfilerActivity, profile
+    engine.warmup()
     for p in prompts:
         engine.submit(p, max_new)
     torch.cuda.synchronize()
@@ -1108,6 +1275,203 @@ def phase_paths(torch):
         "greedy tokens agree")
 
 
+def http_call(host, port, method, path, payload=None, timeout=600):
+    """One request on its own connection: (status, headers, body)."""
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        body = None if payload is None else json.dumps(payload).encode()
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def completion_tokens(status, body, stream):
+    """Token ids of a /v1/completions answer (SSE frames when streamed)."""
+    if status != 200:
+        fail(f"front door: HTTP {status}: {body[:300]!r}")
+    if not stream:
+        return json.loads(body)["choices"][0]["token_ids"]
+    frames = [f for f in body.decode().split("\n\n") if f]
+    if frames[-1] != "data: [DONE]":
+        fail(f"front door: stream did not end with [DONE]: {frames[-1]!r}")
+    return [t for f in frames[:-1]
+            for t in json.loads(f[len("data: "):])["choices"][0]["token_ids"]]
+
+
+def traces_metric(host, port):
+    status, _, body = http_call(host, port, "GET", "/metrics")
+    for line in body.decode().splitlines():
+        if line.startswith("msb_traces_compiled_total "):
+            return float(line.split()[1])
+    fail(f"front door: /metrics has no msb_traces_compiled_total "
+         f"(HTTP {status})")
+
+
+def serve_http(torch, ctx, bits, faults=None):
+    """Phase 7's prompts through ``APIServer`` on 127.0.0.1 over an
+    ``EngineSupervisor`` (watchdog on; a 1 s floor when ``faults`` are
+    injected) whose engine is warmed at start (``warmup=True``): /healthz
+    is polled from warming to ok, then every prompt is sent at once, odd
+    ones streamed, 32 tokens at temperature 0; a 503 (recovering or
+    warming) is retried. Returns the answers, each engine incarnation's
+    prefill chunks by prompt, the health states seen, the capture counts
+    /metrics showed after warm-up and at the end, and the supervisor with
+    its first step worker. Shuts down with the supervisor's page audit."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.serve import APIServer, ContinuousEngine, \
+        EngineSupervisor
+    model, packed, prompts = ctx["model"], ctx["packed"], ctx["prompts"]
+    engine_kw, max_new = ctx["engine_kw"], ctx["max_new"]
+    chunks = []
+
+    def factory():
+        eng = ContinuousEngine(model, packed, decode_horizon=8,
+                               kv_bits=bits, faults=faults, **engine_kw)
+        chunks.append(record_chunks(eng, prompts))
+        return eng
+
+    sup = EngineSupervisor(factory, **({} if faults is None
+                                       else dict(watchdog_floor_s=1.0)))
+    first_worker = sup._worker
+    srv = APIServer(sup, warmup=True)
+    t0 = time.perf_counter()
+    host, port = srv.serve_background()
+    seen = []
+    try:
+        while True:
+            status, _, body = http_call(host, port, "GET", "/healthz")
+            state = json.loads(body)["status"]
+            if not seen or seen[-1] != state:
+                seen.append(state)
+            if state == "ok":
+                break
+            if state != "warming" or time.perf_counter() - t0 > 600:
+                fail(f"front door kv{bits}: /healthz {seen}")
+            time.sleep(0.05)
+        t_ready = time.perf_counter() - t0
+        if seen[0] != "warming":
+            fail(f"front door kv{bits}: /healthz never read warming: {seen}")
+        traces = traces_metric(host, port)
+
+        def client(i):
+            stream = i % 2 == 1
+            while True:
+                status, _, body = http_call(
+                    host, port, "POST", "/v1/completions",
+                    {"prompt": prompts[i].tolist(), "max_tokens": max_new,
+                     "temperature": 0.0, "stream": stream})
+                if status != 503 or time.perf_counter() - t0 > 900:
+                    return completion_tokens(status, body, stream)
+                time.sleep(0.1)
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            answers = list(pool.map(client, range(len(prompts))))
+        t_serve = time.perf_counter() - t1
+        if faults is not None:          # the hung step has returned
+            first_worker._thread.join(60)
+            if first_worker._thread.is_alive():
+                fail(f"front door kv{bits}: the abandoned step never ended")
+        after = traces_metric(host, port)
+    finally:
+        srv.close()
+    sup.close(check=True)
+    return dict(answers=answers, chunks=chunks, seen=seen, t_ready=t_ready,
+                t_serve=t_serve, traces=traces, after=after, sup=sup,
+                first_worker=first_worker)
+
+
+def phase_front_door(torch, ctx):
+    """Phase 7's packed weights behind the HTTP front door (``serve_http``)
+    three times, each held against phase 7-8's direct horizon-8 run:
+    kv16, where every answer must carry the direct run's tokens and
+    /metrics' capture count must not move after warm-up; kv16 again with
+    one step hung 8 s (injected stall), which the watchdog abandons: the
+    supervisor rebuilds and re-warms the engine and replays the requests,
+    the hung step ends refused by its closed engine, the only captures
+    after warm-up are the re-warm's, and the replayed answers agree with
+    the direct run up to near ties (a replay prefills generated tokens
+    that the direct run decoded); and kv4, where the requests whose tokens
+    cannot depend on the batching in either run (``schedule_free``) must
+    carry the direct run's tokens and the capture count must not move."""
+    from repro_torch.serve import FaultEvent, FaultPlan
+    model, packed, prompts = ctx["model"], ctx["packed"], ctx["prompts"]
+    ps, max_new = ctx["engine_kw"]["page_size"], ctx["max_new"]
+    device = torch.device("cuda")
+
+    def report(name, r, note):
+        log(f"  {name}: /healthz {' -> '.join(r['seen'])} in "
+            f"{r['t_ready']:.2f} s; {len(prompts)} requests "
+            f"({len(prompts) // 2} streamed) x {max_new} tokens in "
+            f"{r['t_serve']:.2f} s, {note}; msb_traces_compiled_total "
+            f"{r['traces']:.0f} -> {r['after']:.0f}; "
+            f"{r['sup'].n_restarts} restarts; clean shutdown")
+
+    direct = ctx["direct"][16]
+    r = serve_http(torch, ctx, 16)
+    for i, toks in enumerate(r["answers"]):
+        if toks != direct[i].tolist():
+            fail(f"front door kv16: request {i} over HTTP {toks} != "
+                 f"direct {direct[i].tolist()}")
+    if r["after"] != r["traces"]:
+        fail(f"front door kv16: {r['after'] - r['traces']:.0f} captures "
+             "after warm-up")
+    report("kv16", r, "tokens identical to the direct H=8 run")
+
+    plan = FaultPlan([FaultEvent("step", 4, "stall", stall_s=8.0)])
+    r = serve_http(torch, ctx, 16, faults=plan)
+    sup, zombie = r["sup"], r["first_worker"].result
+    if not (plan.exhausted and sup.n_watchdog_trips == 1
+            and sup.n_restarts == 1):
+        fail(f"front door kv16 hang: fired {plan.fired}, "
+             f"{sup.n_watchdog_trips} watchdog trips, {sup.n_restarts} "
+             "restarts")
+    if not (zombie and zombie[0] == "err"
+            and "closed engine" in str(zombie[1])):
+        fail(f"front door kv16 hang: the abandoned step ended {zombie}")
+    rewarm = sup.engine.warmup_entries
+    if r["after"] != r["traces"] + rewarm:
+        fail(f"front door kv16 hang: {r['after'] - r['traces']:.0f} "
+             f"captures after warm-up, the re-warm's {rewarm} expected")
+    compare_tokens(torch, "kv16 after a hang vs direct",
+                   {i: np.asarray(t) for i, t in enumerate(r["answers"])},
+                   direct, prompts, model, packed, device)
+    same = sum(t == direct[i].tolist() for i, t in enumerate(r["answers"]))
+    report("kv16, step 4 hung 8 s", r,
+           f"{same} of {len(prompts)} identical to the direct H=8 run; "
+           f"watchdog trip, rebuild and re-warm ({rewarm} captures, "
+           f"recovery {sup.recovery_log[0]:.2f} s), "
+           f"{sup.n_replayed_tokens} tokens replayed; the hung step "
+           "refused by its closed engine")
+
+    direct = ctx["direct"][4]
+    r = serve_http(torch, ctx, 4)
+    sound = sorted(schedule_free(ctx["direct_chunks"][4], prompts, ps)
+                   & schedule_free(r["chunks"][0], prompts, ps))
+    if not sound:
+        fail("front door kv4: no request's chunks were page-whole in both "
+             "runs")
+    for i in sound:
+        if r["answers"][i] != direct[i].tolist():
+            fail(f"front door kv4: request {i} over HTTP {r['answers'][i]} "
+                 f"!= direct {direct[i].tolist()}")
+    for i, toks in enumerate(r["answers"]):
+        if len(toks) != max_new:
+            fail(f"front door kv4: request {i} returned {len(toks)} tokens")
+    if r["after"] != r["traces"]:
+        fail(f"front door kv4: {r['after'] - r['traces']:.0f} captures "
+             "after warm-up")
+    report("kv4", r, f"requests {sound} identical to the direct H=8 run "
+           "(the others had a prefill chunk end mid-page in one of the "
+           "runs, where kv4 tokens depend on the batching)")
+    log("[front door] ok: kv16, kv16 through a hang, and kv4 served over "
+        "HTTP through captured graphs")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1129,8 +1493,9 @@ def main():
     counts, ctx = phase_serve(torch, device)
     q_counts = phase_serve_quant(torch, device, ctx)
     s_counts = phase_serve_static(torch, device, ctx)
-    del ctx
     phase_paths(torch)
+    phase_front_door(torch, ctx)
+    del ctx
     # representative rows: the decode shapes of the main path, and A also
     # at the static prefill's M=4096
     def mm_row(m, k, n):

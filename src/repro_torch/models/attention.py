@@ -87,6 +87,14 @@ def decode_attention(q, k_cache, v_cache, positions, cur_pos, *, window=0,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def _rows_per_token(block_tables, t):
+    """(B, max_pages) -> (B * t, max_pages) int32: each row once per query
+    token, with shapes alone (no host sync)."""
+    b, mp = block_tables.shape
+    return block_tables.to(torch.int32)[:, None].expand(b, t, mp).reshape(
+        b * t, mp)
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, q_pos, kv_lens, *,
                     window=0, softcap=0.0, scale=None):
     """q: (B, T, H, d) — T query tokens per sequence; pools (n_pages, ps,
@@ -98,7 +106,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, q_pos, kv_lens, *,
             "sliding-window paged attention: ROADMAP item 10 (gemma2) adds "
             "a window to the kernel")
     b, t, h, d = q.shape
-    bt = block_tables.to(torch.int32).repeat_interleave(t, dim=0)
+    bt = _rows_per_token(block_tables, t)
     q_pos = q_pos.to(torch.int32)
     lens = torch.minimum(q_pos + 1, kv_lens.to(torch.int32)[:, None])
     lens = torch.where(q_pos >= 0, lens, torch.zeros_like(lens))
@@ -308,7 +316,7 @@ def paged_attention_quant(q, cache, block_tables, q_pos, kv_lens, slots,
     n_full = (kv_lens // ps)[:, None].expand(b, t)
     rows = torch.where(slots >= 0, slots + 1, torch.zeros_like(slots))
     rows = rows.to(torch.int32)[:, None].expand(b, t)
-    bt = block_tables.to(torch.int32).repeat_interleave(t, dim=0)
+    bt = _rows_per_token(block_tables, t)
     out = paged_attention_decode_quant(
         q.reshape(b * t, h, d).contiguous(), cache["k_codes"],
         cache["k_scales"], cache["v_codes"], cache["v_scales"],

@@ -58,8 +58,11 @@ class Model:
             if isinstance(table, QTensor):
                 table = table.dequantize()
             e = table[tokens].to(cfg.dtype)
-        return e * torch.tensor(cfg.embed_scale, dtype=cfg.dtype,
-                                device=e.device)
+        # the scale rounded to cfg.dtype, as the reference's
+        # ``jnp.asarray(scale, dtype)``; a fill on the device, not a copy
+        # from the host, so a CUDA graph can capture it
+        return e * torch.full((), cfg.embed_scale, dtype=cfg.dtype,
+                              device=e.device)
 
     def _unembed_vd(self, params):
         table = params.get("unembed", params["embed"])

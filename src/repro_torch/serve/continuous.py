@@ -9,6 +9,12 @@ on the host; the data plane is ``Model.paged_step`` and friends on the
 engine's device (``device=None`` = the card), where every packed projection
 runs the msb_matmul kernel and every attention a paged-attention kernel.
 
+Every dispatch goes through the engine's dispatch set (``serve/graphs.py``,
+the port of the reference's module-level jits): on the card each dispatch
+shape is captured once as a CUDA graph and replayed from then on;
+``warmup()`` captures the whole reachable set up front (``serve/warmup.py``)
+so steady-state serving captures nothing (``jit_trace_count``).
+
 ``kv_bits=8|4`` (DESIGN.md Sec. 15) stores committed KV pages
 MSB-quantized: each slot keeps its partial page at full precision in a hot
 row, every page a dispatch completes is quantized in that dispatch, and
@@ -23,9 +29,9 @@ dispatch with the argmax on the device, and only (B, H) tokens come back.
 Greedy outputs are identical across horizons, prefill packing on/off and
 prefix caching on/off.
 
-Not in this slice (each raises ``NotImplementedError``): ``mesh=``/
-``parallel=`` (ROADMAP item 11),
-``execution="simulated"`` and ``warmup()`` (item 6).
+``execution="simulated"`` keeps the ``QTensor`` leaves and dequantizes them
+per call (``serve/engine.py``). Not in this slice: ``mesh=``/``parallel=``
+(tensor parallelism, ROADMAP item 11) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,9 +40,9 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..device import resolve_device
+from .graphs import DispatchGraphs, jit_trace_count  # noqa: F401 (re-export)
 from .paged_cache import PagedKVCache
 from .scheduler import DECODE, FINISHED, Request, Scheduler, Sequence
 
@@ -52,7 +58,7 @@ class ContinuousEngine:
     max_pages_per_seq: Optional[int] = None
     prefill_chunk: int = 32
     parallel: object = None
-    execution: Optional[str] = None   # "packed" (the only mode ported)
+    execution: Optional[str] = None   # "packed" | "simulated"; None=packed
     mesh: object = None
     prefix_cache: bool = True         # automatic cross-request prefix reuse
     decode_horizon: int = 1           # fused decode steps per dispatch
@@ -112,6 +118,7 @@ class ContinuousEngine:
                                    decode_horizon=self.decode_horizon,
                                    max_waiting=self.max_waiting,
                                    prefill_buckets=self.prefill_buckets)
+        self.graphs = DispatchGraphs(self)
         self._next_id = 0
         self._seqs: Dict[int, Sequence] = {}
         self._finished: Dict[int, np.ndarray] = {}
@@ -126,20 +133,12 @@ class ContinuousEngine:
         self.n_prefill_dispatches = 0  # prefill device dispatches (any kind)
         self.n_prefill_segments = 0    # sequences served across them
         self.packed_segment_obs: List[int] = []
+        self.warmup_seconds = 0.0     # wall seconds spent in warmup()
+        self.warmup_entries = 0       # dispatch shapes warmed
         # crash blame: request ids in the work unit the current (or most
         # recently crashed) step dispatched
         self.last_step_rids: Tuple[int, ...] = ()
         self.last_step_kind: str = ""
-
-    def _dev(self, a, dtype=np.int32):
-        """Host array -> tensor on the engine's device."""
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
-            self.device)
-
-    def _slots(self, slots):
-        """Rows' engine slots on the device; only quantized pools read
-        them (hot rows), so kv16 dispatches upload nothing."""
-        return self._dev(slots) if self.kv_bits < 16 else None
 
     # -- API ----------------------------------------------------------------
     def submit(self, prompt, max_new_tokens, eos_id=None,
@@ -204,6 +203,10 @@ class ContinuousEngine:
         self.last_step_kind = ""
         if self.faults.armed:
             self.faults.fire("step")
+        # a step a supervisor abandoned (a hang) may return here after the
+        # engine was closed: it must touch neither the host state nor the
+        # card any more
+        self.graphs.check_open()
         work = self.scheduler.schedule()
         if work is None:
             return False
@@ -368,6 +371,8 @@ class ContinuousEngine:
             "prefill_dispatches": self.n_prefill_dispatches,
             "prefill_segments": self.n_prefill_segments,
             "admission_waves": s.n_admission_waves,
+            "warmup_seconds": self.warmup_seconds,
+            "warmup_traces": self.warmup_entries,
             "preemptions_by_class": dict(s.n_preemptions_by_class),
             "admissions_by_class": dict(s.n_admissions_by_class),
             "sheds_by_class": dict(s.n_sheds_by_class),
@@ -387,22 +392,30 @@ class ContinuousEngine:
         self.packed_segment_obs = []
         return out
 
-    def warmup(self):
-        """Not ported: capturing the finite dispatch set (CUDA graphs) is
-        ROADMAP item 6."""
-        raise NotImplementedError(
-            "warmup(): CUDA-graph capture of the dispatch set is ROADMAP "
-            "item 6")
+    def warmup(self) -> Dict[str, object]:
+        """Capture every dispatch shape reachable from this engine's config
+        (serve/warmup.py; CUDA graphs on the card) so steady-state serving
+        never captures. Returns the warmup report and records it in
+        ``stats()``."""
+        from .warmup import warm_engine
+        report = warm_engine(self)
+        self.warmup_seconds += report["seconds"]
+        self.warmup_entries += report["entries"]
+        return report
 
     def close(self, check: bool = True):
         """Tear down the engine. With ``check=True`` (default) the page
         allocator's full invariant suite runs first — refcounts, free
         list, lease extents, registry/LRU consistency — and, when no
         request is live, the pool must be back at its post-init baseline:
-        zero leaked pages (``PageStateError`` otherwise)."""
-        if check:
-            self.cache.check_invariants(
-                expect_idle=not self.scheduler.has_work)
+        zero leaked pages (``PageStateError`` otherwise). Either way the
+        engine's dispatch graphs and their memory pool are dropped."""
+        try:
+            if check:
+                self.cache.check_invariants(
+                    expect_idle=not self.scheduler.has_work)
+        finally:
+            self.graphs.close()
 
     @property
     def n_prefix_hits(self):
@@ -436,7 +449,8 @@ class ContinuousEngine:
         q_pos = np.full((1, c), -1, np.int32)
         q_pos[0, :n] = start + np.arange(n)
         kv_lens = np.asarray([start + n], np.int32)
-        logits = self._dispatch([seq.slot], tokens, q_pos, kv_lens)
+        logits = self._dispatch("prefill", c, [seq.slot], tokens, q_pos,
+                                kv_lens)
         if self.faults.armed:
             self.faults.fire("apply")   # device written, host not yet
         seq.cache_len = start + n
@@ -482,11 +496,11 @@ class ContinuousEngine:
             self.packed_segment_obs.append(len(segs))
         self.n_work_positions += t
         bt = self.cache.table_rows([int(s) for s in slots])
-        logits, self.cache.pools = self.model.paged_prefill_packed(
-            self.params, self.cache.pools, self._dev(tokens),
-            self._dev(seg_ids), self._dev(q_pos), self._dev(kv_lens), bt,
-            self._dev(slots), self._dev(last_idx), self._dev(seg_off),
-            kv_bits=self.kv_bits)
+        (logits,) = self.graphs.run(
+            "prefill_packed", t, dict(tokens=tokens, seg_ids=seg_ids,
+                                      q_pos=q_pos, kv_lens=kv_lens,
+                                      slots=slots, last_idx=last_idx,
+                                      seg_off=seg_off), bt)
         self.n_host_syncs += 1          # blocking (S, vocab) logits fetch
         logits = logits.cpu().numpy()
         if self.faults.armed:
@@ -527,7 +541,7 @@ class ContinuousEngine:
         for i, seq in enumerate(seqs):
             q_pos[i, 0] = seq.n_total - 1
             kv_lens[i] = seq.n_total
-        logits = self._dispatch(slots, tokens, q_pos, kv_lens)
+        logits = self._dispatch("decode", b, slots, tokens, q_pos, kv_lens)
         if self.faults.armed:
             self.faults.fire("apply")   # device written, host not yet
         for i, seq in enumerate(seqs):
@@ -567,10 +581,10 @@ class ContinuousEngine:
                 eos[i] = seq.req.eos_id
         self.n_work_positions += b * h
         bt = self.cache.table_rows(slots)
-        out_tok, valid, self.cache.pools = self.model.paged_decode_horizon(
-            self.params, self.cache.pools, self._dev(tokens),
-            self._dev(start_pos), bt, self._dev(n_left), self._dev(eos), h,
-            kv_bits=self.kv_bits, slots=self._slots(slots))
+        out_tok, valid = self.graphs.run(
+            "decode_horizon", b, dict(tokens=tokens, start_pos=start_pos,
+                                      n_left=n_left, eos=eos,
+                                      slots=np.asarray(slots, np.int32)), bt)
         out_tok, valid = out_tok.cpu().numpy(), valid.cpu().numpy()
         self.n_host_syncs += 1
         if self.faults.armed:
@@ -591,13 +605,14 @@ class ContinuousEngine:
             self._maybe_finish(seq)
 
     # -- helpers --------------------------------------------------------------
-    def _dispatch(self, slots, tokens, q_pos, kv_lens):
+    def _dispatch(self, kind, size, slots, tokens, q_pos, kv_lens):
+        """One ``paged_step`` dispatch (a prefill chunk or a decode batch);
+        returns its last-token logits on the host."""
         self.n_work_positions += tokens.size
         bt = self.cache.table_rows(slots)
-        logits, self.cache.pools = self.model.paged_step(
-            self.params, self.cache.pools, self._dev(tokens),
-            self._dev(q_pos), self._dev(kv_lens), bt, kv_bits=self.kv_bits,
-            slots=self._slots(slots))
+        (logits,) = self.graphs.run(
+            kind, size, dict(tokens=tokens, q_pos=q_pos, kv_lens=kv_lens,
+                             slots=np.asarray(slots, np.int32)), bt)
         self.n_host_syncs += 1          # blocking (B, vocab) logits fetch
         return logits.cpu().numpy()
 

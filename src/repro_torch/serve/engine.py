@@ -1,14 +1,15 @@
 """Static-batch serving engine (prefill -> ring-buffer decode), and the
 execution-mode resolution the serving engines share.
 
-Port of ``repro.serve.engine``. The port has one execution mode,
-``"packed"``: QTensor leaves are rewritten once at load into kernel-layout
-``PackedQTensor``s, so every forward streams 4-bit codes through the
-msb_matmul kernel. ``ServeEngine`` runs a fixed batch in lockstep: one
-prefill (every attention on the flash-attention kernel) and then one ring
-decode step per token; ``score`` is the held-out NLL through the loss
+Port of ``repro.serve.engine``. ``execution="packed"`` (the default)
+rewrites QTensor leaves once at load into kernel-layout ``PackedQTensor``s,
+so every forward streams 4-bit codes through the msb_matmul kernel;
+``execution="simulated"`` keeps the QTensors and dequantizes them per call,
+the paper's simulation (Sec. 4.1). ``ServeEngine`` runs a fixed batch in
+lockstep: one prefill (every attention on the flash-attention kernel) and
+then one ring decode step per token; ``score`` is the held-out NLL through the loss
 forward. Production traffic goes through ``ContinuousEngine``; both give
-the same greedy tokens.
+the same greedy tokens in either mode.
 """
 from __future__ import annotations
 
@@ -18,22 +19,28 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.quantize import map_tensors
 from ..device import resolve_device
 
 
 def resolve_execution(execution, params, device):
-    """Resolve ``execution`` (``None`` = ``"packed"``) and pack ``params``
-    onto ``device``. Returns (execution, params)."""
+    """Resolve ``execution`` (``None`` = ``"packed"``) and place ``params``
+    on ``device``. ``"packed"`` packs the QTensor leaves into kernel layout
+    once (``core.policy.pack_params``); ``"simulated"`` moves the tree as it
+    is, so ``dense`` and the embedding dequantize QTensors per call and
+    multiply with ``torch.matmul``, where the reference multiplies outside
+    any kernel (``jnp.einsum``). Attention runs its kernels either way.
+    Returns (execution, params)."""
     if execution is None:
         execution = "packed"
-    if execution == "simulated":
-        raise NotImplementedError(
-            "execution='simulated' (per-call dequantize) is not ported; "
-            "ROADMAP item 6 lists it with the engine's remaining options")
-    if execution != "packed":
-        raise ValueError(f"execution must be 'packed', got {execution!r}")
-    from ..core.policy import pack_params
-    params, _ = pack_params(params, device=device)
+    if execution == "packed":
+        from ..core.policy import pack_params
+        params, _ = pack_params(params, device=device)
+    elif execution == "simulated":
+        params = map_tensors(lambda t: t.to(device), params)
+    else:
+        raise ValueError(f"execution must be 'packed' or 'simulated', "
+                         f"got {execution!r}")
     return execution, params
 
 
@@ -45,13 +52,14 @@ class ServeEngine:
     decode steps and returns the argmax token sequence of the model (or,
     with ``temperature > 0``, samples drawn with the given generator).
     ``params`` may mix dense tensors and MSB ``QTensor`` leaves; they are
-    packed once at load and the caller's tree is not modified. ``mesh=``
+    packed once at load (``execution="packed"``) or dequantized per call
+    (``"simulated"``), and the caller's tree is not modified. ``mesh=``
     and ``parallel=`` (tensor parallelism) are ROADMAP item 11.
     """
     model: object
     params: object
     max_seq: int
-    execution: Optional[str] = None    # "packed" (the only mode ported)
+    execution: Optional[str] = None    # "packed" | "simulated"; None=packed
     device: object = None              # None = the card
     parallel: object = None
     mesh: object = None

@@ -1,13 +1,19 @@
 """The port's hand-written kernels against their plain versions on the
-card. Marked ``cuda``: they skip where there is no CUDA device. This file
-imports no JAX, so it also runs where only the port is installed:
+card, and the continuous engine's dispatch graphs (serve/graphs.py) against
+the same dispatches run eagerly. Marked ``cuda``: they skip where there is
+no CUDA device. This file imports no JAX, so it also runs where only the
+port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import smoke_config
+from repro_torch.core import QuantPolicy, quantize_params
 from repro_torch.core.quantize import KVQuantSpec, kv_quantize_pages
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -15,6 +21,9 @@ from repro_torch.kernels.msb_matmul import ops as mm_ops
 from repro_torch.kernels.msb_matmul import ref as mm_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
+from repro_torch.models import Model
+from repro_torch.serve import ContinuousEngine, jit_trace_count
+from repro_torch.serve.graphs import pad_inputs
 
 
 @pytest.fixture
@@ -572,3 +581,212 @@ def test_flash_attention_wrapper_refuses(cuda):
     q264 = torch.zeros(1, 2, 8, 264, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         fa_ops.flash_attention_fwd(q264, q264[:, :1], q264[:, :1])
+
+
+# ---------------------------------------------------------------------------
+# the continuous engine's dispatch graphs
+# ---------------------------------------------------------------------------
+
+# internlm2-1.8b's depth at smoke width, bf16; head_dim 32 makes the K and V
+# projections 64 wide, so all seven a layer quantize and pack
+GRAPH_LAYERS = 24
+GRAPH_ENGINE = dict(max_batch=4, page_size=4, num_pages=160, max_seq=64,
+                    prefill_chunk=8)
+
+
+@pytest.fixture(scope="module")
+def graph_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    cfg = dataclasses.replace(smoke_config("internlm2-1.8b"),
+                              n_layers=GRAPH_LAYERS, head_dim=32,
+                              dtype=torch.bfloat16)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    qparams, _ = quantize_params(params, QuantPolicy(min_size=1024))
+    return model, qparams
+
+
+def _graph_prompts(vocab):
+    rng = np.random.default_rng(21)
+    return [rng.integers(0, vocab, int(n)).astype(np.int32)
+            for n in (5, 13, 9, 17)]
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _pool_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _pool_leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def _record_first_dispatches(eng):
+    """Serve the prompts through ``eng`` and record the first dispatch of
+    each kind: its host inputs, block-table rows, the pools before it,
+    its outputs and the pools after it."""
+    graphs, run, recs = eng.graphs, eng.graphs.run, {}
+
+    def spy(kind, size, inputs, bt):
+        first = kind not in recs
+        if first:
+            recs[kind] = dict(size=size, bt=bt.clone(),
+                              inputs={n: a.copy() for n, a in inputs.items()},
+                              before=_clone(eng.cache.pools))
+        outs = run(kind, size, inputs, bt)
+        if first:
+            recs[kind].update(outs=[o.clone() for o in outs],
+                              after=_clone(eng.cache.pools))
+        return outs
+
+    graphs.run = spy
+    try:
+        for p in _graph_prompts(eng.model.cfg.vocab_size):
+            eng.submit(p, 12)
+        out = eng.run()
+    finally:
+        del graphs.run
+    return recs, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", [1, 8])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_graph_replay_is_bitwise_eager(graph_model, bits, horizon):
+    """Each kind's first dispatch replays a captured graph; the same
+    dispatch run eagerly (``DispatchGraphs.forward``) on a copy of the
+    pools before it gives the same outputs and the same pools, bit for
+    bit, outside the scratch page and hot row (which pad rows write in
+    any order)."""
+    model, qparams = graph_model
+    eng = ContinuousEngine(model, qparams, decode_horizon=horizon,
+                           kv_bits=bits, **GRAPH_ENGINE)
+    recs, out = _record_first_dispatches(eng)
+    kinds = {"prefill_packed", "decode" if horizon == 1 else
+             "decode_horizon"}
+    assert set(recs) == kinds and len(out) == 4
+    for kind, rec in recs.items():
+        pools = _clone(rec["before"])
+        x = {n: torch.from_numpy(a).cuda() for n, a in rec["inputs"].items()}
+        outs, _ = eng.graphs.forward(kind, x, rec["bt"], pools)
+        for got, want in zip(rec["outs"], outs):
+            assert torch.equal(got, want), f"{kind}: outputs differ"
+        after = dict(_pool_leaves(rec["after"]))
+        for path, leaf in _pool_leaves(pools):
+            assert torch.equal(after[path][:, 1:], leaf[:, 1:]), \
+                f"{kind}: pool {path} differs"
+    eng.close(check=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 4])
+def test_warmup_captures_everything_and_pools_stay_put(graph_model, bits):
+    """warmup() captures every reachable key; a serving run after it
+    captures nothing, and no pool leaf moves (graphs bind addresses). The
+    tokens equal an engine's that captured lazily."""
+    model, qparams = graph_model
+    eng = ContinuousEngine(model, qparams, decode_horizon=8, kv_bits=bits,
+                           **GRAPH_ENGINE)
+    ptrs = {p: t.data_ptr() for p, t in _pool_leaves(eng.cache.pools)}
+    report = eng.warmup()
+    assert report["traces"] == report["entries"] == 6
+    assert report["graph_bytes"] > 0
+    n0 = jit_trace_count()
+    rids = [eng.submit(p, 12) for p in _graph_prompts(model.cfg.vocab_size)]
+    out = eng.run()
+    assert jit_trace_count() == n0, "a capture after warmup()"
+    assert {p: t.data_ptr() for p, t in _pool_leaves(eng.cache.pools)} == ptrs
+    eng.close(check=True)
+    lazy = ContinuousEngine(model, qparams, decode_horizon=8, kv_bits=bits,
+                            **GRAPH_ENGINE)
+    lrids = [lazy.submit(p, 12)
+             for p in _graph_prompts(model.cfg.vocab_size)]
+    lout = lazy.run()
+    for a, b in zip(rids, lrids):
+        np.testing.assert_array_equal(out[a], lout[b])
+    lazy.close(check=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8])
+def test_replays_count_the_eager_launches(graph_model, bits):
+    """A replay adds the launches of the forwards it holds: kernel A 7 a
+    layer + the unembedding (169 a forward at 24 layers), B or C one a
+    layer (24); a capture itself counts none."""
+    model, qparams = graph_model
+    per_a, per_attn = 7 * GRAPH_LAYERS + 1, GRAPH_LAYERS
+    attn = ("paged_attention_decode" if bits == 16
+            else "paged_attention_decode_quant")
+    eng = ContinuousEngine(model, qparams, decode_horizon=8, kv_bits=bits,
+                           **GRAPH_ENGINE)
+    eng.warmup()
+    for kind, size in eng.graphs.keys:
+        h = 8 if kind == "decode_horizon" else 1
+        counts = eng.graphs.graph_launches(kind, size)
+        assert counts["msb_matmul"] == h * per_a, (kind, counts)
+        assert counts[attn] == h * per_attn, (kind, counts)
+        assert sum(counts.values()) == h * (per_a + per_attn)
+    before = (mm_ops.msb_matmul.launches,
+              getattr(pa_ops, attn).launches)
+    slots, inputs = pad_inputs("decode_horizon", 4, eng.max_batch)
+    eng.graphs.run("decode_horizon", 4, inputs, eng.cache.table_rows(slots))
+    assert (mm_ops.msb_matmul.launches - before[0],
+            getattr(pa_ops, attn).launches - before[1]) == \
+        (8 * per_a, 8 * per_attn)
+    eng.close()
+
+
+def _next_logits(model, params, tokens, ps=4):
+    """Last-position logits of one eager prefill of ``tokens`` on fresh
+    kv16 pools."""
+    n, dev = len(tokens), torch.device("cuda")
+    pages = -(-n // ps)
+    pools = model.init_paged_pools(pages + 1, ps, device=dev)
+    bt = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
+    tok = torch.tensor(np.asarray(tokens)[None], dtype=torch.int32,
+                       device=dev)
+    q_pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    kv = torch.tensor([n], dtype=torch.int32, device=dev)
+    logits, _ = model.paged_step(params, pools, tok, q_pos, kv, bt)
+    return logits[0].float().cpu()
+
+
+@pytest.mark.cuda
+def test_simulated_engine_serves_through_graphs(graph_model):
+    """execution="simulated" on the card: the QTensor tree is dequantized
+    per call and multiplied by torch.matmul inside the captured graphs.
+    warmup() captures every key, a serving run after it captures nothing,
+    and the greedy tokens equal the packed engine's at kv16, or part from
+    them only at a near tie (top-2 logit gap < 1e-2 where they first
+    differ: the products are summed in another order than kernel A's)."""
+    model, qparams = graph_model
+    prompts = _graph_prompts(model.cfg.vocab_size)
+    outs, sim_params = {}, None
+    for execution in ("simulated", "packed"):
+        eng = ContinuousEngine(model, qparams, execution=execution,
+                               decode_horizon=8, **GRAPH_ENGINE)
+        report = eng.warmup()
+        assert report["traces"] == report["entries"] == 6
+        assert report["graph_bytes"] > 0
+        n0 = jit_trace_count()
+        rids = [eng.submit(p, 12) for p in prompts]
+        out = eng.run()
+        assert jit_trace_count() == n0, f"{execution}: capture after warmup"
+        outs[execution] = [out[r] for r in rids]
+        if execution == "simulated":
+            sim_params = eng.params
+        eng.close(check=True)
+    for p, a, b in zip(prompts, outs["simulated"], outs["packed"]):
+        assert len(a) == len(b) == 12
+        if np.array_equal(a, b):
+            continue
+        i = int(np.argmax(a != b))
+        top = _next_logits(model, sim_params,
+                           np.concatenate([p, a[:i]])).topk(2).values
+        assert float(top[0] - top[1]) < 1e-2, (i, a, b)

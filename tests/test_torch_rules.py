@@ -109,7 +109,6 @@ def test_cpu_tensors_take_the_plain_versions():
 
 UNPORTED = {
     "mesh": (dict(mesh=object()), "item 11"),
-    "simulated": (dict(execution="simulated"), "item 6"),
 }
 
 
@@ -118,15 +117,6 @@ def test_unported_engine_options_name_their_roadmap_item(name):
     kwargs, item = UNPORTED[name]
     with pytest.raises(NotImplementedError, match=item):
         ContinuousEngine(_tiny(), {}, device="cpu", **kwargs)
-
-
-def test_warmup_names_its_roadmap_item():
-    model = _tiny()
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    eng = ContinuousEngine(model, params, num_pages=8, page_size=4,
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.warmup()
 
 
 def test_window_attention_names_its_roadmap_item():
