@@ -13,9 +13,8 @@ width (random weights from seed 0, 4-bit DP quantization on the card):
 four timed ``Model.prefill`` calls of B=8 prompts of 512 tokens, one
 ``ServeEngine.score`` of (8, 513) tokens, and ``chip_smoke.py``'s
 decode-step profile of ``ContinuousEngine`` (B=8, decode_horizon 1, phase
-7's prompts) at kv16 and kv4: the engine is warmed first where the tree's
-``warmup()`` exists (CUDA graphs), and runs eagerly where it raises
-``NotImplementedError``. Every line carries ``--tag``; the
+7's prompts) at kv16 and kv4, each engine warmed into CUDA graphs first
+(``warmup()``). Every line carries ``--tag``; the
 card's name and power limit are printed beside the prefill rates. Compare
 two trees by running both from one command, in the order parent, change,
 change, parent (one process each: a process imports one package). Needs
@@ -97,13 +96,8 @@ def main():
     for bits in (16, 4):
         cont = ContinuousEngine(model, packed, kv_bits=bits,
                                 **cs.SERVE_ENGINE)
-        try:
-            cont.warmup()
-            mode = "graphs"
-        except NotImplementedError:
-            mode = "eager"
-        cs.log(f"  {args.tag} kv{bits} decode step ({mode}):")
-        cs.profile_decode(torch, cont, serve_prompts, 32, warm=False)
+        cs.log(f"  {args.tag} kv{bits} decode step (graphs):")
+        cs.profile_decode(torch, cont, serve_prompts, 32)
 
 
 if __name__ == "__main__":

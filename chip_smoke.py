@@ -51,6 +51,22 @@ one line each (details indented), any failure exits non-zero:
    ended on a page boundary or at the prompt's end in both runs; after the
    hang, up to near ties), /metrics shows no capture after warm-up but the
    re-warm's, clean shutdown with a page audit
+12. quantizer — full-width internlm2-1.8b (random bf16 weights, seed 0)
+   quantized on the card by MSB 4b/64 with dp, kmeans, wdp, dp + refine
+   and dp + double quantization (each packed: kernel A in ``score``), MSB
+   6-bit per-tensor with wdp and kmeans (served unpacked), and the RTN,
+   NF4, HQQ 4b/64 and RTN 6-bit per-tensor baselines (dense trees); per
+   method: quantize seconds and peak memory, relative reconstruction
+   error, bits per weight, ``ServeEngine.score`` NLL on (8, 513) tokens
+   and its gap to the unquantized model, the next-token logit gap, and
+   the launch counters of that ``score`` (kernel D 24 times; kernel A on
+   packed trees only). The error order must hold (DP at or below kmeans,
+   DP+DQ, RTN, NF4 and HQQ; wdp and refine equal to DP within 1e-6;
+   per-tensor wdp below per-tensor RTN). The card's solvers are held
+   against their CPU run on 4096 blocks of layer 0's ``wq`` (dp, kmeans,
+   wdp) and on the whole matrix per tensor; the paper's numpy solvers run
+   on 256 of those blocks on the host (none may beat DP); GPTQ runs once
+   on one full-width matrix
 
 The second-to-last line is the kernel table as JSON (kernel A at the
 decode shape and at M=4096, kernel C once per code width); the last line
@@ -1119,16 +1135,15 @@ def device_breakdown(prof, wall, n_steps, what):
                 "top ten)")
 
 
-def profile_decode(torch, engine, prompts, max_new, n_steps=4, warm=True):
+def profile_decode(torch, engine, prompts, max_new, n_steps=4):
     """Where a full-batch decode step's time goes, once all 8 requests
     decode: the wall time of ``n_steps`` H=1 decode steps unprofiled, then
     torch.profiler over ``n_steps`` more (graph replays: the engine is
-    warmed first, unless ``warm=False``). Prints device time by kernel,
-    the device-busy share of the profiled steps' wall time, and both wall
-    times per step (the profiler's tracing slows each graph launch)."""
+    warmed first). Prints device time by kernel, the device-busy share of
+    the profiled steps' wall time, and both wall times per step (the
+    profiler's tracing slows each graph launch)."""
     from torch.profiler import ProfilerActivity, profile
-    if warm:
-        engine.warmup()
+    engine.warmup()
     for p in prompts:
         engine.submit(p, max_new)
     while engine.scheduler.waiting or any(
@@ -1472,6 +1487,336 @@ def phase_front_door(torch, ctx):
         "HTTP through captured graphs")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the paper's quantizer at full width
+# ---------------------------------------------------------------------------
+
+def _get(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _replace_leaves(tree, paths, fn, path=""):
+    """A new tree with ``fn(leaf)`` at ``paths``; other leaves shared."""
+    if isinstance(tree, dict):
+        return {k: _replace_leaves(v, paths, fn, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    return fn(tree) if path in paths else tree
+
+
+def _slices(leaf):
+    """Leading-dim slices of a stacked leaf (QTensor or tensor), else the
+    leaf itself: per-layer pieces bound the f32 temporaries."""
+    from repro_torch.core import map_tensors
+    shape = leaf.shape
+    if len(shape) < 3:
+        return [leaf]
+    return [map_tensors(lambda t, i=i: t[i], leaf) for i in range(shape[0])]
+
+
+def _dense_f32(torch, leaf):
+    import dataclasses
+    from repro_torch.core import QTensor, dequantize
+    if isinstance(leaf, QTensor):
+        return dequantize(dataclasses.replace(leaf, dtype=torch.float32))
+    return leaf.to(torch.float32)
+
+
+def quant_error(torch, params, tree, paths):
+    """sum ||W - W_hat||^2 / sum ||W||^2 over ``paths`` (f64 sums, per
+    layer slice), W_hat dequantized in f32."""
+    num = den = 0.0
+    for path in paths:
+        for w, q in zip(_slices(_get(params, path)),
+                        _slices(_get(tree, path))):
+            w = w.to(torch.float32)
+            d = w - _dense_f32(torch, q)
+            num += float(torch.sum(d * d, dtype=torch.float64))
+            den += float(torch.sum(w * w, dtype=torch.float64))
+    return num / den
+
+
+def storage_bits(tree, paths, bits_of):
+    """Bits per weight over ``paths``, weighted by element count."""
+    n = [float(np.prod(_get(tree, p).shape)) for p in paths]
+    return sum(bits_of(_get(tree, p)) * k for p, k in zip(paths, n)) / sum(n)
+
+
+def _baseline(torch, fn, per_tensor):
+    """A baseline on one leaf, returned dense in the leaf's dtype: per layer
+    slice of a stacked leaf (one scale set per layer for per-tensor RTN,
+    as MSB's per-tensor codebooks), and in row chunks when block-wise
+    (blocks never straddle rows) to bound the f32 temporaries."""
+    rows = 1 << 14
+
+    def one(w):
+        if per_tensor or w.shape[0] <= rows:
+            return fn(w).to(w.dtype)
+        return torch.cat([fn(w[i:i + rows]).to(w.dtype)
+                          for i in range(0, w.shape[0], rows)])
+
+    def apply(leaf):
+        if leaf.dim() >= 3:
+            return torch.stack([one(w) for w in leaf])
+        return one(leaf)
+    return apply
+
+
+def quantizer_methods(torch, device):
+    """(name, build(params, paths) -> tree, packed?, bits of a leaf) for
+    every method of phase 12, solving on ``device``."""
+    from repro_torch.core import (QuantPolicy, baselines, quantize_blockwise,
+                                  quantize_params, storage_bits_per_weight)
+
+    def policy(**kw):
+        return lambda params, paths: quantize_params(
+            params, QuantPolicy(**kw), device=device)[0]
+
+    def refine(params, paths):
+        return _replace_leaves(params, paths, lambda w: quantize_blockwise(
+            w, bits=4, block=64, solver="dp", refine=True))
+
+    def dense(fn, per_tensor=False):
+        return lambda params, paths: _replace_leaves(
+            params, paths, _baseline(torch, fn, per_tensor))
+
+    def fixed(bits):
+        return lambda leaf: bits
+
+    # The dense baselines' bits per weight, metadata included, by their
+    # formats: RTN one 16-bit absmax scale a 64-block, NF4 bitsandbytes'
+    # f32 absmax a block, HQQ a 16-bit scale and zero a block; per-tensor
+    # RTN one scale a layer slice.
+    msb = storage_bits_per_weight
+    return [
+        ("msb_dp_4b64", policy(solver="dp"), True, msb),
+        ("msb_kmeans_4b64", policy(solver="kmeans"), True, msb),
+        ("msb_wdp_4b64", policy(solver="wdp"), True, msb),
+        ("msb_dp_refine_4b64", refine, True, msb),
+        ("msb_dp_dq_4b64", policy(solver="dp", double_quant=True), True,
+         lambda q: msb(q, double_quant=True)),
+        ("msb_wdp_6b_tensor", policy(bits=6, block=-1, solver="wdp"), False,
+         msb),
+        ("msb_kmeans_6b_tensor", policy(bits=6, block=-1, solver="kmeans"),
+         False, msb),
+        ("rtn_4b64", dense(lambda w: baselines.rtn_quantize(w, 4, 64)),
+         False, fixed(4 + 16 / 64)),
+        ("nf4_4b64", dense(lambda w: baselines.nf4_quantize(w, 4, 64)),
+         False, fixed(4 + 32 / 64)),
+        ("hqq_4b64", dense(lambda w: baselines.hqq_quantize(w, 4, 64)),
+         False, fixed(4 + 32 / 64)),
+        ("rtn_6b_tensor", dense(lambda w: baselines.rtn_quantize(w, 6, -1),
+                                per_tensor=True), False, fixed(6.0)),
+    ]
+
+
+def score_tree(torch, model, tree, scored, ref_logits, device):
+    """NLL of ``scored`` through ``ServeEngine.score`` with the launch
+    counters of that call, and the mean |next-token logits - ref_logits|
+    over the real vocabulary (a plain prefill of the first 512 tokens)."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, tree, max_seq=1024, device=device)
+    vocab = model.cfg.vocab_size
+    logits, _ = model.prefill(eng.params, {"tokens": torch.from_numpy(
+        scored[:, :-1]).to(device)})
+    logits = logits[:, :vocab].float()
+    gap = (None if ref_logits is None else
+           float(torch.mean(torch.abs(logits - ref_logits))))
+    zero_launch_counters()
+    nll = eng.score(scored)
+    torch.cuda.synchronize()
+    return nll, gap, read_launch_counters(), logits
+
+
+def _levels(q, rows):
+    """Level ids (rows, -1) of a QTensor's codes (code 0, an exact zero,
+    reads level 0)."""
+    import torch
+    return torch.clamp(torch.abs(q.codes.reshape(rows, -1).long()) - 1,
+                       min=0)
+
+
+def _row_sse(torch, blocks, levels, scales):
+    """Per-row ||w - sign(w) scales[level]||^2 (exact zeros cost 0)."""
+    w = blocks.double()
+    w_hat = torch.sign(w) * torch.gather(scales.double(), 1, levels.long())
+    return torch.sum((w - w_hat) ** 2, dim=1)
+
+
+def check_card_vs_cpu(torch, name, blocks, card, cpu):
+    """Levels and scales identical per row, or a near tie: the row's SSE
+    within 1e-6 relative."""
+    lc, sc = (t.cpu() for t in card)
+    lp, sp = cpu
+    same = (lc == lp).all(1) & (sc == sp).all(1)
+    b = blocks.cpu().float()
+    if not bool(same.all()):
+        e_card = _row_sse(torch, b[~same], lc[~same], sc[~same])
+        e_cpu = _row_sse(torch, b[~same], lp[~same], sp[~same])
+        if not bool((torch.abs(e_card - e_cpu) <= 1e-6 * e_cpu).all()):
+            fail(f"quantizer {name}: card and CPU solvers disagree beyond "
+                 "a near tie")
+    log(f"  card vs CPU {name}: {int(same.sum())} of {len(same)} rows "
+        "identical, the rest within a near tie")
+
+
+def qtensor_matmul_check(torch, w, device):
+    """A solver's 4b/64 QTensor straight through kernel A
+    (``qtensor_matmul``, no ``pack_params``): it launches on the card,
+    agrees with the plain version of the same packing within 1e-2 of
+    max|ref| (bf16 output), and a second call packs nothing again."""
+    from repro_torch.core import quantize_blockwise
+    from repro_torch.kernels.msb_matmul import ops, ref
+    q = quantize_blockwise(w, solver="dp")
+    x = torch.randn((8, w.shape[0]), generator=torch.Generator(
+        device=device).manual_seed(3), device=device).to(torch.bfloat16)
+    launches = ops.msb_matmul.launches
+    y = ops.qtensor_matmul(x, q)
+    pq = ops._cached_pack(q)
+    y2 = ops.qtensor_matmul(x, q)
+    if ops._cached_pack(q) is not pq or not torch.equal(y, y2):
+        fail("qtensor_matmul packed the same QTensor again")
+    y_ref = ref.msb_matmul_ref(x, pq.packed, pq.scales)
+    err = float((y.float() - y_ref.float()).abs().max())
+    tol = 1e-2 * float(y_ref.float().abs().max())
+    launched = ops.msb_matmul.launches - launches
+    if launched != 2:
+        fail(f"qtensor_matmul launched kernel A {launched} times, want 2")
+    if not err <= tol:
+        fail(f"qtensor_matmul: max err {err} > {tol}")
+    log(f"  qtensor_matmul on a DP 4b/64 {tuple(w.shape)} QTensor, M=8: "
+        f"err {err:.3g} (tol {tol:.3g}), kernel A launched {launched} times "
+        "in 2 calls, packed once")
+
+
+def quantizer_solver_checks(torch, params, device):
+    """The card's solvers against their plain CPU run of the same code
+    (no kernel carries them); ``qtensor_matmul`` on a solver's output; the
+    paper's numpy solvers on the host; GPTQ on one full-width matrix."""
+    from repro_torch.core import (baselines, quantize_blockwise,
+                                  quantize_pertensor, solve_blocks)
+    wq = params["dec"]["s0"]["attn"]["wq"][0]
+    blocks = wq.reshape(-1, 64)[:4096].to(torch.float32)
+    for method in ("dp", "kmeans", "wdp"):
+        card = solve_blocks(blocks, 8, method=method)
+        cpu = solve_blocks(blocks.cpu(), 8, method=method)
+        check_card_vs_cpu(torch, f"{method} 4096 blocks", blocks, card, cpu)
+    qtensor_matmul_check(torch, wq, device)
+    t0 = time.perf_counter()
+    qc = quantize_pertensor(wq)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    qp = quantize_pertensor(wq.cpu())
+    flat = wq.reshape(1, -1).to(torch.float32)
+    check_card_vs_cpu(torch, f"wdp 6-bit per-tensor {tuple(wq.shape)} "
+                      f"({t_card:.3f} s on the card)", flat,
+                      (_levels(qc, 1), qc.scales), (_levels(qp, 1),
+                                                    qp.scales))
+    # zero-free blocks: an exact zero reconstructs exactly, which the
+    # interval objective the DP minimizes does not model
+    small = blocks[:256]
+    small = small[(small != 0).all(1)]
+    rows = small.shape[0]
+    dp = quantize_blockwise(small, solver="dp")
+    e_dp = _row_sse(torch, small, _levels(dp, rows), dp.scales.reshape(
+        rows, 8))
+    for solver in ("wgm", "gg", "dg", "wgm_lo"):
+        t0 = time.perf_counter()
+        q = quantize_blockwise(small, solver=solver)
+        t = time.perf_counter() - t0
+        e = _row_sse(torch, small, _levels(q, rows), q.scales.reshape(
+            rows, 8))
+        if not bool((e >= e_dp * (1 - 1e-5)).all()):
+            fail(f"quantizer {solver}: a heuristic beat the exact DP")
+        log(f"  numpy {solver} on {rows} blocks (host): {t:.2f} s, SSE "
+            f"{float(e.sum()):.6f} >= DP {float(e_dp.sum()):.6f}")
+    w = wq.t().contiguous()
+    t0 = time.perf_counter()
+    g = baselines.gptq_quantize(w, 4, 64)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    w32 = w.to(torch.float32)
+    rel = float(torch.sum((g - w32) ** 2) / torch.sum(w32 ** 2))
+    rtn = baselines.rtn_quantize(w, 4, 64)
+    rel_rtn = float(torch.sum((rtn - w32) ** 2) / torch.sum(w32 ** 2))
+    if not (np.isfinite(rel) and g.shape == w.shape):
+        fail(f"quantizer gptq: relative error {rel}")
+    log(f"  gptq 4b/64 on {tuple(w.shape)} (float64 on the card): {t:.2f} "
+        f"s, weight rel err {rel:.6f} (RTN {rel_rtn:.6f}; GPTQ minimizes "
+        "the output error on its calibration, not this)")
+
+
+def phase_quantizer(torch, device):
+    """12. quantizer — the paper's granularities and solvers on full-width
+    internlm2-1.8b (random bf16 weights, seed 0), each quantized model
+    scored through ``ServeEngine`` against the unquantized one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.core import QuantPolicy
+    t_phase = time.perf_counter()
+    cfg = get_config("internlm2-1.8b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    paths = [p for p, leaf in _leaves(params)
+             if QuantPolicy().selects(p, leaf)]
+    n_w = sum(int(np.prod(_get(params, p).shape)) for p in paths)
+    scored = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (8, 513)).astype(np.int32)
+    nll_ref, _, counts, ref_logits = score_tree(torch, model, params, scored,
+                                                None, device)
+    log(f"[quantizer] {cfg.name} full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}, "
+        f"{cfg.dtype}); {len(paths)} leaves, {n_w / 1e9:.3f} G weights "
+        f"quantized; unquantized score of {scored.shape}: NLL {nll_ref:.6f}, "
+        f"launches {counts}")
+    results = {}
+    for name, build, packed, bits_of in quantizer_methods(torch, device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree = build(params, paths)
+        torch.cuda.synchronize()
+        t_q = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        err = quant_error(torch, params, tree, paths)
+        bits = storage_bits(tree, paths, bits_of)
+        nll, gap, counts, _ = score_tree(torch, model, tree, scored,
+                                         ref_logits, device)
+        del tree
+        results[name] = err
+        log(f"  {name}: quantize {t_q:.2f} s (peak {peak:.2f} GB), rel err "
+            f"{err:.6f}, {bits:.4f} bits/weight, NLL {nll:.6f} (gap "
+            f"{nll - nll_ref:+.6f}), logit gap {gap:.6f}, launches {counts}")
+        if not all(np.isfinite(x) for x in (err, bits, nll, gap)):
+            fail(f"quantizer {name}: a non-finite value")
+        if counts["flash_attention_fwd"] != cfg.n_layers:
+            fail(f"quantizer {name}: kernel D launched "
+                 f"{counts['flash_attention_fwd']} times in score, want "
+                 f"{cfg.n_layers}")
+        if packed != (counts["msb_matmul"] > 0):
+            fail(f"quantizer {name}: kernel A launched "
+                 f"{counts['msb_matmul']} times in score (packed: {packed})")
+    dp = results["msb_dp_4b64"]
+    for other in ("msb_kmeans_4b64", "msb_dp_dq_4b64", "rtn_4b64",
+                  "nf4_4b64", "hqq_4b64"):
+        if dp > results[other]:
+            fail(f"quantizer: MSB-DP's error {dp} above {other}'s "
+                 f"{results[other]}")
+    for same in ("msb_wdp_4b64", "msb_dp_refine_4b64"):
+        if abs(results[same] - dp) > 1e-6 * dp:
+            fail(f"quantizer: {same}'s error {results[same]} is not DP's "
+                 f"{dp}")
+    if not results["msb_wdp_6b_tensor"] < results["rtn_6b_tensor"]:
+        fail("quantizer: 6-bit per-tensor WDP not below RTN")
+    quantizer_solver_checks(torch, params, device)
+    del params
+    log(f"[quantizer] ok: {time.perf_counter() - t_phase:.1f} s; error "
+        "order DP <= kmeans, DP+DQ, RTN, NF4, HQQ at 4b/64, WDP and refine "
+        "equal to DP, per-tensor WDP < RTN at 6 bits")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1496,6 +1841,7 @@ def main():
     phase_paths(torch)
     phase_front_door(torch, ctx)
     del ctx
+    phase_quantizer(torch, device)
     # representative rows: the decode shapes of the main path, and A also
     # at the static prefill's M=4096
     def mm_row(m, k, n):

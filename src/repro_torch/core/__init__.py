@@ -1,17 +1,28 @@
 """MSB dynamic-grouping quantization — the paper's core contribution."""
-from .objective import prefix_sums
-from .grouping import dp_boundaries, solve_blocks
-from .quantize import (PackedQTensor, QTensor, dequantize, map_tensors,
+from .objective import (grouping_cost, group_sse, lambda_bounds,
+                        lambda_from_tilde, prefix_sums, reconstruction_mse,
+                        xnor_closed_form)
+from .grouping import (dp_boundaries, kmeans1d_boundaries, solve_blocks,
+                       solve_flat, windowed_dp_boundaries)
+from .quantize import (DQScales, KVQuantSpec, PackedQTensor, QTensor,
+                       dequantize, double_quantize, kv_dequantize_pages,
+                       kv_native_page_bytes, kv_quantize_pages, map_tensors,
                        pack_codes_int4, pack_qtensor, packed_dequantize,
-                       packed_gather, quantize_blockwise, unpack_codes_int4)
-from .policy import QuantPolicy, dequantize_params, pack_params, \
-    param_bits, quantize_params
+                       packed_gather, quantize_blockwise, quantize_pertensor,
+                       storage_bits_per_weight, unpack_codes_int4)
+from .policy import (QuantPolicy, dequantize_params, pack_params, param_bits,
+                     quantize_params)
+from . import baselines, reference
 
 __all__ = [
-    "PackedQTensor", "QTensor", "QuantPolicy", "dequantize",
-    "dequantize_params", "dp_boundaries", "map_tensors", "pack_codes_int4",
+    "DQScales", "KVQuantSpec", "PackedQTensor", "QTensor", "QuantPolicy",
+    "baselines", "dequantize", "dequantize_params", "double_quantize",
+    "dp_boundaries", "grouping_cost", "group_sse", "kmeans1d_boundaries",
+    "kv_dequantize_pages", "kv_native_page_bytes", "kv_quantize_pages",
+    "lambda_bounds", "lambda_from_tilde", "map_tensors", "pack_codes_int4",
     "pack_params", "pack_qtensor", "packed_dequantize", "packed_gather",
     "param_bits", "prefix_sums", "quantize_blockwise", "quantize_params",
-    "solve_blocks",
-    "unpack_codes_int4",
+    "quantize_pertensor", "reconstruction_mse", "reference", "solve_blocks",
+    "solve_flat", "storage_bits_per_weight", "unpack_codes_int4",
+    "windowed_dp_boundaries", "xnor_closed_form",
 ]

@@ -1,10 +1,13 @@
-"""Quantization policy: apply block-wise MSB PTQ to a params tree.
+"""Quantization policy: apply MSB PTQ to a params tree.
 
-Port of the block-wise part of ``repro.core.policy``. A params tree is a
-nested dict of tensors; paths are the ``/``-joined dict keys, exactly as in
-the reference, so ``QuantPolicy`` regexes select the same leaves. Stacked
-per-layer params (leading ``L`` dim) quantize as one batch of blocks —
-blocks never straddle rows, so the grouping equals per-layer quantization.
+Port of ``repro.core.policy`` (tensor parallelism aside). A params tree is
+a nested dict of tensors; paths are the ``/``-joined dict keys, exactly as
+in the reference, so ``QuantPolicy`` regexes select the same leaves.
+Block-wise, stacked per-layer params (leading ``L`` dim) quantize as one
+batch of blocks — blocks never straddle rows, so the grouping equals
+per-layer quantization. Per-tensor (``block=-1``), a stacked leaf gets one
+codebook per leading-dim slice, scales ``(L, 1, g)``, as the reference's
+``vmap`` gives.
 """
 from __future__ import annotations
 
@@ -14,20 +17,22 @@ import re
 import torch
 
 from ..device import resolve_device
-from .quantize import (PackedQTensor, QTensor, dequantize, map_tensors,
-                       pack_qtensor, quantize_blockwise)
+from .quantize import (PackedQTensor, QTensor, dequantize, double_quantize,
+                       map_tensors, pack_qtensor, quantize_blockwise,
+                       quantize_pertensor)
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
     bits: int = 4
-    block: int = 64              # the port has block-wise only (no -1)
-    solver: str = "dp"           # the port has the exact DP only
+    block: int = 64              # -1 => per-tensor
+    solver: str = "dp"           # dp | kmeans | wdp | wgm | gg | dg | wgm_lo
     lam: float = 0.0
     include: str = r".*"
     exclude: str = (r".*(norm|scale_param|bias|ln|rope|router|conv_w|"
                     r"dt_bias|a_log|d_skip|f_bias|w_rec).*")
     min_size: int = 1 << 12      # skip tiny leaves (norm scales etc.)
+    double_quant: bool = False
 
     def selects(self, path: str, leaf) -> bool:
         if (not isinstance(leaf, torch.Tensor) or leaf.dim() < 2
@@ -35,7 +40,7 @@ class QuantPolicy:
             return False
         if re.match(self.exclude, path, re.I):
             return False
-        if leaf.shape[-1] % self.block:
+        if self.block != -1 and leaf.shape[-1] % abs(self.block):
             return False
         return re.match(self.include, path, re.I) is not None
 
@@ -51,10 +56,9 @@ def quantize_params(params, policy: QuantPolicy = QuantPolicy(), *,
                     device=None, verbose=False):
     """Rewrite matching leaves of ``params`` as ``QTensor``, solving on
     ``device`` (``None`` = the card). Every tensor of the returned tree
-    lies on that device. Returns (tree, report)."""
-    if policy.block == -1:
-        raise NotImplementedError(
-            "per-tensor MSB: ROADMAP item 7 brings quantize_pertensor")
+    lies on that device. Per-tensor (``block=-1``) maps the ``"dp"`` solver
+    to ``"wdp"``; ``double_quant`` quantizes each scale table once more.
+    Returns (tree, report)."""
     dev = resolve_device(device)
     report = {}
 
@@ -64,15 +68,36 @@ def quantize_params(params, policy: QuantPolicy = QuantPolicy(), *,
         if isinstance(leaf, (QTensor, PackedQTensor)) or not policy.selects(
                 path, leaf):
             return map_tensors(lambda t: t.to(dev), leaf)
-        q = quantize_blockwise(leaf, bits=policy.bits, block=policy.block,
-                               solver=policy.solver, lam=policy.lam)
+        if policy.block == -1:
+            q = _quantize_pertensor_stacked(leaf, policy)
+        else:
+            q = quantize_blockwise(leaf, bits=policy.bits,
+                                   block=policy.block, solver=policy.solver,
+                                   lam=policy.lam)
+        if policy.double_quant:
+            q = double_quantize(q)
         report[path] = (tuple(leaf.shape), policy.bits)
         if verbose:
             print(f"  quantized {path}: {tuple(leaf.shape)} -> "
-                  f"{policy.bits}b/{policy.block}")
+                  f"{policy.bits}b/"
+                  f"{'tensor' if policy.block == -1 else policy.block}")
         return q
 
     return _walk(params, visit), report
+
+
+def _quantize_pertensor_stacked(leaf, policy):
+    """Per-tensor MSB of one leaf; a leaf with ``ndim >= 3`` (stacked
+    layers) gets one codebook per leading-dim slice, scales (L, 1, g)."""
+    solver = "wdp" if policy.solver == "dp" else policy.solver
+    if leaf.dim() < 3:
+        return quantize_pertensor(leaf, bits=policy.bits, solver=solver,
+                                  lam=policy.lam)
+    qs = [quantize_pertensor(w, bits=policy.bits, solver=solver,
+                             lam=policy.lam) for w in leaf]
+    return QTensor(torch.stack([q.codes for q in qs]),
+                   torch.stack([q.scales for q in qs]), policy.bits, -1,
+                   leaf.dtype)
 
 
 def pack_params(params, *, device=None, verbose=False):

@@ -1,11 +1,13 @@
-"""MSB quantized-tensor formats and the block-wise quantize/dequantize API.
+"""MSB quantized-tensor formats and the quantize/dequantize API.
 
-Port of ``repro.core.quantize`` (the 4-bit block-wise storage path). The
-byte formats match the reference exactly:
+Port of ``repro.core.quantize``: block-wise and per-tensor MSB, the
+nearest-scale refine, double quantization of the scale table and the
+storage accounting. The byte formats match the reference exactly:
 
 * ``QTensor``: ``codes`` int8 in the weight's shape, ``code = sign *
   (level + 1)`` (0 for exact zeros); ``scales`` ``(..., last // block, g)``
-  — one codebook row of ``g = 2^(bits-1)`` positive scales per block.
+  — one codebook row of ``g = 2^(bits-1)`` positive scales per block — or
+  ``(1, g)`` per tensor (``block == -1``; ``(L, 1, g)`` for stacked layers).
 * ``PackedQTensor``: two 4-bit codes per byte in matmul orientation
   ``(..., K, N_pad // 2)``, nibble ``(sign << 3) | level``, element ``2i``
   in the low nibble; scales n-blocked ``(..., K, N_pad // 64, 8)`` or
@@ -21,9 +23,10 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
-from . import grouping
+from . import grouping, reference
 
 PACK_BLOCK = 64      # MSB block size — matches the msb_matmul kernel
 PACK_LEVELS = 8      # 2^(4-1) codebook entries per block
@@ -35,7 +38,7 @@ class QTensor:
     codes: torch.Tensor       # int8, logical shape of w
     scales: torch.Tensor      # (..., n_blocks_in_row, n_levels) f32
     bits: int                 # target bit-width b
-    block: int                # block size (64)
+    block: int                # block size (64) or -1 for per-tensor
     dtype: object             # dequantized dtype
     shard: Optional[str] = None
 
@@ -94,25 +97,96 @@ def map_tensors(fn, tree):
     return tree
 
 
-def quantize_blockwise(w, bits=4, block=64, solver="dp", lam=0.0,
-                       scale_dtype=torch.float32):
+# Blocks per nearest-scale refine: its (blocks, bs, g) distance tensor is
+# 16 KB per 64-element 4-bit block.
+REFINE_CHUNK = 32768
+
+
+def _solve(blocks, g, solver, lam, iters):
+    """(levels (nb, bs) int32, scales (nb, g) f32) on the blocks' device.
+    ``dp``/``kmeans``/``wdp`` solve there; the paper's CPU solvers run the
+    numpy reference per block in float64 on the host."""
+    if solver in ("dp", "kmeans", "wdp"):
+        return grouping.solve_blocks(blocks, g, method=solver, lam=lam,
+                                     iters=iters)
+    if solver in ("wgm", "gg", "dg", "wgm_lo"):
+        blocks_np = blocks.detach().cpu().numpy().astype(np.float64)
+        levels = np.zeros(blocks_np.shape, dtype=np.int32)
+        scales = np.zeros((blocks_np.shape[0], g), dtype=np.float32)
+        for i, blk in enumerate(blocks_np):
+            if solver == "gg":
+                b, order = reference.greedy_grouping(blk, g, lam=lam)
+            elif solver == "dg":
+                b, order, _ = reference.dynamic_grouping(blk, g, lam=lam)
+            elif solver == "wgm_lo":
+                b, order = reference.wgm_local_opt(blk, g, lam=lam)
+            else:
+                w = max(1, blk.size // 256) if blk.size > 4096 else 1
+                b, order = reference.windowed_greedy_merging(blk, g, window=w,
+                                                             lam=lam)
+            _, lv, sc = reference.reconstruct(blk, b, order, n_levels=g)
+            levels[i] = lv
+            scales[i, : len(sc)] = sc
+        return (torch.from_numpy(levels).to(blocks.device),
+                torch.from_numpy(scales).to(blocks.device))
+    raise ValueError(f"unknown solver: {solver}")
+
+
+def _nearest_refine(blocks, levels, scales):
+    """Re-encode each weight to the *nearest* codebook scale (the first on
+    a tie). Empty groups carry scale 0 and are excluded unless the weight
+    is 0. A no-op at the DP optimum; improves the heuristic solvers.
+    Chunked over blocks to bound the (blocks, bs, g) distance tensor."""
+    out = torch.empty_like(levels)
+    for i in range(0, blocks.shape[0], REFINE_CHUNK):
+        mags = torch.abs(blocks[i:i + REFINE_CHUNK])
+        sc = scales[i:i + REFINE_CHUNK]
+        d = torch.abs(mags[:, :, None] - sc[:, None, :])
+        valid = (sc > 0)[:, None, :] | (mags[:, :, None] == 0)
+        d = torch.where(valid, d, torch.full_like(d, float("inf")))
+        out[i:i + REFINE_CHUNK] = torch.argmin(d, dim=-1).to(levels.dtype)
+    return out
+
+
+def quantize_blockwise(w, bits=4, block=64, solver="dp", lam=0.0, iters=30,
+                       scale_dtype=torch.float32, refine=False):
     """Block-wise MSB quantization along the last axis (64-element groups
     per row), solved on ``w``'s device. Last axis must divide by ``block``.
+    ``iters`` reaches the kmeans solver; ``refine`` re-encodes each weight
+    to its nearest codebook scale (no-op for the exact DP).
     """
     if w.shape[-1] % block:
         raise ValueError(f"last dim {w.shape[-1]} not divisible by block "
                          f"{block}")
     g = 2 ** (bits - 1)
     blocks = w.reshape(-1, block).to(torch.float32)
-    levels, scales = grouping.solve_blocks(blocks, g, method=solver, lam=lam)
+    levels, scales = _solve(blocks, g, solver, lam, iters)
+    if refine:
+        levels = _nearest_refine(blocks, levels, scales)
     signs = torch.sign(blocks).to(torch.int8)
     codes = (signs * (levels.to(torch.int8) + 1)).reshape(w.shape)
     scales = scales.reshape(*w.shape[:-1], w.shape[-1] // block, g)
     return QTensor(codes, scales.to(scale_dtype), bits, block, w.dtype)
 
 
+def quantize_pertensor(w, bits=6, solver="wdp", lam=0.0, iters=50,
+                       scale_dtype=torch.float32):
+    """6-bit (default) per-tensor MSB quantization: one codebook for the
+    whole of ``w``, solved on its device; scales come out ``(1, g)``."""
+    g = 2 ** (bits - 1)
+    flat = w.reshape(1, -1).to(torch.float32)
+    levels, scales = _solve(flat, g, solver, lam, iters)
+    signs = torch.sign(flat).to(torch.int8)
+    codes = (signs * (levels.to(torch.int8) + 1)).reshape(w.shape)
+    return QTensor(codes, scales.to(scale_dtype), bits, -1, w.dtype)
+
+
 def dequantize(q: QTensor):
-    """w_hat = sign(code) * scales[block, |code| - 1]; exact 0 for code 0."""
+    """w_hat = sign(code) * scales[block, |code| - 1]; exact 0 for code 0.
+
+    Works for any scales layout (..., g): each scale row covers
+    codes.numel() / n_rows consecutive codes (64 block-wise, a whole matrix
+    per-tensor, a layer slice for stacked per-tensor params)."""
     g = q.scales.shape[-1]
     rows = q.scales.numel() // g
     blocks = q.codes.reshape(rows, -1)
@@ -404,3 +478,62 @@ def kv_dequantize_pages(codes, scales, bits, dtype):
     sign = (1 - 2 * ((nb_ >> 3) & 1)).to(torch.float32)
     mag = torch.gather(scales.to(torch.float32), -1, level)
     return _kv_from_blocks(sign * mag, tpb, hd).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Double quantization (paper Appendix G)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DQScales:
+    """Scales quantized once more with MSB at 6 bits over 2048-blocks."""
+    q: QTensor
+    shape: tuple
+
+    def dequantize(self):
+        return self.q.dequantize().reshape(self.shape)
+
+
+def double_quantize(q: QTensor, bits=6, block=2048, solver="kmeans"):
+    """Quantize the scale table itself (recursive MSB), per Appendix G: the
+    flattened table, zero-padded to a multiple of ``block``, is quantized
+    block-wise and dequantized back; the result carries the round-tripped
+    scales in the table's shape.
+
+    Storage: 4 + 8*6.25/64 ~ 4.78 bits/weight for the default setting.
+    """
+    scales = q.scales.reshape(-1)
+    pad = (-scales.shape[0]) % block
+    padded = torch.cat([scales, scales.new_zeros(pad)])
+    sq = quantize_blockwise(padded.reshape(-1, block), bits=bits,
+                            block=block, solver=solver)
+    return dataclasses.replace(
+        q, scales=sq.dequantize().reshape(-1)[: scales.shape[0]]
+        .reshape(q.scales.shape))
+
+
+# ---------------------------------------------------------------------------
+# Storage accounting (paper Sec. 4.1)
+# ---------------------------------------------------------------------------
+
+def storage_bits_per_weight(q, double_quant=False,
+                            scale_bits=16, dq_bits=6, dq_block=2048):
+    """Effective bits/weight incl. codebook metadata.
+
+    4-bit block-64, bf16 scales: 4 + 8*16/64 = 6.00 (paper).  With DQ:
+    4 + 8*(6 + 32*16/2048)/64 = 4.78 (paper App. G). Per-tensor: ~b bits.
+
+    For a ``PackedQTensor`` the answer is the *real allocated footprint*
+    (uint8 codes + scale table, incl. any N-padding) over the logical
+    element count — what device memory actually holds, not the formula.
+    """
+    if isinstance(q, PackedQTensor):
+        n = float(math.prod(q.shape))
+        scale_bits = q.scales.element_size() * 8
+        return (q.packed.numel() * 8 + q.scales.numel() * scale_bits) / n
+    n = float(math.prod(q.shape))
+    if q.block == -1:
+        return q.bits + q.n_levels * scale_bits / n
+    per_scale = ((dq_bits + 32 * scale_bits / dq_block) if double_quant
+                 else scale_bits)
+    return q.bits + q.n_levels * per_scale / q.block

@@ -1,5 +1,6 @@
-from .ops import k_splits, msb_matmul, packed_matmul, plan
+from .ops import (k_splits, msb_matmul, packed_matmul, plan, qtensor_matmul,
+                  to_kernel_layout)
 from .ref import dequant_ref, msb_matmul_ref
 
 __all__ = ["dequant_ref", "k_splits", "msb_matmul", "msb_matmul_ref",
-           "packed_matmul", "plan"]
+           "packed_matmul", "plan", "qtensor_matmul", "to_kernel_layout"]

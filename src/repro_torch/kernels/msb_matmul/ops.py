@@ -5,6 +5,10 @@ tensor takes the plain version (``ref.msb_matmul_ref``), a CUDA tensor
 launches the hand-written kernel (``csrc/msb_matmul.cu``: bf16 x on the
 tensor cores, f32 x on SIMT f32 FMA) or raises. ``plan`` is its launch
 plan, ``msb_matmul.launches`` counts kernel launches.
+
+``qtensor_matmul`` / ``to_kernel_layout`` take a raw 4-bit/64 ``QTensor``
+(a solver's output, without ``pack_params``); the packing is memoized on
+the concrete codes/scales buffers.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from ...core.quantize import PACK_BLOCK, PACK_LEVELS, PackedQTensor
+from ...core.quantize import (PACK_BLOCK, PACK_LEVELS, PackedQTensor,
+                              QTensor, pack_codes_int4, pack_qtensor)
 from .ref import msb_matmul_ref
 
 
@@ -143,3 +148,40 @@ def packed_matmul(x, pq: PackedQTensor, bias=None):
         bias = bias.contiguous()
     y = msb_matmul(x2, pq.packed, pq.scales, bias, kblocked=pq.kblocked)
     return y[:, :pq.n].reshape(*lead, pq.n)
+
+
+# -- QTensor conveniences (tests / benchmarks) -------------------------------
+
+def to_kernel_layout(q: QTensor):
+    """QTensor (codes (K, N), scales (K, N/64, 8)) -> (packed, scales3d)."""
+    if q.bits != 4 or q.block != PACK_BLOCK:
+        raise ValueError("the kernel supports 4-bit block-64 QTensors, got "
+                         f"{q.bits}-bit block {q.block}")
+    k, n = q.codes.shape
+    packed = pack_codes_int4(q.codes).reshape(k, n // 2)
+    scales = q.scales.reshape(k, n // PACK_BLOCK, PACK_LEVELS)
+    return packed, scales
+
+
+_PACK_CACHE = {}
+
+
+def _cached_pack(q: QTensor) -> PackedQTensor:
+    """Memoize packing on the concrete buffers so repeated calls don't
+    re-run the layout pass."""
+    key = (id(q.codes), id(q.scales))
+    hit = _PACK_CACHE.get(key)
+    # retain BOTH buffers and identity-check both: an id() can be recycled
+    # after gc, and a stale hit would silently pack the wrong scales
+    if hit is None or hit[0] is not q.codes or hit[1] is not q.scales:
+        if len(_PACK_CACHE) > 256:
+            _PACK_CACHE.clear()
+        hit = (q.codes, q.scales, pack_qtensor(q))
+        _PACK_CACHE[key] = hit
+    return hit[2]
+
+
+def qtensor_matmul(x, q: QTensor):
+    """y = x @ dequant(q). x: (..., K). Packs on first use (memoized);
+    runs the kernel on CUDA tensors, its plain version on CPU ones."""
+    return packed_matmul(x, _cached_pack(q))

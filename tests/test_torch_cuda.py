@@ -790,3 +790,78 @@ def test_simulated_engine_serves_through_graphs(graph_model):
         top = _next_logits(model, sim_params,
                            np.concatenate([p, a[:i]])).topk(2).values
         assert float(top[0] - top[1]) < 1e-2, (i, a, b)
+
+
+def _solver_blocks():
+    """Ties, exact zeros, heavy tails and plain normal rows."""
+    rng = np.random.default_rng(21)
+    b = rng.standard_normal((300, 64)).astype(np.float32)
+    b[:20] = np.round(b[:20] * 4) / 4
+    b[20:30, :16] = 0.0
+    b[30:40] = rng.standard_t(2, (10, 64))
+    return torch.from_numpy(b)
+
+
+def _assert_same_or_near_tie(blocks, card, cpu):
+    """Per row: levels and scales identical, or the SSE within 1e-6.
+    ``card`` and ``cpu`` are (levels, scales) pairs of (rows, -1)."""
+    lc, sc = (t.cpu() for t in card)
+    lp, sp = cpu
+    same = (lc == lp).all(1) & (sc == sp).all(1)
+
+    def sse(lv, s):
+        w = blocks.double()
+        return ((w - torch.sign(w) * torch.gather(s.double(), 1, lv.long()))
+                ** 2).sum(1)
+    e_card, e_cpu = sse(lc, sc), sse(lp, sp)
+    assert ((e_card - e_cpu).abs() <= 1e-6 * e_cpu)[~same].all()
+    assert same.float().mean() >= 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["dp", "kmeans", "wdp"])
+def test_solvers_on_the_card_match_their_cpu_run(cuda, method):
+    from repro_torch.core import solve_blocks
+    blocks = _solver_blocks()
+    card = solve_blocks(blocks.to(cuda), 8, method=method, chunk=128)
+    cpu = solve_blocks(blocks, 8, method=method, chunk=128)
+    _assert_same_or_near_tie(blocks, card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["wdp", "kmeans"])
+def test_pertensor_and_choose_k_on_the_card_match_cpu(cuda, solver):
+    from repro_torch.core import quantize_pertensor, solve_flat
+    w = torch.from_numpy(np.random.default_rng(22).standard_t(
+        4, (128, 2048)).astype(np.float32))
+    qc, qp = (quantize_pertensor(x, 6, solver=solver) for x in
+              (w.to(cuda), w))
+
+    def levels(q):
+        return torch.clamp(q.codes.reshape(1, -1).long().abs() - 1, min=0)
+    _assert_same_or_near_tie(w.reshape(1, -1), (levels(qc), qc.scales),
+                             (levels(qp), qp.scales))
+    blocks = _solver_blocks()
+    for row in blocks[::30]:
+        card = solve_flat(row.to(cuda), 8, lam=2.0, choose_k=True)
+        cpu = solve_flat(row, 8, lam=2.0, choose_k=True)
+        _assert_same_or_near_tie(row[None], (card[0][None], card[1][None]),
+                                 (cpu[0][None], cpu[1][None]))
+
+
+@pytest.mark.cuda
+def test_qtensor_matmul_runs_kernel_a_on_a_solver_output(cuda):
+    from repro_torch.core import quantize_blockwise
+    rng = np.random.default_rng(23)
+    w = torch.from_numpy(rng.standard_normal((256, 320)).astype(
+        np.float32)).to(cuda)
+    q = quantize_blockwise(w, solver="kmeans")
+    x = torch.from_numpy(rng.standard_normal((5, 256)).astype(
+        np.float32)).to(cuda)
+    before = mm_ops.msb_matmul.launches
+    y = mm_ops.qtensor_matmul(x, q)
+    pq = mm_ops._cached_pack(q)
+    y_ref = mm_ref.msb_matmul_ref(x, pq.packed, pq.scales)[:, :320]
+    assert mm_ops.msb_matmul.launches == before + 1
+    torch.testing.assert_close(y, y_ref, rtol=0,
+                               atol=1e-5 * y_ref.abs().max().item())
