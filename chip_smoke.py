@@ -11,18 +11,24 @@ one line each (details indented), any failure exits non-zero:
    parallel (msb_matmul; paged_attention, which holds kernels B and C;
    flash_attention)
 3. msb_matmul vs its plain version at the main path's shapes (decode M,
-   packed-prefill M, the static prefill's M=4096, the f32 unembedding),
-   with times; rows bit-identical at M = 1, 8, 17, 512 and 4096
+   packed-prefill M, the static prefill's M=4096, the f32 unembedding;
+   gemma2-2b's projections at M = 8 and 4096, qwen1.5-0.5b's biased q
+   projection), with times; rows bit-identical at M = 1, 8, 17, 512 and
+   4096; its expert batch at granite-moe's shapes (48 experts, C = 8 and
+   112, counts with zeros), every expert bit-identical to msb_matmul on
+   it alone
 4. paged_attention_decode (split-KV) vs its plain version on full-width
-   bf16 pools and at a 512-token packed-prefill wave; every row
-   bit-identical alone and in the batch
+   bf16 pools and at a 512-token packed-prefill wave, and with gemma2's
+   sliding window (d=256, KV=4, softcap 50, rows to 8192 keys, windows
+   4096 and 4100); every row bit-identical alone and in the batch
 5. paged_attention_decode_quant (split-KV) vs its plain version on
-   full-width 8- and 4-bit quantized pools; every row bit-identical alone
-   and in the batch
+   full-width 8- and 4-bit quantized pools, with and without the window;
+   every row bit-identical alone and in the batch
 6. flash_attention_fwd vs its plain version at the static path's prefill
    shape and at long, ragged, windowed + softcapped, segmented (bf16: the
-   tensor-core kernel) and f32 (the SIMT kernel) shapes; pad rows exactly
-   0, cross-segment isolation bit for bit
+   tensor-core kernel), f32 (the SIMT kernel) and gemma2's (head_dim 256,
+   window 4096, softcap 50, S=4608) shapes; pad rows exactly 0,
+   cross-segment isolation bit for bit
 7. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
    the card, pack, ContinuousEngine at decode_horizon 8 and 1 over kv16
    pools, each engine's dispatch set captured as CUDA graphs by warmup()
@@ -67,9 +73,21 @@ one line each (details indented), any failure exits non-zero:
    wdp) and on the whole matrix per tensor; the paper's numpy solvers run
    on 256 of those blocks on the host (none may beat DP); GPTQ runs once
    on one full-width matrix
+13. families — gemma2-2b and granite-moe-3b-a800m at full width (random
+   weights, seed 0; 4b/64 DP on the card, packed), each freed before the
+   next: gemma2 through ContinuousEngine at kv16 and kv4 (one request of
+   4500 tokens, past its 4096-token window) and ServeEngine on 2 x 4608
+   tokens (kernel D with the window) then score; granite-moe at kv16
+   (kernel A's expert batch) and through ServeEngine; every engine as in
+   phase 7 (graph replay bitwise against eager, warmed H=8 and H=1, no
+   capture after warm-up, H=8 tokens against H=1, launch counters) with a
+   decode-step profile; then the smoke configs of gemma2, granite-moe,
+   qwen1.5-0.5b and arctic-480b served on the card and on the CPU
 
 The second-to-last line is the kernel table as JSON (kernel A at the
-decode shape and at M=4096, kernel C once per code width); the last line
+decode shape, at M=4096 and as the expert batch; B and C without and,
+at kv16 and kv4, with the window; D at the static prefill and at
+gemma2's windowed d=256 prefill); the last line
 is ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
 stream is timed cold (L2 flushed before every launch), as decode meets it.
 Phases 3-6 report the median of 20 launches (the mean beside it) for the
@@ -213,18 +231,26 @@ def phase_msb_matmul(torch, timer, device):
     computed at M = 1, 8, 17 and 512."""
     from repro_torch.kernels.msb_matmul import ops, ref
     gen = torch.Generator(device=device).manual_seed(1)
-    cases = [(k, n, False, torch.bfloat16) for k, n in
-             ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))]
-    cases.append((2048, 92672, True, torch.float32))
+    bf16 = torch.bfloat16
+    cases = [(k, n, False, bf16, (1, 8, 128, 512) + (
+        (4096,) if n != 1024 else ())) for k, n in
+        ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))]
+    cases.append((2048, 92672, True, torch.float32, (1, 8, 128, 512)))
+    # gemma2-2b's projections (q, k/v, gate/up, down, o) at decode and
+    # static-prefill M, and qwen1.5-0.5b's q projection with its fused bias
+    cases += [(k, n, False, bf16, (8, 4096)) for k, n in
+              ((2304, 2048), (2304, 1024), (2304, 9216), (9216, 2304),
+               (2048, 2304))]
+    cases.append((1024, 1024, False, bf16, (8,)))
+    biased = {(2048, 1024, 8), (1024, 1024, 8)}
     rows, worst = [], 0.0
-    for k, n, kb, xdt in cases:
+    for k, n, kb, xdt, ms_ in cases:
         packed, scales = rand_packed(torch, gen, k, n, kb, device)
         w = ref.dequant_ref(packed, scales, kblocked=kb).to(xdt)
-        big = xdt == torch.bfloat16 and n != 1024
-        for m in (1, 8, 128, 512) + ((4096,) if big else ()):
+        for m in ms_:
             x = torch.randn((m, k), generator=gen, device=device).to(xdt)
             bias = (torch.randn((n,), generator=gen, device=device)
-                    if (k, n, m) == (2048, 1024, 8) else None)
+                    if (k, n, m) in biased else None)
             y = ops.msb_matmul(x, packed, scales, bias, kblocked=kb)
             y_ref = ref.msb_matmul_ref(x, packed, scales, bias, kblocked=kb)
             torch.cuda.synchronize()
@@ -262,9 +288,90 @@ def phase_msb_matmul(torch, timer, device):
                 f"plain {plain:.4f} | library {lib:.4f} | bound {b_ms:.4f} "
                 f"({b_by}), {100 * b_ms / ms:.1f} % of it reached")
         del packed, scales, w
+    rows += msb_matmul_experts_cases(torch, timer, device, gen)
     log(f"[msb_matmul] {len(rows)} shapes agree with the plain version "
         f"(worst err/max|ref| {worst:.3g}); rows at M = 1, 8, 17, 512 "
-        "bit-identical to the same rows at M=4096")
+        "bit-identical to the same rows at M=4096; every expert of the "
+        "expert batch bit-identical to msb_matmul on it alone")
+    return rows
+
+
+def expert_counts(torch, gen, tokens, k, n_real, e_total, capacity, device):
+    """Routed tokens per expert as top-k routing of ``tokens`` random
+    tokens over ``n_real`` of ``e_total`` experts gives them (each token
+    k distinct experts), capped at ``capacity``: int32 (e_total,), zeros
+    included (padded experts always)."""
+    logits = torch.rand((tokens, n_real), generator=gen, device=device)
+    idx = torch.topk(logits, k, dim=-1).indices.reshape(-1)
+    counts = torch.zeros(e_total, dtype=torch.int32, device=device)
+    counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return torch.clamp(counts, max=capacity)
+
+
+def msb_matmul_experts_cases(torch, timer, device, gen):
+    """Kernel A's expert batch at granite-moe-3b-a800m's shapes (48 padded
+    experts of which 40 route, top-8, d_model 1536, d_ff 512): the gate/up
+    direction (K=1536, N=512) and the down direction (K=512, N=1536), at a
+    decode step (8 tokens: capacity C=8) and at a 512-token packed-prefill
+    wave (C=112), routed counts with zeros. Every expert bit for bit
+    ``msb_matmul`` on it alone; against the plain version (a loop of
+    ``msb_matmul_ref``) within 1e-2 relative. Library: a loop of
+    ``torch.matmul`` over the routed experts' pre-dequantized weights."""
+    from repro_torch.kernels.msb_matmul import ops, ref
+    e, n_real, topk = 48, 40, 8
+    rows = []
+    for c, tokens in ((8, 8), (112, 512)):
+        counts = expert_counts(torch, gen, tokens, topk, n_real, e, c, device)
+        live = [i for i in range(e) if int(counts[i]) > 0]
+        for k, n in ((1536, 512), (512, 1536)):
+            packed = torch.randint(0, 256, (e, k, n // 2), generator=gen,
+                                   device=device, dtype=torch.int32).to(
+                                       torch.uint8)
+            scales = torch.sort(torch.rand((e, k, n // 64, 8), generator=gen,
+                                           device=device) * 0.05,
+                                dim=-1).values.contiguous()
+            x = torch.randn((e, c, k), generator=gen, device=device).to(
+                torch.bfloat16)
+            y = ops.msb_matmul_experts(x, packed, scales, counts)
+            y_ref = ref.msb_matmul_experts_ref(x, packed, scales, counts)
+            torch.cuda.synchronize()
+            err = (y.float() - y_ref.float()).abs().max().item()
+            scale = y_ref.float().abs().max().item()
+            if not err <= 1e-2 * scale:
+                fail(f"msb_matmul_experts C={c} K={k} N={n}: max err {err}")
+            for i in range(e):
+                if i not in live:
+                    if y[i].abs().max().item() != 0.0:
+                        fail(f"msb_matmul_experts: expert {i} with count 0 "
+                             "is not exactly 0")
+                elif not torch.equal(y[i], ops.msb_matmul(
+                        x[i].contiguous(), packed[i], scales[i])):
+                    fail(f"msb_matmul_experts C={c} K={k} N={n}: expert {i}"
+                         " differs from msb_matmul on it alone")
+            ws = {i: ref.dequant_ref(packed[i], scales[i]).to(torch.bfloat16)
+                  for i in live}
+            ms, ms_mean = timer.stats(lambda: ops.msb_matmul_experts(
+                x, packed, scales, counts))
+            plain = timer(lambda: ref.msb_matmul_experts_ref(
+                x, packed, scales, counts), reps=2, warmup=1)
+            lib, _ = timer.stats(lambda: [torch.matmul(x[i], ws[i])
+                                          for i in live])
+            del ws
+            nbytes = (e * c * k * 2 + len(live) * (k * n // 2 + k * n // 8 * 4)
+                      + e * c * n * 2 + e * 4)
+            b_ms, b_by = bound(nbytes, 2.0 * c * k * n * len(live),
+                               "bfloat16")
+            row = dict(shape=f"experts E={e} ({len(live)} routed) C={c} "
+                       f"K={k} N={n} n-blocked bf16", experts=True, m=c, k=k,
+                       n=n, max_abs_err=err, ms=ms, plain_ms=plain,
+                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            log(f"  msb_matmul_experts {row['shape']}: err {err:.3g} kernel "
+                f"{ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | plain "
+                f"{plain:.4f} | library (torch.matmul loop over routed "
+                f"experts) {lib:.4f} | bound {b_ms:.4f} ({b_by}), "
+                f"{100 * b_ms / ms:.1f} % of it reached")
+            del packed, scales, x
     return rows
 
 
@@ -355,9 +462,125 @@ def phase_paged_attention(torch, timer, device):
                                           device, width=64)
     packed_prefill_case(torch, timer, device, gen, ops, ref, 16,
                         (k_pool, v_pool), bt, ps)
+    del q, k_pool, v_pool
+    rows += window_cases(torch, timer, device, gen, 16)
     log(f"[paged_attention] {len(rows)} cases agree with the plain version "
         "(tol 2e-2 abs; zero-length rows exactly 0; every row bit-identical "
-        "alone and in the batch); packed-prefill wave checked")
+        "alone and in the batch, with and without a window); packed-prefill "
+        "wave checked")
+    return rows
+
+
+# gemma2-2b's attention (8 heads, 4 KV heads, head_dim 256, softcap 50) over
+# rows up to 8192 keys, for kernels B and C with its 4096-token window
+WINDOW_LENS = [0, 1, 17, 4095, 4097, 4200, 6000, 8192]
+
+
+def window_cases(torch, timer, device, gen, bits):
+    """Kernel B (bits 16) or C (8, 4) with a sliding window, as gemma2's
+    local layers decode: each row's first visible key ``kv_len - window``
+    (windows 4096 and 4100, not a multiple of the page size; most starts
+    fall mid-page), d=256, KV=4, H=8, softcap 50, rows of 0-8192 keys.
+    Against the plain version given the same starts (tol 2e-2 abs), pad
+    rows exactly 0, every row bit-identical alone (a block table only as
+    wide as it needs) and in the batch. Timed at window 4096 (median of
+    20); library: SDPA with the window's mask on the pre-gathered (C:
+    pre-dequantized) cache; bound: the visible keys' bytes."""
+    from repro_torch.core.quantize import KVQuantSpec
+    from repro_torch.kernels.paged_attention import ops, ref
+    h, kv, d, ps, softcap = 8, 4, 256, 16, 50.0
+    lens, b = WINDOW_LENS, len(WINDOW_LENS)
+    width = max(lens) // ps
+    q = torch.randn((b, h, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    perm = torch.randperm(b * width, generator=gen, device=device) + 1
+    bt = perm.reshape(b, width).to(torch.int32)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=device)
+    if bits == 16:
+        pools = [torch.randn((1 + b * width, ps, kv, d), generator=gen,
+                             device=device).to(torch.bfloat16)
+                 for _ in "kv"]
+        tail, kw, name = (), {}, "paged_attention kv16"
+        run, plain = ops.paged_attention_decode, ref.paged_attention_decode_ref
+    else:
+        pools, spec = rand_quant_pools(torch, gen, bits, 1 + b * width, b + 1,
+                                       ps, kv, d, device)
+        tail = (torch.arange(1, b + 1, dtype=torch.int32, device=device),)
+        kw, name = dict(kv_bits=bits), f"paged_attention_quant kv{bits}"
+        run = ops.paged_attention_decode_quant
+        plain = ref.paged_attention_decode_quant_ref
+    rows = []
+    for window in (4100, 4096):
+        starts = torch.clamp(kv_lens - window, min=0)
+        args = (q, *pools, bt, kv_lens, *tail)
+        kw_w = dict(kw, kv_start=starts, softcap=softcap)
+        out = run(*args, **kw_w)
+        out_ref = plain(*args, **kw_w)
+        torch.cuda.synchronize()
+        err = (out.float() - out_ref.float()).abs().max().item()
+        if not err <= 2e-2:
+            fail(f"{name} window {window}: max err {err} > 2e-2")
+        if out[0].abs().max().item() != 0.0:
+            fail(f"{name} window {window}: the zero-length row is not 0")
+        for i, n in enumerate(lens):
+            w = max(1, -(-n // ps))
+            alone = run(q[i:i + 1].contiguous(), *pools,
+                        bt[i:i + 1, :w].contiguous(),
+                        kv_lens[i:i + 1].contiguous(),
+                        *(t[i:i + 1].contiguous() for t in tail),
+                        **dict(kw, kv_start=starts[i:i + 1].contiguous(),
+                               softcap=softcap))
+            if not torch.equal(alone[0], out[i]):
+                fail(f"{name} window {window}: the row of {n} keys differs "
+                     "alone and in the batch")
+    # timed at gemma2's window
+    ms, ms_mean = timer.stats(lambda: run(*args, **kw_w))
+    plain_ms = timer(lambda: plain(*args, **kw_w), reps=3)
+    s = max(lens)
+    if bits == 16:
+        kg = pools[0][bt.long()].reshape(b, -1, kv, d)[:, :s]
+        vg = pools[1][bt.long()].reshape(b, -1, kv, d)[:, :s]
+    else:
+        n_full = kv_lens // ps
+        kg = ref.quant_gather(pools[0], pools[1], pools[4], bt, n_full,
+                              tail[0], bits)[:, :s]
+        vg = ref.quant_gather(pools[2], pools[3], pools[5], bt, n_full,
+                              tail[0], bits)[:, :s]
+    kg, vg = kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
+    kpos = torch.arange(s, device=device)[None, :]
+    mask = ((kpos < kv_lens[:, None]) & (kpos >= starts[:, None]))[
+        :, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib, lib_mean = timer.stats(lambda: sdpa(
+        q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
+    del kg, vg
+    visible = [n - int(st) for n, st in zip(lens, starts.tolist())]
+    nbytes = q.numel() * 2 * 2 + b * 4 * 3
+    for n, st in zip(lens, starts.tolist()):
+        pages = -(-n // ps) - st // ps if n else 0
+        nbytes += pages * 4
+        if bits == 16:
+            nbytes += 2 * kv * (n - st) * d * 2
+        else:
+            committed = max(0, (n // ps) * ps - st)
+            dc = spec.codes_tail[-1]
+            sb = 4 if bits == 8 else 2
+            groups = -(-committed // spec.tokens_per_block)
+            nbytes += 2 * kv * (committed * dc + groups * spec.n_levels * sb
+                                + (n - st - committed) * d * 2)
+    b_ms, b_by = bound(nbytes, 4.0 * sum(visible) * h * d, "bfloat16")
+    row = dict(bits=bits, window=True, shape=f"window 4096 B={b} "
+               f"H={h} KV={kv} d={d} ps={ps} softcap 50 bf16 kv_lens={lens}",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib,
+               bound_ms=b_ms, bound_by=b_by)
+    rows.append(row)
+    log(f"  {name} {row['shape']}: err {err:.3g} kernel {ms:.4f} ms median "
+        f"of 20 (mean {ms_mean:.4f}) | plain {plain_ms:.4f} | library (SDPA "
+        f"with the window's mask, pre-gathered) {lib:.4f} median (mean "
+        f"{lib_mean:.4f}) | bound {b_ms:.4f} ({b_by}), "
+        f"{100 * b_ms / ms:.1f} % of it reached; windows 4100 and 4096 "
+        "checked, rows bit-identical alone")
+    del pools
     return rows
 
 
@@ -476,9 +699,11 @@ def phase_paged_attention_quant(torch, timer, device):
         packed_prefill_case(torch, timer, device, gen, ops, ref, bits,
                             (kc, ks, vc, vs, kh, vh), bt, ps)
         del args, kc, ks, vc, vs, kh, vh
+    for bits in (8, 4):
+        rows += window_cases(torch, timer, device, gen, bits)
     log(f"[paged_attention_quant] {len(rows)} cases agree with the plain "
         "version (tol 2e-2 abs; zero-length rows exactly 0; every row "
-        "bit-identical alone and in the batch)")
+        "bit-identical alone and in the batch, with and without a window)")
     return rows
 
 
@@ -567,6 +792,9 @@ def phase_flash_attention(torch, timer, device):
         ("3 segments + pads B=2 S=1024", 2, 16, 8, 1024, 128, bf16, True, 0,
          0.0, True),
         ("f32 d=16 B=2 S=300", 2, 4, 2, 300, 16, f32, True, 0, 0.0, False),
+        # gemma2-2b's static prefill: head_dim 256, window 4096, softcap 50
+        ("gemma2 window 4096 softcap 50 B=2 S=4608", 2, 8, 4, 4608, 256,
+         bf16, True, 4096, 50.0, False),
     ]
     rows = []
     for name, b, h, kv, s, d, dt, causal, window, softcap, seg in cases:
@@ -736,13 +964,15 @@ SERVE_ENGINE = dict(max_batch=8, page_size=16, num_pages=1024,
                     prefill_chunk=128, max_seq=1024)
 
 
-def serve_prompts(cfg):
+def serve_prompts(cfg, last=256):
     """Phase 7's 8 prompts (seed 0): 64-384 tokens, the first two sharing
     a 256-token prefix. Two end mid-page (300 and 200 tokens, pages of 16),
-    so the direct runs' packed-prefill waves also cut prompts mid-page."""
+    so the direct runs' packed-prefill waves also cut prompts mid-page.
+    ``last`` sets the last prompt's length (phase 13: one past gemma2's
+    4096-token window)."""
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size, 256)
-    lens = [320, 300, 64, 384, 128, 200, 96, 256]
+    lens = [320, 300, 64, 384, 128, 200, 96, last]
     prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
                                                     n - 256)])
                for n in lens[:2]]
@@ -810,6 +1040,7 @@ def _wrappers():
     from repro_torch.kernels.msb_matmul import ops as mm_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     return {"msb_matmul": mm_ops.msb_matmul,
+            "msb_matmul_experts": mm_ops.msb_matmul_experts,
             "paged_attention_decode": pa_ops.paged_attention_decode,
             "paged_attention_decode_quant":
                 pa_ops.paged_attention_decode_quant,
@@ -1244,11 +1475,24 @@ def _tensors(leaf):
 
 
 def phase_paths(torch):
+    paths_check(torch, "internlm2-1.8b", (16, 8, 4))
+    log("[paths] smoke internlm2 on the kernel path (cuda) and the plain "
+        "path (cpu) at kv_bits 16, 8 and 4 and through the static engine: "
+        "greedy tokens agree")
+
+
+def paths_check(torch, arch, bits_list, **repl):
+    """``arch``'s smoke config (fp32; ``repl`` replaces config fields)
+    served on the card and on the CPU from the same quantized weights, by
+    ContinuousEngine at each of ``bits_list`` and by ServeEngine (generate
+    and score): greedy tokens agree up to near ties, score within 1e-4
+    relative."""
+    import dataclasses
     from repro_torch.configs import smoke_config
     from repro_torch.core import QuantPolicy, quantize_params
     from repro_torch.models import Model
     from repro_torch.serve import ContinuousEngine
-    cfg = smoke_config("internlm2-1.8b")
+    cfg = dataclasses.replace(smoke_config(arch), **repl)
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     qparams, _ = quantize_params(params, QuantPolicy(min_size=1024),
@@ -1258,7 +1502,7 @@ def phase_paths(torch):
                for n in (5, 9, 17, 30)]
     from repro_torch.core import pack_params
     packed_cpu, _ = pack_params(qparams, device="cpu")
-    for bits in (16, 8, 4):
+    for bits in bits_list:
         outs = {}
         for dev in ("cuda", "cpu"):
             eng = ContinuousEngine(model, qparams, max_batch=4, page_size=4,
@@ -1268,7 +1512,7 @@ def phase_paths(torch):
                 eng.submit(p, 16)
             outs[dev] = eng.run()
             eng.close()
-        compare_tokens(torch, f"kv{bits} cuda vs cpu", outs["cuda"],
+        compare_tokens(torch, f"{arch} kv{bits} cuda vs cpu", outs["cuda"],
                        outs["cpu"], prompts, model, packed_cpu, "cpu")
     from repro_torch.serve import ServeEngine
     static = rng.integers(0, cfg.vocab_size, (4, 19)).astype(np.int32)
@@ -1278,16 +1522,14 @@ def phase_paths(torch):
         toks = eng.generate(static, 16)
         outs[dev] = {i: toks[i] for i in range(len(static))}
         nll[dev] = eng.score(np.concatenate([static, toks], axis=1))
-    compare_tokens(torch, "static cuda vs cpu", outs["cuda"], outs["cpu"],
-                   list(static), model, packed_cpu, "cpu")
+    compare_tokens(torch, f"{arch} static cuda vs cpu", outs["cuda"],
+                   outs["cpu"], list(static), model, packed_cpu, "cpu")
     rel = abs(nll["cuda"] - nll["cpu"]) / abs(nll["cpu"])
-    log(f"  static score cuda {nll['cuda']:.7f} vs cpu {nll['cpu']:.7f} "
-        f"(rel {rel:.3g}, tol 1e-4: f32 sums in another order)")
+    log(f"  {arch} static score cuda {nll['cuda']:.7f} vs cpu "
+        f"{nll['cpu']:.7f} (rel {rel:.3g}, tol 1e-4: f32 sums in another "
+        "order)")
     if not rel <= 1e-4:
-        fail(f"static score differs between cuda and cpu: rel {rel}")
-    log("[paths] smoke internlm2 on the kernel path (cuda) and the plain "
-        "path (cpu) at kv_bits 16, 8 and 4 and through the static engine: "
-        "greedy tokens agree")
+        fail(f"{arch}: static score differs between cuda and cpu: rel {rel}")
 
 
 def http_call(host, port, method, path, payload=None, timeout=600):
@@ -1817,6 +2059,259 @@ def phase_quantizer(torch, device):
         "equal to DP, per-tensor WDP < RTN at 6 bits")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the model families at full width
+# ---------------------------------------------------------------------------
+
+# the continuous engine of phase 13: phase 7's, its block tables wide
+# enough for a request past gemma2's 4096-token window
+FAMILY_ENGINE = dict(SERVE_ENGINE, max_seq=4736)
+LONG_PROMPT = 4500           # one of phase 13's gemma2 requests
+STATIC_PROMPT = 4608         # gemma2's static prefill: D with the window
+
+
+def build_full(torch, arch):
+    """``arch`` at full width with random weights from seed 0 on the
+    card, 4-bit block-64 DP quantized on the card and packed; the f32
+    weights are freed. Returns (model, packed params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy, pack_params, quantize_params
+    from repro_torch.models import Model
+    cfg = get_config(arch)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, report = quantize_params(
+        params, QuantPolicy(bits=4, block=64, solver="dp"))
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    del params
+    packed, _ = pack_params(qparams)
+    del qparams
+    torch.cuda.synchronize()
+    pbytes = sum(t.numel() * t.element_size() for _, leaf in _leaves(packed)
+                 for t in _tensors(leaf))
+    log(f"  {arch} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim "
+        f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}"
+        + (f", {cfg.n_experts} experts padded to {cfg.n_experts_padded}, "
+           f"top-{cfg.n_experts_active}" if cfg.n_experts else "")
+        + f"): init {t_init:.2f} s, DP quantize of {len(report)} tensors on "
+        f"the card {t_quant:.2f} s, packed params {pbytes / 1e9:.3f} GB")
+    return model, packed
+
+
+def family_static(torch, model, packed, b, p, n):
+    """ServeEngine on ``b`` random prompts of ``p`` tokens: ``n`` greedy
+    tokens, then ``score`` of prompts and tokens, launch counters zeroed
+    before each. Returns the generate's counts."""
+    from repro_torch.serve import ServeEngine
+    cfg = model.cfg
+    prompts = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (b, p)).astype(np.int32)
+    eng = ServeEngine(model, packed, max_seq=p + n)
+    eng.generate(prompts[:, :16], 2)           # lazy set-up, untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counters()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launch_counters()
+    peak = torch.cuda.max_memory_allocated()
+    if toks.shape != (b, n) or not ((toks >= 0) & (toks < cfg.vocab_size)
+                                    ).all():
+        fail(f"{cfg.name} static: tokens of shape {toks.shape} or out of "
+             "range")
+    if not (counts["flash_attention_fwd"] > 0 and counts["msb_matmul"] > 0
+            and (counts["msb_matmul_experts"] > 0) == bool(cfg.n_experts)):
+        fail(f"{cfg.name} static: a kernel of the path never launched: "
+             f"{counts}")
+    zero_launch_counters()
+    t0 = time.perf_counter()
+    nll = eng.score(np.concatenate([prompts, toks[:, :1]], axis=1))
+    torch.cuda.synchronize()
+    t_score = time.perf_counter() - t0
+    score_counts = read_launch_counters()
+    if not (np.isfinite(nll) and score_counts["flash_attention_fwd"] > 0):
+        fail(f"{cfg.name} static: score {nll}, launches {score_counts}")
+    log(f"  {cfg.name} ServeEngine B={b} P={p}: generate {n} tokens "
+        f"{wall:.3f} s wall, peak device memory {peak / 1e9:.3f} GB, "
+        f"launches {counts}; score of ({b}, {p + 1}) NLL {nll:.6f} in "
+        f"{t_score:.3f} s, launches {score_counts}")
+    del eng
+    return counts
+
+
+def serve_family(torch, device, model, packed, prompts, bits_list,
+                 path_kernels, max_new=32):
+    """Phase 7's checks for one family at each kv_bits: graph replay
+    bitwise against eager, H=8 and H=1 engines warmed (no capture after),
+    counters zeroed before the H=8 run, tokens H=8 against H=1 (near ties
+    only). ``path_kernels`` must launch, and kernel B (kv16) or C (kv8,
+    kv4) with them. Returns {kv_bits: H=8 launch counts}."""
+    counts = {}
+    for bits in bits_list:
+        attention = ("paged_attention_decode" if bits == 16
+                     else "paged_attention_decode_quant")
+        results, counts[bits], kv_bytes, _ = serve_horizons(
+            model, packed, prompts, FAMILY_ENGINE, max_new, bits,
+            path_kernels + (attention,))
+        log(f"  {model.cfg.name} kv{bits} pools: {kv_bytes / 1e9:.3f} GB")
+        compare_tokens(torch, f"{model.cfg.name} kv{bits} H=8 vs H=1",
+                       results[8], results[1], prompts, model, packed, device)
+    return counts
+
+
+def phase_families(torch, device):
+    """Phase 13: the model families the paged engine serves, at full
+    width with random weights (seed 0), each quantized (4b/64 DP) and
+    packed on the card and freed before the next:
+    * gemma2-2b (26 layers, head_dim 256, window 4096 on its 13 even
+      layers, softcaps 50 and 30, post-norm, tied 256000-row table):
+      ContinuousEngine at kv16 and kv4 with phase 7's prompts but the last
+      4500 tokens long, so the window binds in B, C and the packed
+      prefill; decode-step profiles at kv16 and kv4; ServeEngine on 2
+      prompts of 4608 tokens (D with the window), then score;
+    * granite-moe-3b-a800m (32 layers, 40 experts padded to 48, top-8):
+      ContinuousEngine at kv16 (the expert batch of kernel A on every MoE
+      layer), its decode-step profile, ServeEngine generate and score;
+    then the smoke configs of gemma2 (window 6, binding), granite-moe,
+    qwen1.5-0.5b (qkv bias) and arctic-480b (MoE beside a dense MLP)
+    served on the card and on the CPU from the same weights. Returns the
+    launch counts the kernel line reads."""
+    from repro_torch.serve import ContinuousEngine
+    out = {}
+    t0 = time.perf_counter()
+    model, packed = build_full(torch, "gemma2-2b")
+    prompts = serve_prompts(model.cfg, last=LONG_PROMPT)
+    out["gemma2"] = serve_family(torch, device, model, packed, prompts,
+                                 (16, 4), ("msb_matmul",))
+    short = serve_prompts(model.cfg)
+    for bits in (16, 4):
+        log(f"  gemma2-2b kv{bits}:")
+        profile_decode(torch, ContinuousEngine(model, packed, kv_bits=bits,
+                                               **FAMILY_ENGINE), short, 32)
+    out["gemma2_static"] = family_static(torch, model, packed, 2,
+                                         STATIC_PROMPT, 8)
+    log(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.3f} GB in "
+        f"use, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del model, packed
+    torch.cuda.empty_cache()
+    log(f"  gemma2-2b done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    model, packed = build_full(torch, "granite-moe-3b-a800m")
+    prompts = serve_prompts(model.cfg)
+    # 33 new tokens: 32 decoded, whole horizons of 8, so no row finishes
+    # mid-horizon. A finished row's no-op iterations write the scratch
+    # page, which an MoE wave's pads read (ROADMAP §3): H=8 and H=1 would
+    # then see other scratch bytes in a later wave
+    out["moe"] = serve_family(torch, device, model, packed, prompts, (16,),
+                              ("msb_matmul", "msb_matmul_experts"),
+                              max_new=33)
+    log("  granite-moe-3b-a800m kv16:")
+    profile_decode(torch, ContinuousEngine(model, packed, **FAMILY_ENGINE),
+                   prompts, 32)
+    out["moe_static"] = family_static(torch, model, packed, 8, 512, 32)
+    log(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.3f} GB in "
+        f"use, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del model, packed
+    torch.cuda.empty_cache()
+    log(f"  granite-moe-3b-a800m done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths_check(torch, "gemma2-2b", (16, 4), sliding_window=6)
+    paths_check(torch, "granite-moe-3b-a800m", (16,))
+    # kv4 MoE with a capacity no expert can overflow: its pads read the
+    # scratch page, which the quantized commit writes through duplicate
+    # indices in another order on the card than on the CPU (ROADMAP §3)
+    paths_check(torch, "granite-moe-3b-a800m", (4,), capacity_factor=8.0)
+    paths_check(torch, "qwen1.5-0.5b", (16, 4))
+    paths_check(torch, "arctic-480b", (16,))
+    log(f"  smoke configs on card and CPU in {time.perf_counter() - t0:.1f}"
+        " s")
+    log("[families] ok: gemma2-2b (kv16, kv4; window binding) and "
+        "granite-moe-3b-a800m (kv16) served at full width, warmed, replay "
+        "bitwise against eager, no capture after warm-up, H=8 tokens against"
+        " H=1; static generate and score; smoke gemma2, granite-moe, qwen "
+        "and arctic agree between card and CPU")
+    return out
+
+
+def kernel_line(mm_rows, pa_rows, paq_rows, fa_rows, counts, q_counts,
+                s_counts, f_counts):
+    """The kernel table as the JSON line's rows: each kernel at its main
+    path's representative shape (A at decode and at M=4096, and its expert
+    batch at granite-moe's decode; B and C at the decode shape and, with
+    gemma2's window, at d=256; D at the static prefill and at gemma2's
+    d=256 windowed prefill), with the launches of the run that serves it
+    (counters zeroed just before it)."""
+    src = "src/repro_torch/csrc/"
+    mm_src, pa_src = src + "msb_matmul.cu", src + "paged_attention.cu"
+    a_tpu = "src/repro/kernels/msb_matmul/msb_matmul.py:117"
+    b_tpu = "src/repro/kernels/paged_attention/paged_attention.py:198"
+    c_tpu = "src/repro/kernels/paged_attention/paged_attention.py:142"
+    d_tpu = "src/repro/kernels/flash_attention/flash_attention.py:92"
+
+    def row(name, source, replaces, launches, r, err):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches, max_abs_err=err,
+                    ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"], shape=r["shape"])
+
+    def mm_row(m, k, n, experts=False):
+        return next(r for r in mm_rows if (r["m"], r["k"], r["n"]) ==
+                    (m, k, n) and r.get("experts", False) == experts)
+
+    mm_err = max(r["max_abs_err"] for r in mm_rows)
+    plain_pa = [r for r in pa_rows if not r.get("window")]
+    pa_w = next(r for r in pa_rows if r.get("window"))
+    pa_err = max(r["max_abs_err"] for r in pa_rows)
+    gem, moe = f_counts["gemma2"], f_counts["moe"]
+    fa_w = next(r for r in fa_rows if r["shape"].startswith("gemma2"))
+    fa_err = max(r["max_abs_err"] for r in fa_rows)
+    rows = [
+        row("msb_matmul", mm_src, a_tpu, counts["msb_matmul"],
+            mm_row(8, 2048, 8192), mm_err),
+        row("msb_matmul_m4096", mm_src, a_tpu, s_counts["msb_matmul"],
+            mm_row(4096, 2048, 8192), mm_err),
+        row("msb_matmul_experts", mm_src, a_tpu,
+            moe[16]["msb_matmul_experts"], mm_row(8, 1536, 512, True),
+            mm_err),
+        row("paged_attention_decode", pa_src, b_tpu,
+            counts["paged_attention_decode"], plain_pa[-1], pa_err),
+        row("paged_attention_decode_window", pa_src, b_tpu,
+            gem[16]["paged_attention_decode"], pa_w, pa_err),
+    ]
+    for r in paq_rows:
+        if r.get("window"):
+            if r["bits"] == 4:
+                rows.append(row("paged_attention_decode_quant_kv4_window",
+                                pa_src, c_tpu,
+                                gem[4]["paged_attention_decode_quant"], r,
+                                r["max_abs_err"]))
+            continue
+        rows.append(row(f"paged_attention_decode_quant_kv{r['bits']}",
+                        pa_src, c_tpu,
+                        q_counts[r["bits"]]["paged_attention_decode_quant"],
+                        r, r["max_abs_err"]))
+    rows += [
+        row("flash_attention_fwd", src + "flash_attention.cu", d_tpu,
+            s_counts["flash_attention_fwd"], fa_rows[0], fa_err),
+        row("flash_attention_fwd_d256_window", src + "flash_attention.cu",
+            d_tpu, f_counts["gemma2_static"]["flash_attention_fwd"], fa_w,
+            fa_err),
+    ]
+    for r in rows:
+        if not r["launches"] > 0:
+            fail(f"{r['name']}: no launch on its path")
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1842,58 +2337,9 @@ def main():
     phase_front_door(torch, ctx)
     del ctx
     phase_quantizer(torch, device)
-    # representative rows: the decode shapes of the main path, and A also
-    # at the static prefill's M=4096
-    def mm_row(m, k, n):
-        return next(r for r in mm_rows if (r["m"], r["k"], r["n"]) ==
-                    (m, k, n))
-    pa = pa_rows[-1]
-    fa = fa_rows[0]             # the static path's prefill shape
-    kernels = [
-        dict(name=name, route="cuda",
-             source="src/repro_torch/csrc/msb_matmul.cu",
-             replaces="src/repro/kernels/msb_matmul/msb_matmul.py:117",
-             launches=launches,
-             max_abs_err=max(r["max_abs_err"] for r in mm_rows),
-             ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
-             bound_by=mm["bound_by"], library_ms=mm["library_ms"],
-             shape=mm["shape"])
-        for name, launches, mm in (
-            ("msb_matmul", counts["msb_matmul"], mm_row(8, 2048, 8192)),
-            ("msb_matmul_m4096", s_counts["msb_matmul"],
-             mm_row(4096, 2048, 8192)))
-    ] + [
-        dict(name="paged_attention_decode", route="cuda",
-             source="src/repro_torch/csrc/paged_attention.cu",
-             replaces="src/repro/kernels/paged_attention/"
-                      "paged_attention.py:198",
-             launches=counts["paged_attention_decode"],
-             max_abs_err=max(r["max_abs_err"] for r in pa_rows),
-             ms=pa["ms"], plain_ms=pa["plain_ms"], bound_ms=pa["bound_ms"],
-             bound_by=pa["bound_by"], library_ms=pa["library_ms"],
-             shape=pa["shape"]),
-    ] + [
-        dict(name=f"paged_attention_decode_quant_kv{paq['bits']}",
-             route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
-             replaces="src/repro/kernels/paged_attention/"
-                      "paged_attention.py:142",
-             launches=q_counts[paq["bits"]]["paged_attention_decode_quant"],
-             max_abs_err=paq["max_abs_err"], ms=paq["ms"],
-             plain_ms=paq["plain_ms"], bound_ms=paq["bound_ms"],
-             bound_by=paq["bound_by"], library_ms=paq["library_ms"],
-             shape=paq["shape"])
-        for paq in paq_rows
-    ] + [
-        dict(name="flash_attention_fwd", route="cuda",
-             source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention/"
-                      "flash_attention.py:92",
-             launches=s_counts["flash_attention_fwd"],
-             max_abs_err=max(r["max_abs_err"] for r in fa_rows),
-             ms=fa["ms"], plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
-             bound_by=fa["bound_by"], library_ms=fa["library_ms"],
-             shape=fa["shape"]),
-    ]
+    f_counts = phase_families(torch, device)
+    kernels = kernel_line(mm_rows, pa_rows, paq_rows, fa_rows, counts,
+                          q_counts, s_counts, f_counts)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -48,6 +48,15 @@
 // Both orders are the same f32 additions, so a row's bits depend on (K, N)
 // and the row alone, whatever M and the tile.
 //
+// Expert batch (msb_matmul_experts, the MoE FFN): E independent products
+// x[e] (M, K) @ dequant(W[e]) (K, N) in one launch, the experts stacked on
+// the grid's z axis beside the K splits. Each expert's blocks run the tile
+// code above on that expert's slices unchanged, so its rows are bit for
+// bit those of msb_matmul on the expert alone. An expert whose routed-token
+// count counts[e] (int32 on the device) is 0 reads no weight and writes
+// zeros: the reference's lax.cond zero branch, with no host sync, so a
+// CUDA graph can capture it.
+//
 // f32 x (the k-blocked unembedding): SIMT f32 FMA (TF32 would miss the
 // 1e-5 tolerance): each 256-thread block owns a BM x 64 tile and one K
 // split, stages the packed bytes and a 64 x 8 f32 codebook table a step,
@@ -64,6 +73,36 @@ typedef __nv_bfloat16 bf16;
 constexpr int BK = 64;       // K step == MSB block
 constexpr int LEVELS = 8;
 
+// Expert e of a batch (blockIdx.z = e * zs + split): moves the operands'
+// pointers to its slices and returns the split index within the expert.
+// counts == nullptr: one product, e = 0. (Templated on the pointer types
+// so that __restrict__ parameters bind as they are.)
+template <typename X, typename PK, typename SC, typename O, typename PA>
+__device__ __forceinline__ int expert_slice(X& x, PK& packed, SC& scales, O& out,
+                                            PA& partial, int zs, int M, int K, int N,
+                                            int& e) {
+  e = blockIdx.z / zs;
+  if (e > 0) {
+    x += (size_t)e * M * K;
+    packed += (size_t)e * K * (N / 2);
+    scales += (size_t)e * K * (N / 8);   // K * N/64 * 8 == K/64 * N * 8
+    out += (size_t)e * M * N;
+    if (partial != nullptr) partial += (size_t)e * zs * M * N;
+  }
+  return blockIdx.z - e * zs;
+}
+
+// Zeros the block's BM x BN tile of out (an expert with no routed token).
+template <int BM, int BN, typename O>
+__device__ __forceinline__ void zero_tile(O* out, int m0, int n0, int M, int N) {
+  for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
+    const int m = m0 + i / BN, n = n0 + i % BN;
+    if (m >= M || n >= N) continue;
+    if constexpr (sizeof(O) == 4) out[(size_t)m * N + n] = 0.f;
+    else out[(size_t)m * N + n] = __float2bfloat16(0.f);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // f32 x: SIMT kernel
 // ---------------------------------------------------------------------------
@@ -71,14 +110,16 @@ constexpr int LEVELS = 8;
 constexpr int SIMT_BN = 64;
 constexpr int SIMT_THREADS = 256;
 
-// grid: (N / 64, ceil(M / BM), splits). partial == nullptr: write y (+bias)
-// to out; else write the split's f32 sum to partial[split, m, n].
+// grid: (N / 64, ceil(M / BM), E * splits), zs = splits (expert_slice).
+// partial == nullptr: write y (+bias) to out; else write the split's f32
+// sum to partial[split, m, n] of the expert's slice.
 template <int BM, bool KBLOCKED>
 __global__ void __launch_bounds__(SIMT_THREADS)
 msb_matmul_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
                       const float* __restrict__ scales, const float* __restrict__ bias,
                       float* __restrict__ out, float* __restrict__ partial,
-                      int M, int K, int N, int k_per_split) {
+                      const int* __restrict__ counts, int zs, int M, int K, int N,
+                      int k_per_split) {
   __shared__ float xs[BM][BK];
   __shared__ float ws[BK][SIMT_BN];
   __shared__ float cb[BK][LEVELS];
@@ -87,7 +128,13 @@ msb_matmul_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p
   constexpr int RPT = BM / (SIMT_THREADS / SIMT_BN);   // output rows per thread
   const int n0 = blockIdx.x * SIMT_BN;
   const int m0 = blockIdx.y * BM;
-  const int k_begin = blockIdx.z * k_per_split;
+  int e;
+  const int z = expert_slice(x, packed, scales, out, partial, zs, M, K, N, e);
+  if (counts != nullptr && counts[e] == 0) {   // the reduce zeros split sums
+    if (partial == nullptr) zero_tile<BM, SIMT_BN>(out, m0, n0, M, N);
+    return;
+  }
+  const int k_begin = z * k_per_split;
   const int k_end = k_begin + k_per_split;
   const int tid = threadIdx.x;
   const int col = tid % SIMT_BN;
@@ -141,7 +188,7 @@ msb_matmul_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p
     if (m >= M) continue;
     const int n = n0 + col;
     if (partial != nullptr) {
-      partial[((size_t)blockIdx.z * M + m) * N + n] = acc[i];
+      partial[((size_t)z * M + m) * N + n] = acc[i];
     } else {
       const float b = bias != nullptr ? bias[n] : 0.f;
       out[(size_t)m * N + n] = acc[i] + b;
@@ -149,43 +196,49 @@ msb_matmul_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p
   }
 }
 
-// out[m, n] = sum over splits in ascending order from 0 (+ bias), cast to T.
+// out[e, m, n] = sum over expert e's splits in ascending order from 0 (+
+// bias), cast to T; 0 where counts[e] == 0. partial is (E, splits, M, N).
 template <typename T>
 __global__ void split_reduce_kernel(const float* __restrict__ partial,
                                     const float* __restrict__ bias,
-                                    T* __restrict__ out, int M, int N, int splits) {
-  const size_t total = (size_t)M * N;
+                                    const int* __restrict__ counts,
+                                    T* __restrict__ out, int E, int M, int N, int splits) {
+  const size_t mn = (size_t)M * N, total = (size_t)E * mn;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
+    const size_t e = i / mn, r = i - e * mn;
     float v = 0.f;
-    for (int s = 0; s < splits; ++s) v += partial[(size_t)s * total + i];
-    if (bias != nullptr) v += bias[i % N];
+    if (counts == nullptr || counts[e] != 0) {
+      for (int s = 0; s < splits; ++s) v += partial[(e * splits + s) * mn + r];
+      if (bias != nullptr) v += bias[r % N];
+    }
     if constexpr (sizeof(T) == 4) out[i] = v;
     else out[i] = __float2bfloat16(v);
   }
 }
 
 template <typename T>
-void launch_reduce(const float* partial, const float* bias, T* out, int M, int N,
-                   int splits, cudaStream_t stream) {
-  const size_t total = (size_t)M * N;
+void launch_reduce(const float* partial, const float* bias, const int* counts, T* out,
+                   int E, int M, int N, int splits, cudaStream_t stream) {
+  const size_t total = (size_t)E * M * N;
   int blocks = (int)((total + 255) / 256);
   if (blocks > 4096) blocks = 4096;
-  split_reduce_kernel<T><<<blocks, 256, 0, stream>>>(partial, bias, out, M, N, splits);
+  split_reduce_kernel<T><<<blocks, 256, 0, stream>>>(partial, bias, counts, out, E, M, N,
+                                                     splits);
 }
 
 template <int BM, bool KB>
 int launch_f32(const float* x, const uint8_t* packed, const float* scales,
-               const float* bias, float* out, float* partial, int M, int K, int N,
-               int splits, cudaStream_t stream) {
-  dim3 grid(N / SIMT_BN, (M + BM - 1) / BM, splits);
+               const float* bias, const int* counts, float* out, float* partial, int E,
+               int M, int K, int N, int splits, cudaStream_t stream) {
+  dim3 grid(N / SIMT_BN, (M + BM - 1) / BM, E * splits);
   float* part = splits > 1 ? partial : nullptr;
   msb_matmul_f32_kernel<BM, KB><<<grid, SIMT_THREADS, 0, stream>>>(
-      x, packed, scales, bias, out, part, M, K, N, K / splits);
+      x, packed, scales, bias, out, part, counts, splits, M, K, N, K / splits);
   if (splits > 1) {
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    launch_reduce<float>(part, bias, out, M, N, splits, stream);
+    launch_reduce<float>(part, bias, counts, out, E, M, N, splits, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -317,7 +370,8 @@ __device__ __forceinline__ uint32_t weight_bits(const float* c, uint32_t nib) {
   return (uint32_t)(*reinterpret_cast<const unsigned short*>(&v)) ^ ((nib & 8u) << 12);
 }
 
-// grid: (ceil(N / BN), ceil(M / BM), splits on separate blocks or 1).
+// grid: (ceil(N / BN), ceil(M / BM), E * (splits on separate blocks or
+// 1)), zs the second factor (expert_slice), per expert:
 // partial != nullptr: block z sums split z alone and writes it to
 // partial[z, m, n]. Else the block walks all of K, adds each split's sum to
 // its running total at the split's end, and writes bf16(total + bias).
@@ -325,13 +379,20 @@ template <class TL, bool KBLOCKED>
 __global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS)
 msb_matmul_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
                      const float* __restrict__ scales, const float* __restrict__ bias,
-                     bf16* __restrict__ out, float* __restrict__ partial, int M, int K,
-                     int N, int k_per_split) {
+                     bf16* __restrict__ out, float* __restrict__ partial,
+                     const int* __restrict__ counts, int zs, int M, int K, int N,
+                     int k_per_split) {
   constexpr int BM = TL::BM, BN = TL::BN, MT = TL::MT, NT = TL::NT;
   constexpr int LDX = TL::LDX, LDW = TL::LDW, STAGES = TL::STAGES;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int k_begin = blockIdx.z * k_per_split;
+  int e;
+  const int z = expert_slice(x, packed, scales, out, partial, zs, M, K, N, e);
+  if (counts != nullptr && counts[e] == 0) {   // the reduce zeros split sums
+    if (partial == nullptr) zero_tile<BM, BN>(out, m0, n0, M, N);
+    return;
+  }
+  const int k_begin = z * k_per_split;
   const int n_steps = ((partial != nullptr) ? k_per_split : K) / BK;
   const int split_steps = k_per_split / BK;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -504,7 +565,7 @@ msb_matmul_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
         if (m >= M) continue;
         float v0 = total[mt][nt][2 * hh], v1 = total[mt][nt][2 * hh + 1];
         if (partial != nullptr) {
-          *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.z * M + m) * N + n) =
+          *reinterpret_cast<float2*>(partial + ((size_t)z * M + m) * N + n) =
               make_float2(v0, v1);
           continue;
         }
@@ -519,50 +580,43 @@ msb_matmul_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
 
 template <class TL, bool KB>
 int launch_tc(const bf16* x, const uint8_t* packed, const float* scales, const float* bias,
-              bf16* out, float* partial, int M, int K, int N, int splits, int grid_splits,
-              cudaStream_t stream) {
+              const int* counts, bf16* out, float* partial, int E, int M, int K, int N,
+              int splits, int grid_splits, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(msb_matmul_tc_kernel<TL, KB>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM, grid_splits);
+  dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM, E * grid_splits);
   float* part = grid_splits > 1 ? partial : nullptr;
   msb_matmul_tc_kernel<TL, KB><<<grid, TL::THREADS, TL::SMEM, stream>>>(
-      x, packed, scales, bias, out, part, M, K, N, K / splits);
+      x, packed, scales, bias, out, part, counts, grid_splits, M, K, N, K / splits);
   e = cudaGetLastError();
   if (e != cudaSuccess || grid_splits == 1) return (int)e;
-  launch_reduce<bf16>(part, bias, out, M, N, grid_splits, stream);
+  launch_reduce<bf16>(part, bias, counts, out, E, M, N, grid_splits, stream);
   return (int)cudaGetLastError();
 }
 
 template <class TL>
 int launch_tc_kb(const void* x, const void* packed, const void* scales, const void* bias,
-                 void* out, void* partial, int M, int K, int N, int splits,
-                 int grid_splits, int kblocked, cudaStream_t s) {
+                 const int* counts, void* out, void* partial, int E, int M, int K, int N,
+                 int splits, int grid_splits, int kblocked, cudaStream_t s) {
   auto* xx = static_cast<const bf16*>(x);
   auto* pk = static_cast<const uint8_t*>(packed);
   auto* sc = static_cast<const float*>(scales);
   auto* bs = static_cast<const float*>(bias);
   auto* o = static_cast<bf16*>(out);
   auto* p = static_cast<float*>(partial);
-  return kblocked ? launch_tc<TL, true>(xx, pk, sc, bs, o, p, M, K, N, splits, grid_splits, s)
-                  : launch_tc<TL, false>(xx, pk, sc, bs, o, p, M, K, N, splits, grid_splits, s);
+  return kblocked ? launch_tc<TL, true>(xx, pk, sc, bs, counts, o, p, E, M, K, N, splits,
+                                        grid_splits, s)
+                  : launch_tc<TL, false>(xx, pk, sc, bs, counts, o, p, E, M, K, N, splits,
+                                         grid_splits, s);
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes). The caller (ops.plan) has chosen
-// the tile bm and where the K splits run, checked shapes, types,
-// contiguity and 16-byte alignment, and allocated out (M, N) and, when
-// grid_splits > 1 (or, for f32, splits > 1), the f32 workspace partial
-// (splits, M, N). bf16: bm is 16 (grid_splits == splits) or 128
-// (grid_splits == 1); f32: bm is 8 or 32 and the splits always run on
-// separate blocks. Requires K % (64 * splits) == 0 and N % 64 == 0; returns
-// cudaErrorInvalidValue otherwise, else cudaGetLastError().
-extern "C" int msb_matmul(const void* x, const void* packed, const void* scales,
-                          const void* bias, void* out, void* partial, int M,
-                          int K, int N, int splits, int grid_splits, int bm,
-                          int kblocked, int x_is_bf16, void* stream) {
-  if (splits < 1 || K % (BK * splits) || N % 64 || M < 0)
+// Both entry points: E products (E = 1 and counts == nullptr for one).
+int run(const void* x, const void* packed, const void* scales, const void* bias,
+        const int* counts, void* out, void* partial, int E, int M, int K, int N, int splits,
+        int grid_splits, int bm, int kblocked, int x_is_bf16, void* stream) {
+  if (splits < 1 || K % (BK * splits) || N % 64 || M < 0 || E < 1 ||
+      (long long)E * (x_is_bf16 ? grid_splits : splits) > 65535)
     return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -574,18 +628,50 @@ extern "C" int msb_matmul(const void* x, const void* packed, const void* scales,
     auto* o = static_cast<float*>(out);
     auto* p = static_cast<float*>(partial);
     if (bm == 8)
-      return kblocked ? launch_f32<8, true>(xx, pk, sc, bs, o, p, M, K, N, splits, s)
-                      : launch_f32<8, false>(xx, pk, sc, bs, o, p, M, K, N, splits, s);
+      return kblocked
+                 ? launch_f32<8, true>(xx, pk, sc, bs, counts, o, p, E, M, K, N, splits, s)
+                 : launch_f32<8, false>(xx, pk, sc, bs, counts, o, p, E, M, K, N, splits, s);
     if (bm == 32)
-      return kblocked ? launch_f32<32, true>(xx, pk, sc, bs, o, p, M, K, N, splits, s)
-                      : launch_f32<32, false>(xx, pk, sc, bs, o, p, M, K, N, splits, s);
+      return kblocked
+                 ? launch_f32<32, true>(xx, pk, sc, bs, counts, o, p, E, M, K, N, splits, s)
+                 : launch_f32<32, false>(xx, pk, sc, bs, counts, o, p, E, M, K, N, splits, s);
     return (int)cudaErrorInvalidValue;
   }
   if (bm == SmallTile::BM && grid_splits == splits)
-    return launch_tc_kb<SmallTile>(x, packed, scales, bias, out, partial, M, K, N, splits,
-                                   grid_splits, kblocked, s);
+    return launch_tc_kb<SmallTile>(x, packed, scales, bias, counts, out, partial, E, M, K, N,
+                                   splits, grid_splits, kblocked, s);
   if (bm == LargeTile::BM && grid_splits == 1)
-    return launch_tc_kb<LargeTile>(x, packed, scales, bias, out, partial, M, K, N, splits,
-                                   grid_splits, kblocked, s);
+    return launch_tc_kb<LargeTile>(x, packed, scales, bias, counts, out, partial, E, M, K, N,
+                                   splits, grid_splits, kblocked, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). The caller (ops.plan) has
+// chosen the tile bm and where the K splits run, checked shapes, types,
+// contiguity and 16-byte alignment, and allocated out (M, N) and, when
+// grid_splits > 1 (or, for f32, splits > 1), the f32 workspace partial
+// (splits, M, N). bf16: bm is 16 (grid_splits == splits) or 128
+// (grid_splits == 1); f32: bm is 8 or 32 and the splits always run on
+// separate blocks. Requires K % (64 * splits) == 0 and N % 64 == 0; returns
+// cudaErrorInvalidValue otherwise, else cudaGetLastError().
+extern "C" int msb_matmul(const void* x, const void* packed, const void* scales,
+                          const void* bias, void* out, void* partial, int M,
+                          int K, int N, int splits, int grid_splits, int bm,
+                          int kblocked, int x_is_bf16, void* stream) {
+  return run(x, packed, scales, bias, nullptr, out, partial, 1, M, K, N, splits, grid_splits,
+             bm, kblocked, x_is_bf16, stream);
+}
+
+// The expert batch: x (E, M, K), packed (E, K, N/2), scales (E, ...) as
+// one expert's, counts (E,) int32 on the device, out (E, M, N), partial
+// (E, splits, M, N) under the same rule; the plan is one expert's (its M).
+// No bias (the expert FFN has none).
+extern "C" int msb_matmul_experts(const void* x, const void* packed, const void* scales,
+                                  const void* counts, void* out, void* partial, int E,
+                                  int M, int K, int N, int splits, int grid_splits, int bm,
+                                  int kblocked, int x_is_bf16, void* stream) {
+  return run(x, packed, scales, nullptr, static_cast<const int*>(counts), out, partial, E,
+             M, K, N, splits, grid_splits, bm, kblocked, x_is_bf16, stream);
 }

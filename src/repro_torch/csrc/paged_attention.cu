@@ -9,10 +9,13 @@
 //
 // Computes, for every row b and query head hq (GQA: kv head h = hq / rep):
 //   out[b, hq] = softmax_t(softcap(scale * q[b, hq] . K[t, h])) @ V[t, h]
-// over positions t < kv_len[b]. Position t lives on page j = t / ps, row
-// t % ps. Rows with kv_len 0 produce exactly 0. q, out and the kv16 pools
-// (or the hot pools) share one type T (bf16 or f32); scores, the softmax
-// and the sums are f32.
+// over positions kv_start[b] <= t < kv_len[b]. Position t lives on page
+// j = t / ps, row t % ps. kv_start is a sliding window's first visible
+// position (gemma2's local layers: max(0, q_pos + 1 - window); 0 without a
+// window), computed per row on the device by the caller. Rows with
+// kv_start >= kv_len (kv_len 0: pad rows) produce exactly 0. q, out and
+// the kv16 pools (or the hot pools) share one type T (bf16 or f32);
+// scores, the softmax and the sums are f32.
 //
 // kv16: page j is page block_tables[b, j] of the pools (n_pages, ps, KV, d).
 // Quantized: page j == n_full[b] is the frontier page, read at full
@@ -41,6 +44,11 @@
 // in how a lane reads a token row (RowSlice): kernel B reads E values of T
 // straight from the pools with 16-byte loads, kernel C dequantizes codes
 // (and reads its frontier page from the hot pools). The walk:
+//   * a row's walk starts on the page that holds kv_start (page-aligned
+//     base = kv_start - kv_start % ps) and covers [base, kv_len): splits
+//     are counted from base, so no split lies wholly before the window;
+//     only the positions below kv_start on that first page are masked.
+//     Without a window base = 0 and the walk is the one below, bit for bit;
 //   * a split is a fixed run of pages_per_split pages of a row; grid
 //     (B, H, n_splits) with n_splits = min(splits the block table's width
 //     needs, SPLIT_BLOCKS): block z of a row serves one query head over
@@ -109,6 +117,7 @@ struct SplitArgs {
   const void* v_hot;       // the frontier page and its hot row
   const int* block_tables;
   const int* kv_lens;
+  const int* kv_start;     // (B,) first visible position of each row
   const int* n_full;
   const int* hot_rows;
   float* part_ml;   // (2, B, H, n_splits): running max, then sum
@@ -247,15 +256,20 @@ paged_attention_split_kernel(const SplitArgs a) {
   const int b = blockIdx.x, hq = blockIdx.y, split = blockIdx.z;
   const int h = hq / (a.H / a.KV);
   const int kv_len = a.kv_lens[b];
+  const int start = a.kv_start[b];
+  const int base = start - start % a.ps;       // first position of the walk
+  const int len = kv_len - base;               // positions the walk covers
+  const int lo = start - base;                 // masked head of its first page
   const int ns = a.n_splits;
   const int span = a.pages_per_split * a.ps;   // tokens a split covers
-  if (split * span >= kv_len) return;          // no pages of this row here
+  if (start >= kv_len || split * span >= len) return;   // nothing of the row here
   // this block's tokens, splits split, split + ns, ... back to back: local
-  // token i lies at position (split + (i / span) * ns) * span + i % span.
-  // Every local token below n_tok is a position below kv_len.
-  const int own = (kv_len + span - 1) / span;  // the row's splits
+  // token i lies at position base + (split + (i / span) * ns) * span + i %
+  // span. Every local token below n_tok is a position below kv_len; those
+  // below kv_start (local position < lo, split 0 only) are masked.
+  const int own = (len + span - 1) / span;     // the row's splits
   const int n_mine = (own - split + ns - 1) / ns;
-  const int n_tok = (n_mine - 1) * span + min(span, kv_len - (split + (n_mine - 1) * ns) * span);
+  const int n_tok = (n_mine - 1) * span + min(span, len - (split + (n_mine - 1) * ns) * span);
   const size_t pidx = ((size_t)b * a.H + hq) * ns + split;
   const int d = a.d;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -289,7 +303,7 @@ paged_attention_split_kernel(const SplitArgs a) {
   // i % span), stepped without a division.
   auto issue = [&](int k, int off, RowSlice<T, BITS, E>& kr, RowSlice<T, BITS, E>& vr) {
     if (k * span + off >= n_tok) return;
-    const int pos = (split + k * ns) * span + off;
+    const int pos = base + (split + k * ns) * span + off;
     const int j = pos / a.ps, t = pos - j * a.ps;
     if constexpr (BITS == 16) {
       const size_t at = (((size_t)table[j] * a.ps + t) * a.KV + h) * d + c0;
@@ -317,7 +331,7 @@ paged_attention_split_kernel(const SplitArgs a) {
   RowSlice<T, BITS, E> ks, vs, ks_next, vs_next;
   issue(k, off, ks, vs);
   for (int base = warp * rpp; base < n_tok; base += stride) {
-    const bool valid = k * span + off < n_tok;
+    const bool valid = k * span + off < n_tok && (split + k * ns) * span + off >= lo;
     int k_next = k, off_next = off;
     step(k_next, off_next);
     issue(k_next, off_next, ks_next, vs_next);
@@ -380,8 +394,9 @@ paged_attention_split_kernel(const SplitArgs a) {
 
 // Merges row b's partials for query head hq in block order (log-sum-exp),
 // normalises and writes out. Only the blocks that held pages of the row
-// are read; their factors exp(m_z - max m) are computed once, in shared
-// memory.
+// are read (counted from the walk's base, as the walk counts them: every
+// one of them saw a visible position, so no partial max is -inf); their
+// factors exp(m_z - max m) are computed once, in shared memory.
 template <typename T>
 __global__ void __launch_bounds__(COMBINE_THREADS)
 paged_attention_combine_kernel(const SplitArgs a) {
@@ -389,8 +404,10 @@ paged_attention_combine_kernel(const SplitArgs a) {
   __shared__ float l_tot;
   const int b = blockIdx.x, hq = blockIdx.y;
   const int kv_len = a.kv_lens[b];
+  const int start = a.kv_start[b];
+  const int len = kv_len - (start - start % a.ps);
   const int span = a.pages_per_split * a.ps;
-  const int n_own = min((kv_len + span - 1) / span, a.n_splits);
+  const int n_own = start >= kv_len ? 0 : min((len + span - 1) / span, a.n_splits);
   const size_t base = ((size_t)b * a.H + hq) * a.n_splits;
   const float* part_m = a.part_ml + base;
   const float* part_l = a.part_ml + (size_t)a.B * a.H * a.n_splits + base;
@@ -468,10 +485,12 @@ int run(const SplitArgs& a, int bits, int is_bf16, void* stream) {
 // 1. d must be a power of two in [16, 512] ([16, 1024] at 4 bits);
 // anything else returns cudaErrorInvalidValue.
 
-// Kernel B: kv16 pools (n_pages, ps, KV, d) in q's type.
+// Kernel B: kv16 pools (n_pages, ps, KV, d) in q's type. kv_start (B,):
+// each row's first visible position (0 without a window).
 extern "C" int paged_attention_decode(const void* q, const void* k_pool,
                                       const void* v_pool, const void* block_tables,
-                                      const void* kv_lens, void* part_ml, void* part_acc,
+                                      const void* kv_lens, const void* kv_start,
+                                      void* part_ml, void* part_acc,
                                       void* out, int B, int H, int KV, int d, int ps,
                                       int max_pages, int n_splits, int pages_per_split,
                                       float scale, float softcap, int is_bf16,
@@ -485,6 +504,7 @@ extern "C" int paged_attention_decode(const void* q, const void* k_pool,
                     nullptr,
                     static_cast<const int*>(block_tables),
                     static_cast<const int*>(kv_lens),
+                    static_cast<const int*>(kv_start),
                     nullptr,
                     nullptr,
                     static_cast<float*>(part_ml),
@@ -500,7 +520,8 @@ extern "C" int paged_attention_decode(const void* q, const void* k_pool,
 extern "C" int paged_attention_decode_quant(
     const void* q, const void* k_codes, const void* k_scales, const void* v_codes,
     const void* v_scales, const void* k_hot, const void* v_hot, const void* block_tables,
-    const void* kv_lens, const void* n_full, const void* hot_rows, void* part_ml,
+    const void* kv_lens, const void* kv_start, const void* n_full, const void* hot_rows,
+    void* part_ml,
     void* part_acc, void* out, int B, int H, int KV, int d, int ps, int max_pages,
     int tpb, int nb, int n_splits, int pages_per_split, float scale, float softcap,
     int bits, int is_bf16, void* stream) {
@@ -514,6 +535,7 @@ extern "C" int paged_attention_decode_quant(
                     v_hot,
                     static_cast<const int*>(block_tables),
                     static_cast<const int*>(kv_lens),
+                    static_cast<const int*>(kv_start),
                     static_cast<const int*>(n_full),
                     static_cast<const int*>(hot_rows),
                     static_cast<float*>(part_ml),

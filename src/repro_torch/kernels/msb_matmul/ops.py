@@ -5,6 +5,9 @@ tensor takes the plain version (``ref.msb_matmul_ref``), a CUDA tensor
 launches the hand-written kernel (``csrc/msb_matmul.cu``: bf16 x on the
 tensor cores, f32 x on SIMT f32 FMA) or raises. ``plan`` is its launch
 plan, ``msb_matmul.launches`` counts kernel launches.
+``msb_matmul_experts`` is the same kernel over a batch of MoE experts in
+one launch, with device-side routed-token counts (its own ``.launches``);
+``packed_matmul_experts`` runs it on a layer's stacked expert weights.
 
 ``qtensor_matmul`` / ``to_kernel_layout`` take a raw 4-bit/64 ``QTensor``
 (a solver's output, without ``pack_params``); the packing is memoized on
@@ -20,7 +23,7 @@ import torch
 from .. import _build
 from ...core.quantize import (PACK_BLOCK, PACK_LEVELS, PackedQTensor,
                               QTensor, pack_codes_int4, pack_qtensor)
-from .ref import msb_matmul_ref
+from .ref import msb_matmul_experts_ref, msb_matmul_ref
 
 
 def k_splits(k, n):
@@ -62,44 +65,53 @@ def plan(m, k, n, bf16=True):
     return Plan(128, 128, splits, k // splits, 1)
 
 
-def _lib():
-    lib = _build.load("msb_matmul")
-    fn = lib.msb_matmul
+def _lib(name="msb_matmul"):
+    fn = getattr(_build.load("msb_matmul"), name)
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 6 + [ci] * 8 + [vp]
+        fn.argtypes = [vp] * 6 + [ci] * (8 if name == "msb_matmul" else 9) \
+            + [vp]
         fn.restype = ci
     return fn
 
 
-def _launch(x, packed, scales, bias, kblocked):
-    m, k = x.shape
-    n = packed.shape[1] * 2
-    dev = x.device
+def _check(what, x, packed, scales, bias, kblocked, lead=()):
+    """Checks what the kernel takes: x (*lead, M, K) bf16/f32, packed
+    uint8 (*lead, K, N/2), scales f32 (*lead, K, N/64, 8) n-blocked or
+    (*lead, K/64, N, 8) k-blocked, bias f32 (N,), one device, contiguous,
+    16-byte aligned. Returns (M, K, N)."""
+    m, k = x.shape[-2:]
+    n = packed.shape[-1] * 2
     if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"msb_matmul: x must be bf16 or f32, got {x.dtype}")
-    if packed.dtype != torch.uint8 or packed.dim() != 2 or packed.shape[0] != k:
-        raise ValueError(f"msb_matmul: packed must be uint8 (K={k}, N/2), "
-                         f"got {packed.dtype} {tuple(packed.shape)}")
+        raise TypeError(f"{what}: x must be bf16 or f32, got {x.dtype}")
+    if packed.dtype != torch.uint8 or tuple(packed.shape[:-1]) != lead + (k,):
+        raise ValueError(f"{what}: packed must be uint8 {lead + (k,)} + "
+                         f"(N/2,), got {packed.dtype} {tuple(packed.shape)}")
     if k % PACK_BLOCK or n % PACK_BLOCK:
-        raise ValueError(f"msb_matmul: K={k} and N={n} must be multiples "
+        raise ValueError(f"{what}: K={k} and N={n} must be multiples "
                          f"of {PACK_BLOCK}")
-    want = ((k // PACK_BLOCK, n, PACK_LEVELS) if kblocked
-            else (k, n // PACK_BLOCK, PACK_LEVELS))
+    want = lead + ((k // PACK_BLOCK, n, PACK_LEVELS) if kblocked
+                   else (k, n // PACK_BLOCK, PACK_LEVELS))
     if scales.dtype != torch.float32 or tuple(scales.shape) != want:
-        raise ValueError(f"msb_matmul: scales must be f32 {want}, got "
+        raise ValueError(f"{what}: scales must be f32 {want}, got "
                          f"{scales.dtype} {tuple(scales.shape)}")
     if bias is not None and (bias.dtype != torch.float32
                              or tuple(bias.shape) != (n,)):
-        raise ValueError(f"msb_matmul: bias must be f32 ({n},)")
+        raise ValueError(f"{what}: bias must be f32 ({n},)")
     ts = [t for t in (x, packed, scales, bias) if t is not None]
-    if any(t.device != dev for t in ts):
-        raise ValueError("msb_matmul: all tensors must be on one device")
+    if any(t.device != x.device for t in ts):
+        raise ValueError(f"{what}: all tensors must be on one device")
     if any(not t.is_contiguous() for t in ts):
-        raise ValueError("msb_matmul: tensors must be contiguous")
+        raise ValueError(f"{what}: tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in (x, packed, scales)):
-        raise ValueError("msb_matmul: x, packed and scales must start on a "
+        raise ValueError(f"{what}: x, packed and scales must start on a "
                          "16-byte boundary")
+    return m, k, n
+
+
+def _launch(x, packed, scales, bias, kblocked):
+    m, k, n = _check("msb_matmul", x, packed, scales, bias, kblocked)
+    dev = x.device
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return out
@@ -131,6 +143,49 @@ def msb_matmul(x, packed, scales, bias=None, *, kblocked=False):
 msb_matmul.launches = 0
 
 
+def _launch_experts(x, packed, scales, counts, kblocked):
+    what = "msb_matmul_experts"
+    e = x.shape[0]
+    m, k, n = _check(what, x, packed, scales, None, kblocked, lead=(e,))
+    if counts.dtype != torch.int32 or tuple(counts.shape) != (e,) or \
+            counts.device != x.device or not counts.is_contiguous():
+        raise ValueError(f"{what}: counts must be int32 ({e},) on x's "
+                         "device")
+    dev = x.device
+    out = torch.empty((e, m, n), dtype=x.dtype, device=dev)
+    if m == 0 or e == 0:
+        return out
+    bf16 = x.dtype == torch.bfloat16
+    p = plan(m, k, n, bf16)
+    zs = p.grid_splits if bf16 else p.splits
+    partial = (torch.empty((e, zs, m, n), dtype=torch.float32, device=dev)
+               if zs > 1 else None)
+    err = _lib(what)(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                     counts.data_ptr(), out.data_ptr(),
+                     None if partial is None else partial.data_ptr(), e, m,
+                     k, n, p.splits, p.grid_splits, p.bm, int(kblocked),
+                     int(bf16), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, what)
+    msb_matmul_experts.launches += 1
+    return out
+
+
+def msb_matmul_experts(x, packed, scales, counts, *, kblocked=False):
+    """The expert batch of kernel A: y[e] = x[e] @ dequant(W[e]) for x (E,
+    M, K), packed (E, K, N/2), scales (E, ...) as ``msb_matmul``'s, and
+    ``counts`` (E,) int32 routed tokens per expert on x's device; y[e] is
+    exactly 0 where counts[e] == 0 (no weight read), else bit for bit
+    ``msb_matmul(x[e], packed[e], scales[e])``. One launch, no host sync.
+    Returns (E, M, N). CPU tensors take the plain version."""
+    if x.is_cuda:
+        return _launch_experts(x, packed, scales, counts, kblocked)
+    return msb_matmul_experts_ref(x, packed, scales, counts,
+                                  kblocked=kblocked)
+
+
+msb_matmul_experts.launches = 0
+
+
 def packed_matmul(x, pq: PackedQTensor, bias=None):
     """y = x @ dequant(pq) (+ bias). x: (..., K); returns (..., pq.n) in
     x's type. ``pq`` must be 2-D storage (a layer slice of stacked params).
@@ -148,6 +203,19 @@ def packed_matmul(x, pq: PackedQTensor, bias=None):
         bias = bias.contiguous()
     y = msb_matmul(x2, pq.packed, pq.scales, bias, kblocked=pq.kblocked)
     return y[:, :pq.n].reshape(*lead, pq.n)
+
+
+def packed_matmul_experts(x, pq: PackedQTensor, counts):
+    """y[e] = x[e] @ dequant(pq[e]) for x (E, C, K) and a layer's stacked
+    expert weights (``pq.packed`` (E, K, N/2)); zeros for experts with
+    ``counts`` 0. Returns (E, C, pq.n) in x's type."""
+    if pq.packed.dim() != 3:
+        raise ValueError(f"packed_matmul_experts wants (E, K, N/2) storage, "
+                         f"got {tuple(pq.packed.shape)}")
+    y = msb_matmul_experts(x.contiguous(), pq.packed, pq.scales,
+                           counts.to(torch.int32).contiguous(),
+                           kblocked=pq.kblocked)
+    return y[..., :pq.n]
 
 
 # -- QTensor conveniences (tests / benchmarks) -------------------------------

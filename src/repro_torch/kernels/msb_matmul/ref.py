@@ -27,3 +27,13 @@ def msb_matmul_ref(x, packed, scales, bias=None, kblocked=False):
     if bias is not None:
         y = y + bias.reshape(1, -1).to(torch.float32)
     return y.to(x.dtype)
+
+
+def msb_matmul_experts_ref(x, packed, scales, counts, kblocked=False):
+    """The expert batch: ``msb_matmul_ref`` of each expert's x (E, M, K)
+    and weights (E, K, N/2), then zeros where ``counts`` (E,) is 0 (the
+    reference's zero branch). Returns (E, M, N)."""
+    y = torch.stack([msb_matmul_ref(x[e], packed[e], scales[e],
+                                    kblocked=kblocked)
+                     for e in range(x.shape[0])])
+    return torch.where((counts > 0)[:, None, None], y, torch.zeros_like(y))

@@ -8,7 +8,9 @@ two entry points of ``csrc/paged_attention.cu``) or raises. Both run one
 split-KV walk and its merge, so each takes head_dim a power of two in
 [16, 512] and 16-byte aligned pools. Each wrapper's ``.launches`` counts
 its kernel's launches: one a call, though each runs as two CUDA kernels
-(the split-KV walk, then the merge of its partials).
+(the split-KV walk, then the merge of its partials). Both take a sliding
+window as ``kv_start``, each row's first visible position (int32 (B,) on
+the device; ``None`` = 0).
 """
 from __future__ import annotations
 
@@ -62,12 +64,18 @@ def _lib():
     fn = _build.load("paged_attention").paged_attention_decode
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 8 + [ci] * 8 + [cf, cf, ci, vp]
+        fn.argtypes = [vp] * 9 + [ci] * 8 + [cf, cf, ci, vp]
         fn.restype = ci
     return fn
 
 
-def _launch(q, k_pool, v_pool, block_tables, kv_lens, softcap, scale):
+def _starts(kv_start, kv_lens):
+    """Each row's first visible position: ``kv_start``, or zeros."""
+    return torch.zeros_like(kv_lens) if kv_start is None else kv_start
+
+
+def _launch(q, k_pool, v_pool, block_tables, kv_lens, kv_start, softcap,
+            scale):
     what = "paged_attention_decode"
     b, h, d = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
@@ -85,10 +93,11 @@ def _launch(q, k_pool, v_pool, block_tables, kv_lens, softcap, scale):
             block_tables.shape[0] != b:
         raise ValueError(f"{what}: block_tables must be int32 ({b}, "
                          "max_pages)")
-    if kv_lens.dtype != torch.int32 or tuple(kv_lens.shape) != (b,):
-        raise ValueError(f"{what}: kv_lens must be int32 ({b},)")
+    for name, t in (("kv_lens", kv_lens), ("kv_start", kv_start)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (b,):
+            raise ValueError(f"{what}: {name} must be int32 ({b},)")
     lane_elems(16, d, what)
-    ts = (q, k_pool, v_pool, block_tables, kv_lens)
+    ts = (q, k_pool, v_pool, block_tables, kv_lens, kv_start)
     if any(t.device != q.device for t in ts):
         raise ValueError(f"{what}: all tensors must be on one device")
     if any(not t.is_contiguous() for t in ts):
@@ -112,18 +121,21 @@ def _launch(q, k_pool, v_pool, block_tables, kv_lens, softcap, scale):
 
 
 def paged_attention_decode(q, k_pool, v_pool, block_tables, kv_lens, *,
-                           softcap=0.0, scale=None):
+                           kv_start=None, softcap=0.0, scale=None):
     """Decode attention, one query token per row. q: (B, H, d); pools:
     (n_pages, page_size, KV, d); block_tables: (B, max_pages) int32;
-    kv_lens: (B,) int32 — row b attends to positions ``< kv_lens[b]``
-    (every block-table entry below ``ceil(kv_len / page_size)`` must be a
-    valid page). Returns (B, H, d); rows with kv_len 0 are exactly 0. No
-    sliding window: ROADMAP item 10 (gemma2) adds it."""
+    kv_lens: (B,) int32 — row b attends to positions ``kv_start[b] <= t <
+    kv_lens[b]`` (``kv_start`` int32 (B,), ``None`` = 0; every block-table
+    entry from page ``kv_start // page_size`` below ``ceil(kv_len /
+    page_size)`` must be a valid page). Returns (B, H, d); rows that see
+    no key (kv_len 0) are exactly 0."""
+    kv_start = _starts(kv_start, kv_lens)
     if q.is_cuda:
-        return _launch(q, k_pool, v_pool, block_tables, kv_lens, softcap,
-                       scale)
+        return _launch(q, k_pool, v_pool, block_tables, kv_lens, kv_start,
+                       softcap, scale)
     return paged_attention_decode_ref(q, k_pool, v_pool, block_tables,
-                                      kv_lens, softcap=softcap, scale=scale)
+                                      kv_lens, kv_start=kv_start,
+                                      softcap=softcap, scale=scale)
 
 
 paged_attention_decode.launches = 0
@@ -133,14 +145,14 @@ def _lib_quant():
     fn = _build.load("paged_attention").paged_attention_decode_quant
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 14 + [ci] * 10 + [cf, cf, ci, ci, vp]
+        fn.argtypes = [vp] * 15 + [ci] * 10 + [cf, cf, ci, ci, vp]
         fn.restype = ci
     return fn
 
 
 def _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
-                  block_tables, kv_lens, hot_rows, kv_bits, n_full, softcap,
-                  scale):
+                  block_tables, kv_lens, hot_rows, kv_bits, n_full, kv_start,
+                  softcap, scale):
     what = "paged_attention_decode_quant"
     b, h, d = q.shape
     if k_hot.dim() != 4 or k_hot.shape != v_hot.shape:
@@ -169,13 +181,13 @@ def _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
             block_tables.shape[0] != b:
         raise ValueError(f"{what}: block_tables must be int32 ({b}, "
                          "max_pages)")
-    for name, t in (("kv_lens", kv_lens), ("n_full", n_full),
-                    ("hot_rows", hot_rows)):
+    for name, t in (("kv_lens", kv_lens), ("kv_start", kv_start),
+                    ("n_full", n_full), ("hot_rows", hot_rows)):
         if t.dtype != torch.int32 or tuple(t.shape) != (b,):
             raise ValueError(f"{what}: {name} must be int32 ({b},)")
     lane_elems(int(kv_bits), d, what)
     ts = (q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
-          block_tables, kv_lens, n_full, hot_rows)
+          block_tables, kv_lens, kv_start, n_full, hot_rows)
     if any(t.device != q.device for t in ts):
         raise ValueError(f"{what}: all tensors must be on one device")
     if any(not t.is_contiguous() for t in ts):
@@ -203,7 +215,7 @@ def _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot,
 def paged_attention_decode_quant(q, k_codes, k_scales, v_codes, v_scales,
                                  k_hot, v_hot, block_tables, kv_lens,
                                  hot_rows, *, kv_bits, n_full=None,
-                                 softcap=0.0, scale=None):
+                                 kv_start=None, softcap=0.0, scale=None):
     """Decode attention over MSB-quantized pools, one query token per row.
     q: (B, H, d); k/v_codes (n_pages, ps, KV, d or d/2) int8|uint8;
     k/v_scales (n_pages, KV, n_blocks, 1|8) f32|bf16; k/v_hot (n_hot, ps,
@@ -211,17 +223,19 @@ def paged_attention_decode_quant(q, k_codes, k_scales, v_codes, v_scales,
     int32 — row b attends to positions ``< kv_lens[b]``; hot_rows (B,)
     int32 hot row of each row's frontier page; n_full (B,) int32 pages
     read from the codes (default ``kv_lens // ps``; page ``n_full[b]`` is
-    the hot one). Returns (B, H, d); rows with kv_len 0 are exactly 0."""
+    the hot one); ``kv_start`` as in ``paged_attention_decode``. Returns
+    (B, H, d); rows that see no key (kv_len 0) are exactly 0."""
     if n_full is None:
         n_full = torch.div(kv_lens, k_hot.shape[1], rounding_mode="floor")
+    kv_start = _starts(kv_start, kv_lens)
     if q.is_cuda:
         return _launch_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot,
                              v_hot, block_tables, kv_lens, hot_rows, kv_bits,
-                             n_full, softcap, scale)
+                             n_full, kv_start, softcap, scale)
     return paged_attention_decode_quant_ref(
         q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot, block_tables,
-        kv_lens, hot_rows, kv_bits=kv_bits, n_full=n_full, softcap=softcap,
-        scale=scale)
+        kv_lens, hot_rows, kv_bits=kv_bits, n_full=n_full, kv_start=kv_start,
+        softcap=softcap, scale=scale)
 
 
 paged_attention_decode_quant.launches = 0

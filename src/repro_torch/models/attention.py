@@ -24,9 +24,18 @@ That is exactly the reference mask ``kpos <= q_pos && kpos < kv_lens`` —
 including intra-chunk causality in prefill — so on a CUDA tensor both
 decode and packed prefill run on the kernel, and on a CPU tensor on its
 plain version (whose core, the reference's ``_attend_gathered``, is
-``kernels/paged_attention/ref.py`` ``attend_gathered``). Pad rows differ from the reference on purpose: they
-come out 0, where the reference returns the mean of V; pad logits are
-discarded and pad K/V land on page 0.
+``kernels/paged_attention/ref.py`` ``attend_gathered``). A sliding window
+(gemma2's local layers) adds the reference's ``kpos > q_pos - window`` as
+each token's first visible position ``max(0, q_pos + 1 - window)``,
+computed on the device from ``q_pos`` (``_window_starts``), so no host
+value enters a captured graph. Pad rows differ from the reference on
+purpose: they come out 0, where the reference returns the mean of V; pad
+logits are discarded and pad K/V land on page 0. Except in MoE stacks
+(``mean_pads``): their routing gives every token of a dispatch, pads
+included, a share of each expert's capacity, so a pad's hidden state can
+move a real token's; there a query that sees no key (``q_pos < 0``) takes
+the reference's output, the mean of V over every position of its
+block-table row (``_mean_for_pads``).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from ..core.quantize import kv_quantize_pages
 from ..kernels.flash_attention.ops import flash_attention_fwd
 from ..kernels.paged_attention.ops import (paged_attention_decode,
                                            paged_attention_decode_quant)
+from ..kernels.paged_attention.ref import quant_gather
 
 _NEG_INF = -2.0e38
 
@@ -95,16 +105,37 @@ def _rows_per_token(block_tables, t):
         b * t, mp)
 
 
+def _window_starts(q_pos, window):
+    """(B*T,) int32 first visible key position of each query token:
+    ``max(0, q_pos + 1 - window)``, all 0 without a window (``window`` a
+    Python int, constant per layer) and for pads."""
+    q_pos = q_pos.reshape(-1).to(torch.int32)
+    if window <= 0:
+        return torch.zeros_like(q_pos)
+    return torch.clamp(q_pos + (1 - int(window)), min=0)
+
+
+def _mean_for_pads(out, q_pos, v_rows):
+    """``out`` (B, T, H, d) with each query that sees no key (``q_pos <
+    0``) replaced by the reference's output for it: its masked softmax
+    weighs every gathered position alike, so it is the f32 mean of V over
+    its block-table row. ``v_rows`` (R, S, KV, d), the gathered V of each
+    of the B rows, or of one row every pad shares (R = 1)."""
+    h, d = out.shape[2:]
+    mean = v_rows.to(torch.float32).mean(dim=1)               # (R, KV, d)
+    kv = mean.shape[1]
+    mean = mean[:, :, None].expand(-1, kv, h // kv, d).reshape(-1, 1, h, d)
+    return torch.where((q_pos < 0)[..., None, None], mean.to(out.dtype), out)
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, q_pos, kv_lens, *,
-                    window=0, softcap=0.0, scale=None):
+                    window=0, softcap=0.0, scale=None, mean_pads=False):
     """q: (B, T, H, d) — T query tokens per sequence; pools (n_pages, ps,
     KV, d); block_tables (B, max_pages) int32; q_pos (B, T) absolute
-    positions (-1 = pad); kv_lens (B,) cache length including this chunk.
+    positions (-1 = pad); kv_lens (B,) cache length including this chunk;
+    ``window`` > 0 hides keys at or below ``q_pos - window``;
+    ``mean_pads``: pads take the reference's mean of V over their row.
     Returns (B, T, H, d)."""
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window paged attention: ROADMAP item 10 (gemma2) adds "
-            "a window to the kernel")
     b, t, h, d = q.shape
     bt = _rows_per_token(block_tables, t)
     q_pos = q_pos.to(torch.int32)
@@ -113,8 +144,13 @@ def paged_attention(q, k_pool, v_pool, block_tables, q_pos, kv_lens, *,
     out = paged_attention_decode(q.reshape(b * t, h, d).contiguous(), k_pool,
                                  v_pool, bt.contiguous(),
                                  lens.reshape(-1).contiguous(),
+                                 kv_start=_window_starts(q_pos, window),
                                  softcap=softcap, scale=scale)
-    return out.reshape(b, t, h, d)
+    out = out.reshape(b, t, h, d)
+    if mean_pads:
+        out = _mean_for_pads(out, q_pos, v_pool[block_tables.long()].reshape(
+            b, -1, *v_pool.shape[2:]))
+    return out
 
 
 def _scatter_rows(k_pool, v_pool, k_new, v_new, flat):
@@ -155,11 +191,14 @@ def paged_write_packed(k_pool, v_pool, k_new, v_new, block_tables, seg_ids,
 
 
 def paged_attention_packed(q, k_pool, v_pool, block_tables, seg_ids, q_pos,
-                           kv_lens, *, window=0, softcap=0.0, scale=None):
+                           kv_lens, *, window=0, softcap=0.0, scale=None,
+                           mean_pads=False):
     """Packed ragged attention: q (1, T, H, d); block_tables (S, max_pages);
     seg_ids/q_pos (1, T); kv_lens (S,). Token i attends over its own
     segment's row ``block_tables[seg_ids[i]]``, so cross-segment attention
-    is zero by construction. Returns (1, T, H, d)."""
+    is zero by construction; ``mean_pads``: pads take the mean of V over
+    segment 0's row, the row the reference gathers for them. Returns (1,
+    T, H, d)."""
     seg = torch.clamp(seg_ids[0].to(torch.int64), min=0)
     valid = seg_ids[0] >= 0
     bt_tok = block_tables[seg]                            # (T, max_pages)
@@ -168,6 +207,9 @@ def paged_attention_packed(q, k_pool, v_pool, block_tables, seg_ids, q_pos,
     out = paged_attention(q[0][:, None], k_pool, v_pool, bt_tok,
                           q_pos[0][:, None], lens_tok, window=window,
                           softcap=softcap, scale=scale)
+    if mean_pads:
+        out = _mean_for_pads(out, q_pos[0][:, None], v_pool[
+            block_tables[:1].long()].reshape(1, -1, *v_pool.shape[2:]))
     return out[:, 0][None]
 
 
@@ -298,14 +340,17 @@ def paged_write_quant_packed(cache, k_new, v_new, block_tables, seg_ids,
 
 
 def paged_attention_quant(q, cache, block_tables, q_pos, kv_lens, slots,
-                          kv_bits, *, softcap=0.0, scale=None):
+                          kv_bits, *, window=0, softcap=0.0, scale=None,
+                          mean_pads=False):
     """Attention over quantized pools + the hot partial page, through the
     ``paged_attention_decode_quant`` wrapper, one row per query token.
     q: (B, T, H, d); q_pos (B, T); kv_lens (B,) incl. this chunk; slots
     (B,). Each token's causal bound ``min(q_pos + 1, kv_lens)`` and its
     row's frontier page ``kv_lens // ps`` go to the kernel separately: in
     a prefill chunk, pages before the frontier that this dispatch completed
-    are read from their fresh codes, as the reference reads them. Returns
+    are read from their fresh codes, as the reference reads them.
+    ``mean_pads``: pads take the mean of V over their row as the reference
+    gathers it (dequantized, the frontier page from the hot row). Returns
     (B, T, H, d)."""
     b, t, h, d = q.shape
     ps = cache["k_hot"].shape[1]
@@ -323,16 +368,24 @@ def paged_attention_quant(q, cache, block_tables, q_pos, kv_lens, slots,
         cache["k_hot"], cache["v_hot"], bt.contiguous(),
         lens.reshape(-1).contiguous(), rows.reshape(-1).contiguous(),
         kv_bits=kv_bits, n_full=n_full.reshape(-1).contiguous(),
-        softcap=softcap, scale=scale)
-    return out.reshape(b, t, h, d)
+        kv_start=_window_starts(q_pos, window), softcap=softcap, scale=scale)
+    out = out.reshape(b, t, h, d)
+    if mean_pads:
+        out = _mean_for_pads(out, q_pos, quant_gather(
+            cache["v_codes"], cache["v_scales"], cache["v_hot"],
+            block_tables, n_full[:, 0], rows[:, 0], kv_bits))
+    return out
 
 
 def paged_attention_quant_packed(q, cache, block_tables, seg_ids, q_pos,
-                                 kv_lens, slots, kv_bits, *, softcap=0.0,
-                                 scale=None):
+                                 kv_lens, slots, kv_bits, *, window=0,
+                                 softcap=0.0, scale=None, mean_pads=False):
     """Packed attention over quantized pools: per-token segment views of
     block tables, lengths and slots, then ``paged_attention_quant``.
-    q (1, T, H, d); seg_ids/q_pos (1, T). Returns (1, T, H, d)."""
+    q (1, T, H, d); seg_ids/q_pos (1, T); ``mean_pads``: pads take the
+    mean of V over segment 0's row with the frontier page 0 from scratch
+    hot row 0, as the reference gathers it for them. Returns (1, T, H,
+    d)."""
     seg = torch.clamp(seg_ids[0].to(torch.int64), min=0)
     valid = seg_ids[0] >= 0
     lens_tok = torch.where(valid, kv_lens.to(torch.int32)[seg],
@@ -341,5 +394,11 @@ def paged_attention_quant_packed(q, cache, block_tables, seg_ids, q_pos,
                             torch.full_like(seg, -1, dtype=torch.int32))
     out = paged_attention_quant(q[0][:, None], cache, block_tables[seg],
                                 q_pos[0][:, None], lens_tok, slots_tok,
-                                kv_bits, softcap=softcap, scale=scale)
+                                kv_bits, window=window, softcap=softcap,
+                                scale=scale)
+    if mean_pads:
+        zero = torch.zeros(1, dtype=torch.int32, device=q.device)
+        out = _mean_for_pads(out, q_pos[0][:, None], quant_gather(
+            cache["v_codes"], cache["v_scales"], cache["v_hot"],
+            block_tables[:1], zero, zero, kv_bits))
     return out[:, 0][None]

@@ -1,8 +1,9 @@
 """Transformer building blocks (plain functions, params as dicts).
 
-Port of ``repro.models.layers`` for the dense decoder: norms and RoPE in
-f32, projections through ``dense`` (the msb_matmul kernel for packed
-weights), ``attention_layer``'s static branches (whole-sequence flash
+Port of ``repro.models.layers`` for decoder-only attention stacks: norms
+and RoPE in f32, projections through ``dense`` (the msb_matmul kernel for
+packed weights, qwen's qkv bias fused into it), ``attention_layer``'s
+static branches (whole-sequence flash
 attention for prefill and the loss; ring-buffer decode) and its paged
 branches over kv16 and quantized (kv_bits 8|4) pools, and the forward of
 the chunked cross-entropy.
@@ -55,8 +56,9 @@ def dense(x, w, b=None):
     return y
 
 
-def attention_layer(p, x, cfg, positions=None, *, cache=None, cur_pos=None,
-                    cross=False, decode_positions=None, paged=None):
+def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
+                    cur_pos=None, cross=False, decode_positions=None,
+                    paged=None):
     """Self-attention. Returns (out, new_cache).
 
     Prefill and loss: ``cache`` None -> causal flash attention over the
@@ -73,7 +75,9 @@ def attention_layer(p, x, cfg, positions=None, *, cache=None, cur_pos=None,
     (hot-row write, commit-time quantization, fused-dequant attention).
     With ``seg_ids`` the (1, T) row is a packed ragged prefill: per-token
     segment ids route every write and read to the token's own block-table
-    row. Cross-attention (``cross=True``, enc-dec) is not ported."""
+    row. ``window`` > 0 (a Python int; gemma2's local layers) hides keys at
+    or below ``q_pos - window`` on every path. Cross-attention
+    (``cross=True``, enc-dec) is not ported."""
     if cross:
         raise NotImplementedError(
             "cross-attention decode (enc-dec): ROADMAP item 10 brings "
@@ -87,13 +91,16 @@ def attention_layer(p, x, cfg, positions=None, *, cache=None, cur_pos=None,
     scale = hd ** -0.5 if cfg.query_scale == 0 else cfg.query_scale
     if paged is None:
         return _static_attention(p, q, k, v, cfg, positions, cache, cur_pos,
-                                 decode_positions, softcap, scale)
+                                 decode_positions, window, softcap, scale)
     q_pos = paged["q_pos"]
     safe_pos = torch.clamp(q_pos, min=0)
     q = rope(q, safe_pos, cfg.rope_theta)
     k = rope(k, safe_pos, cfg.rope_theta)
     seg_ids = paged.get("seg_ids")
     t = q.shape[1]
+    # MoE routes pads too: their attention must be the reference's
+    kw = dict(window=window, softcap=softcap, scale=scale,
+              mean_pads=bool(cfg.n_experts))
     if "k_codes" in cache:
         kv_bits = paged["kv_bits"]
         if seg_ids is not None:
@@ -102,15 +109,14 @@ def attention_layer(p, x, cfg, positions=None, *, cache=None, cur_pos=None,
                 paged["kv_lens"], paged["slots"], paged["seg_off"], kv_bits)
             out = paged_attention_quant_packed(
                 q, cache, paged["block_tables"], seg_ids, q_pos,
-                paged["kv_lens"], paged["slots"], kv_bits, softcap=softcap,
-                scale=scale)
+                paged["kv_lens"], paged["slots"], kv_bits, **kw)
         else:
             cache = paged_write_quant(
                 cache, k, v, paged["block_tables"], q_pos, paged["kv_lens"],
                 paged["slots"], kv_bits)
             out = paged_attention_quant(
                 q, cache, paged["block_tables"], q_pos, paged["kv_lens"],
-                paged["slots"], kv_bits, softcap=softcap, scale=scale)
+                paged["slots"], kv_bits, **kw)
         return dense(out.reshape(b, t, -1), p["wo"]), cache
     if seg_ids is not None:
         k_pool, v_pool = paged_write_packed(
@@ -118,23 +124,23 @@ def attention_layer(p, x, cfg, positions=None, *, cache=None, cur_pos=None,
             q_pos)
         out = paged_attention_packed(
             q, k_pool, v_pool, paged["block_tables"], seg_ids, q_pos,
-            paged["kv_lens"], softcap=softcap, scale=scale)
+            paged["kv_lens"], **kw)
     else:
         k_pool, v_pool = paged_write(cache["k"], cache["v"], k, v,
                                      paged["block_tables"], q_pos)
         out = paged_attention(q, k_pool, v_pool, paged["block_tables"],
-                              q_pos, paged["kv_lens"], softcap=softcap,
-                              scale=scale)
+                              q_pos, paged["kv_lens"], **kw)
     return dense(out.reshape(b, t, -1), p["wo"]), {"k": k_pool, "v": v_pool}
 
 
 def _static_attention(p, q, k, v, cfg, positions, cache, cur_pos,
-                      decode_positions, softcap, scale):
+                      decode_positions, window, softcap, scale):
     b, t = q.shape[:2]
     if cache is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        out = flash_attention(q, k, v, softcap=softcap, scale=scale)
+        out = flash_attention(q, k, v, window=window, softcap=softcap,
+                              scale=scale)
         new_cache = {"k": k, "v": v}
     else:
         q = rope(q, cur_pos[:, None], cfg.rope_theta)
@@ -143,7 +149,8 @@ def _static_attention(p, q, k, v, cfg, positions, cache, cur_pos,
         cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
         out = decode_attention(q, cache["k"], cache["v"], decode_positions,
-                               cur_pos, softcap=softcap, scale=scale)
+                               cur_pos, window=window, softcap=softcap,
+                               scale=scale)
         new_cache = cache
     return dense(out.reshape(b, t, -1), p["wo"]), new_cache
 

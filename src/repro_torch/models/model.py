@@ -1,8 +1,10 @@
 """Top-level Model API: the loss forward, static prefill and ring decode,
 and paged serving.
 
-Port of ``repro.models.model`` for dense token decoders: embedding and
-logits; ``loss`` (forward only), ``prefill`` and ``decode_step`` over a
+Port of ``repro.models.model`` for decoder-only attention stacks (dense,
+qwen's qkv bias, gemma2's windows, softcaps and post-norm, MoE FFNs):
+embedding and logits; ``loss`` (forward only, with the router's
+load-balancing loss), ``prefill`` and ``decode_step`` over a
 ring-buffer cache (``cache_defs``/``init_cache``) for the static engine;
 paged K/V pools (kv16, or MSB-quantized at kv_bits 8|4), one paged step
 (decode or chunked prefill), packed ragged prefill, and the decode horizon
@@ -20,8 +22,8 @@ from ..core.quantize import KVQuantSpec, PackedQTensor, QTensor, \
 from ..device import resolve_device
 from ..kernels.msb_matmul.ops import packed_matmul
 from .layers import chunked_softmax_xent, rms_norm
-from .transformer import (_require_dense, forward_stack, init_params,
-                          layer_plan, n_periods)
+from .transformer import (_require_attention_stack, forward_stack,
+                          init_params, layer_plan, n_periods)
 
 
 def _quant_paged(paged, kv_bits, slots, seg_off=None):
@@ -76,7 +78,10 @@ class Model:
     def _logits(self, params, hidden):
         """Unembedding projection in f32 + softcap + vocab mask. A
         k-blocked packed table runs the msb_matmul kernel (hidden in f32,
-        as the reference's kernel path takes it)."""
+        as the reference's kernel path takes it). A tied table (packed in
+        natural orientation for the embedding gather: gemma2, qwen,
+        granite, granite-moe) is dequantized whole and multiplied in f32,
+        as the reference computes it outside any kernel."""
         cfg = self.cfg
         table = params.get("unembed", params["embed"])
         hidden = hidden.to(torch.float32)
@@ -96,15 +101,16 @@ class Model:
     # -- loss forward --------------------------------------------------------
     def loss(self, params, batch):
         """Mean next-token cross-entropy (plus the z-loss) of ``batch``
-        {"tokens" (B, S), "labels" (B, S); labels < 0 are masked}. Forward
-        only: training (gradients, ROADMAP item 12) is not ported. Returns
-        (loss, {"ce", "router_aux"}); dense stacks have no router, so
-        ``router_aux`` is 0."""
+        {"tokens" (B, S), "labels" (B, S); labels < 0 are masked}, plus
+        ``router_aux_weight`` times the router's load-balancing loss summed
+        over MoE layers. Forward only: training (gradients, ROADMAP item
+        12) is not ported. Returns (loss, {"ce", "router_aux"});
+        ``router_aux`` is 0 without MoE."""
         cfg = self.cfg
-        _require_dense(cfg)
+        _require_attention_stack(cfg)
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = forward_stack(params["dec"], x, cfg, positions=positions)
+        x, _, aux = forward_stack(params["dec"], x, cfg, positions=positions)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         labels = batch["labels"].to(torch.int64)
         ce = chunked_softmax_xent(x, self._unembed_vd(params),
@@ -112,8 +118,8 @@ class Model:
                                   (labels >= 0).to(torch.float32),
                                   softcap=cfg.logit_softcap,
                                   vocab_real=cfg.vocab_size)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return ce, {"ce": ce, "router_aux": aux}
+        return ce + cfg.router_aux_weight * aux, {"ce": ce,
+                                                  "router_aux": aux}
 
     # -- static serving: prefill + ring-buffer decode ------------------------
     def prefill(self, params, batch):
@@ -122,13 +128,13 @@ class Model:
         holds each slot's roped {"k", "v"} (n_periods, B, S, KV, d) and
         cache["pos"] (B, S) int32 the positions 0..S-1."""
         cfg = self.cfg
-        _require_dense(cfg)
+        _require_attention_stack(cfg)
         x = self._embed(params, batch["tokens"])
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)
-        x, layer_cache = forward_stack(params["dec"], x, cfg,
-                                       positions=positions,
-                                       collect_cache=True)
+        x, layer_cache, _ = forward_stack(params["dec"], x, cfg,
+                                          positions=positions,
+                                          collect_cache=True)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x[:, -1])
         pos = positions.to(torch.int32)[None].expand(b, s).contiguous()
@@ -145,9 +151,10 @@ class Model:
         pos = cache["pos"]
         slot = (cur_pos[:1] % pos.shape[1]).to(torch.int64)
         pos.index_copy_(1, slot, cur_pos[:, None].to(pos.dtype))
-        x, _ = forward_stack(params["dec"], x, cfg, positions=cur_pos[:, None],
-                             cache=cache["layers"], cur_pos=cur_pos,
-                             decode_positions=pos)
+        x, _, _ = forward_stack(params["dec"], x, cfg,
+                                positions=cur_pos[:, None],
+                                cache=cache["layers"], cur_pos=cur_pos,
+                                decode_positions=pos)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x[:, -1]), cache
 
@@ -156,7 +163,7 @@ class Model:
         it: attn {"k", "v"} (n_periods, B, S, KV, d) per slot and "pos"
         (B, S) int32."""
         cfg = self.cfg
-        _require_dense(cfg)
+        _require_attention_stack(cfg)
         kvshape = (n_periods(cfg), batch, seq_len, cfg.n_kv_heads,
                    cfg.head_dim_)
         layers = {f"s{slot}": {"attn": {"k": (kvshape, cfg.dtype),
@@ -182,7 +189,9 @@ class Model:
 
     # -- paged serving -------------------------------------------------------
     def supports_paged(self):
-        """Paged serving covers decoder-only attention stacks."""
+        """Paged serving covers decoder-only attention stacks (any FFN
+        kind); ssm/xlstm/enc-dec caches are per-sequence state, not pages.
+        The reference's rule."""
         cfg = self.cfg
         return (not cfg.is_encdec and cfg.frontend == "none"
                 and all(m == "attn" for m, _ in layer_plan(cfg, "dec")))
@@ -203,7 +212,7 @@ class Model:
         cfg = self.cfg
         if not self.supports_paged():
             raise ValueError(f"{cfg.name}: not a paged-servable arch")
-        _require_dense(cfg)
+        _require_attention_stack(cfg)
         dev = resolve_device(device)
         p, kv, hd = n_periods(cfg), cfg.n_kv_heads, cfg.head_dim_
         if int(kv_bits) == 16:
@@ -243,8 +252,8 @@ class Model:
         x = self._embed(params, torch.clamp(tokens, min=0))
         paged = _quant_paged({"block_tables": block_tables, "q_pos": q_pos,
                               "kv_lens": kv_lens}, kv_bits, slots)
-        x, layer_pools = forward_stack(params["dec"], x, cfg,
-                                       cache=pools["layers"], paged=paged)
+        x, layer_pools, _ = forward_stack(params["dec"], x, cfg,
+                                          cache=pools["layers"], paged=paged)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         last = torch.clamp((q_pos >= 0).sum(dim=1) - 1, min=0)
         hidden = x[torch.arange(x.shape[0], device=x.device), last]
@@ -269,8 +278,8 @@ class Model:
                               "q_pos": q_pos[None], "kv_lens": kv_lens,
                               "seg_ids": seg_ids[None]}, kv_bits, slots,
                              seg_off)
-        x, layer_pools = forward_stack(params["dec"], x, cfg,
-                                       cache=pools["layers"], paged=paged)
+        x, layer_pools, _ = forward_stack(params["dec"], x, cfg,
+                                          cache=pools["layers"], paged=paged)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         hidden = x[0][torch.clamp(last_idx.to(torch.int64), min=0)]
         return self._logits(params, hidden), {"layers": layer_pools}

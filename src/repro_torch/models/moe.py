@@ -1,0 +1,145 @@
+"""Mixture-of-Experts FFN on one device.
+
+Port of the single-device path of ``repro.models.moe`` (granite-moe;
+arctic runs it beside a dense residual MLP): top-k routing with per-expert
+positions in the reference's token order, capacity-bounded dispatch into
+an (E, C, D) buffer, the expert SwiGLU FFN, and the gated combine.
+Experts are zero-padded to ``n_experts_padded`` (granite-moe: 40 -> 48);
+padded experts are masked out of routing.
+
+Every token of the (B, S) input routes and takes capacity, pads included:
+a packed-prefill wave's pad tokens compete for expert slots as they do in
+the reference, so a request's tokens can depend on the wave it was served
+in (ROADMAP §3). Tokens past an expert's capacity are dropped (their
+expert term is 0), as in the reference.
+
+Packed expert weights run kernel A's expert batch
+(``packed_matmul_experts``): one launch per projection for all experts,
+where the reference maps ``packed_matmul`` over experts one at a time
+under ``lax.cond(count > 0)``; an expert with no routed token reads no
+weight and gives exactly 0, decided on the device from ``counts``.
+Tensor/expert parallelism (the reference's ``_moe_tp`` and the EP
+``shard_map`` path) is ROADMAP item 11.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.quantize import PackedQTensor, QTensor
+from ..kernels.msb_matmul.ops import packed_matmul_experts
+
+
+def _capacity(tokens, k, e_total, cf):
+    """Slots per expert: ``cf * tokens * k / E`` rounded up to a multiple
+    of 8, at least 8 (host ints: it depends on shapes alone)."""
+    cap = int(cf * tokens * k / max(e_total, 1))
+    return max(8, -(-cap // 8) * 8)
+
+
+def _route(x2d, router_w, e_total, n_real, k, capacity):
+    """Top-k routing of the (T, D) tokens. Returns (gates (T, k) f32
+    renormalised, eidx (T, k), pos (T, k) each choice's position in its
+    expert, keep (T, k) = pos < capacity, aux the load-balancing loss).
+    Positions count over the flat (k, T) order — every token's first
+    choice before any second choice — as the reference's cumsum does."""
+    t = x2d.shape[0]
+    dev = x2d.device
+    logits = x2d.to(torch.float32) @ router_w.to(torch.float32)
+    experts = torch.arange(e_total, device=dev)
+    if n_real < e_total:
+        logits = torch.where(experts < n_real, logits,
+                             torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = torch.topk(probs, k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    flat_e = eidx.t().reshape(-1)                               # (k*T,)
+    onehot = (flat_e[:, None] == experts[None, :]).to(torch.int32)
+    pos_flat = torch.cumsum(onehot, dim=0) - 1
+    pos_flat = torch.gather(pos_flat, 1, flat_e[:, None])[:, 0]
+    pos = pos_flat.reshape(k, t).t()
+    keep = pos < capacity
+    me = probs.mean(dim=0)
+    ce = (eidx[:, :1] == experts[None, :]).to(torch.float32).mean(dim=0)
+    aux = n_real * torch.sum(me * ce)
+    return gates, eidx, pos, keep, aux
+
+
+def _dispatch(x2d, gates, eidx, pos, keep, e_total, capacity):
+    """Scatter tokens into the (E*C + 1, D) dispatch buffer; the last row
+    takes every dropped choice. Returns (buffer, flat_slot (T*k,))."""
+    t, d = x2d.shape
+    k = eidx.shape[1]
+    slot = torch.where(keep, eidx * capacity + pos,
+                       torch.full_like(eidx, e_total * capacity))
+    flat_slot = slot.reshape(-1)
+    buf = x2d.new_zeros((e_total * capacity + 1, d))
+    buf[flat_slot] = x2d[:, None].expand(t, k, d).reshape(-1, d)
+    return buf, flat_slot
+
+
+def _combine(ye_flat, flat_slot, gates, keep, t, k, d):
+    """Gather each choice's expert output back and sum it over the k
+    choices, weighted by its gate (0 for a dropped choice)."""
+    yflat = torch.cat([ye_flat, ye_flat.new_zeros((1, d))], dim=0)
+    yk = yflat[flat_slot].reshape(t, k, d)
+    w = (gates * keep).to(yk.dtype)
+    return torch.sum(yk * w[..., None], dim=1)
+
+
+def _silu_gate(g, u, dtype):
+    return torch.nn.functional.silu(g.to(torch.float32)).to(dtype) * u
+
+
+def _expert_ffn(xe, wg, wi, wo):
+    """Dense expert weights: xe (E, C, D); wg/wi (E, D, F), wo (E, F, D)."""
+    g = torch.einsum("ecd,edf->ecf", xe, wg.to(xe.dtype))
+    u = torch.einsum("ecd,edf->ecf", xe, wi.to(xe.dtype))
+    return torch.einsum("ecf,efd->ecd", _silu_gate(g, u, xe.dtype),
+                        wo.to(xe.dtype))
+
+
+def _expert_ffn_quantized(xe, wg, wi, wo, counts):
+    """Quantized expert weights, the reference's router-gated map over
+    experts: an expert with ``counts`` 0 gives exactly 0. Packed weights
+    run kernel A's expert batch, which skips those experts on the device;
+    a ``QTensor`` dequantizes and multiplies (``execution="simulated"``),
+    and the zero branch is then a select on the device."""
+    def mm(x, w):
+        if isinstance(w, PackedQTensor):
+            return packed_matmul_experts(x, w, counts)
+        if isinstance(w, QTensor):
+            w = w.dequantize()
+        return torch.matmul(x, w.to(x.dtype))
+
+    y = mm(_silu_gate(mm(xe, wg), mm(xe, wi), xe.dtype), wo)
+    if isinstance(wo, PackedQTensor):
+        return y
+    return torch.where((counts > 0)[:, None, None], y, torch.zeros_like(y))
+
+
+def moe_layer(p, x, cfg, parallel=None):
+    """x (B, S, D) -> (y (B, S, D), aux), the reference's single-device
+    path. ``p``: router (D, E) and experts wg/wi (E, D, F), wo (E, F, D),
+    dense, ``QTensor`` or ``PackedQTensor``."""
+    if parallel is not None:
+        raise NotImplementedError(
+            "expert/tensor-parallel MoE: ROADMAP item 11")
+    b, s, d = x.shape
+    k = cfg.n_experts_active
+    e_total = cfg.n_experts_padded
+    capacity = _capacity(b * s, k, e_total, cfg.capacity_factor)
+    x2d = x.reshape(-1, d)
+    gates, eidx, pos, keep, aux = _route(x2d, p["router"], e_total,
+                                         cfg.n_experts, k, capacity)
+    buf, flat_slot = _dispatch(x2d, gates, eidx, pos, keep, e_total,
+                               capacity)
+    xe = buf[:-1].reshape(e_total, capacity, d)
+    if isinstance(p["wg"], (QTensor, PackedQTensor)):
+        counts = torch.zeros(e_total, dtype=torch.int32, device=x.device)
+        counts.index_add_(0, eidx.reshape(-1),
+                          keep.reshape(-1).to(torch.int32))
+        ye = _expert_ffn_quantized(xe, p["wg"], p["wi"], p["wo"], counts)
+    else:
+        ye = _expert_ffn(xe, p["wg"], p["wi"], p["wo"])
+    y = _combine(ye.reshape(-1, d), flat_slot, gates, keep, b * s, k, d)
+    return y.reshape(b, s, d), aux

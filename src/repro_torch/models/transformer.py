@@ -1,9 +1,12 @@
-"""Layer plan, parameter declarations and the layer stack (dense stacks).
+"""Layer plan, parameter declarations and the layer stack.
 
-Port of ``repro.models.transformer`` for dense decoders. Per-layer params
+Port of ``repro.models.transformer`` for decoder-only attention stacks,
+every FFN kind: dense RoPE decoders (internlm2, granite), qwen's qkv bias,
+gemma2's post-norm and local/global sliding windows, and MoE FFNs
+(granite-moe; arctic's MoE beside a dense residual MLP). Per-layer params
 are stacked along a leading ``L`` dim (one subtree per period slot, as in
 the reference); the reference's ``lax.scan`` over that dim is a Python loop
-over layer slices here.
+over layer slices here, and each layer's window is a Python int.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 from ..core.quantize import map_tensors
 from ..device import resolve_device
 from .layers import attention_layer, mlp_layer, rms_norm
+from .moe import moe_layer
 
 
 def layer_plan(cfg, stack="dec"):
@@ -47,39 +51,80 @@ def n_periods(cfg, stack="dec"):
     return n_layers // p
 
 
-def _require_dense(cfg):
-    """The port runs dense RoPE decoders without qkv bias, sliding window
-    or post-norm (internlm2, granite); ROADMAP item 10 brings the rest."""
+def _require_attention_stack(cfg):
+    """The port runs the stacks the reference serves paged
+    (``Model.supports_paged``): decoder-only, no frontend, every mixer
+    attention with RoPE; any FFN kind. ROADMAP item 10 brings the rest."""
     if (cfg.is_encdec or cfg.frontend != "none" or not cfg.use_rope
-            or cfg.qkv_bias or cfg.sliding_window or cfg.post_norm
-            or any(mixer != "attn" or ffn != "dense"
-                   for mixer, ffn in layer_plan(cfg, "dec"))):
+            or any(mixer != "attn" for mixer, _ in layer_plan(cfg, "dec"))):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense RoPE decoders only (ROADMAP "
-            "item 10 brings MoE, hybrid, xlstm, enc-dec, VLM, qkv bias, "
-            "sliding windows and post-norm)")
+            f"{cfg.name}: the port runs decoder-only attention stacks "
+            "(ROADMAP item 10 brings jamba's mamba layers, xlstm, the "
+            "whisper enc-dec and the internvl frontend)")
+
+
+def _attn_defs(cfg, prefix):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    defs = {
+        f"{prefix}/wq": ((d, h * hd), "fan_in"),
+        f"{prefix}/wk": ((d, kv * hd), "fan_in"),
+        f"{prefix}/wv": ((d, kv * hd), "fan_in"),
+        f"{prefix}/wo": ((h * hd, d), "fan_out"),
+    }
+    if cfg.qkv_bias:
+        defs.update({
+            f"{prefix}/bq": ((h * hd,), "zero"),
+            f"{prefix}/bk": ((kv * hd,), "zero"),
+            f"{prefix}/bv": ((kv * hd,), "zero"),
+        })
+    return defs
+
+
+def _ffn_defs(cfg, prefix):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        f"{prefix}/wg": ((d, f), "fan_in"),
+        f"{prefix}/wi": ((d, f), "fan_in"),
+        f"{prefix}/wo": ((f, d), "fan_out"),
+    }
+
+
+def _moe_defs(cfg, prefix):
+    """Experts padded to ``n_experts_padded`` (granite-moe: 40 -> 48); the
+    router keeps a column per padded expert, masked in routing."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts_padded
+    return {
+        f"{prefix}/router": ((d, e), "fan_in"),
+        f"{prefix}/wg": ((e, d, f), "fan_in"),
+        f"{prefix}/wi": ((e, d, f), "fan_in"),
+        f"{prefix}/wo": ((e, f, d), "fan_out"),
+    }
+
+
+def _slot_defs(cfg, slot_prefix, ffn):
+    d = cfg.d_model
+    defs = {f"{slot_prefix}/norm1": ((d,), "zero")}
+    defs.update(_attn_defs(cfg, f"{slot_prefix}/attn"))
+    defs[f"{slot_prefix}/norm2"] = ((d,), "zero")
+    if cfg.post_norm:
+        defs[f"{slot_prefix}/norm1b"] = ((d,), "zero")
+        defs[f"{slot_prefix}/norm2b"] = ((d,), "zero")
+    if ffn in ("dense", "moe+dense"):
+        defs.update(_ffn_defs(cfg, f"{slot_prefix}/mlp"))
+    if ffn in ("moe", "moe+dense"):
+        defs.update(_moe_defs(cfg, f"{slot_prefix}/moe"))
+    return defs
 
 
 def param_defs(cfg):
     """path -> (shape, init_kind), as the reference declares them."""
-    _require_dense(cfg)
+    _require_attention_stack(cfg)
     d, vp = cfg.d_model, cfg.vocab_padded
-    h, kv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.d_ff
     defs = {"embed": ((vp, d), "embed"), "final_norm": ((d,), "zero")}
     if not cfg.tie_embeddings:
         defs["unembed"] = ((vp, d), "fan_out")
-    p = "dec/s0"
-    defs.update({
-        f"{p}/norm1": ((d,), "zero"),
-        f"{p}/attn/wq": ((d, h * hd), "fan_in"),
-        f"{p}/attn/wk": ((d, kv * hd), "fan_in"),
-        f"{p}/attn/wv": ((d, kv * hd), "fan_in"),
-        f"{p}/attn/wo": ((h * hd, d), "fan_out"),
-        f"{p}/norm2": ((d,), "zero"),
-        f"{p}/mlp/wg": ((d, f), "fan_in"),
-        f"{p}/mlp/wi": ((d, f), "fan_in"),
-        f"{p}/mlp/wo": ((f, d), "fan_out"),
-    })
+    for slot, (_mixer, ffn) in enumerate(layer_plan(cfg, "dec")):
+        defs.update(_slot_defs(cfg, f"dec/s{slot}", ffn))
     return defs
 
 
@@ -116,46 +161,84 @@ def init_params(cfg, generator, device=None):
     return _nest(flat)
 
 
-def _block(x, lp, cfg, *, positions, cur_pos, cache, decode_positions,
-           paged):
-    """One attention + dense-MLP residual block. Returns (x, new_cache)."""
+def _block(x, lp, cfg, ffn, *, window, positions, cur_pos, cache,
+           decode_positions, paged):
+    """One attention + FFN residual block, pre-norm and (gemma2) post-norm
+    after the mixer and after the FFN; ``ffn`` is "dense", "moe" or
+    "moe+dense" (the two summed, arctic). Returns (x, new_cache, aux): the
+    router's load-balancing loss, None without an MoE FFN."""
+    aux = None
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     y, new_cache = attention_layer(
-        lp["attn"], h, cfg, positions,
+        lp["attn"], h, cfg, positions, window=window,
         cache=None if cache is None else cache["attn"], cur_pos=cur_pos,
         decode_positions=decode_positions, paged=paged)
+    if cfg.post_norm:
+        y = rms_norm(y, lp["norm1b"], cfg.norm_eps)
     x = x + y
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + mlp_layer(lp["mlp"], h), {"attn": new_cache}
+    y = None if ffn == "moe" else mlp_layer(lp["mlp"], h)
+    if ffn != "dense":
+        ym, aux = moe_layer(lp["moe"], h, cfg)
+        y = ym if y is None else y + ym
+    if cfg.post_norm:
+        y = rms_norm(y, lp["norm2b"], cfg.norm_eps)
+    return x + y, {"attn": new_cache}, aux
+
+
+def _window_array(cfg, stack="dec"):
+    """Per-period, per-slot sliding-window sizes as nested lists of ints
+    (gemma2: ``sliding_window`` on layers ``i % local_every == 0``, 0 on
+    the others), the reference's int32 array as Python ints."""
+    plan = layer_plan(cfg, stack)
+    np_, p = n_periods(cfg, stack), len(plan)
+    wins = [[0] * p for _ in range(np_)]
+    if cfg.sliding_window and cfg.local_every:
+        for layer in range(np_ * p):
+            if layer % cfg.local_every == 0:
+                wins[layer // p][layer % p] = int(cfg.sliding_window)
+    return wins
 
 
 def forward_stack(params_stack, x, cfg, *, positions=None, cache=None,
                   cur_pos=None, collect_cache=False, decode_positions=None,
                   paged=None):
     """Run the layer stack (the reference's scan is a loop over layer
-    slices). Returns (x, cache).
+    slices). Returns (x, cache, aux): ``aux`` the router losses summed
+    over layers (f32 scalar, 0 without MoE).
 
-    * loss: ``positions`` only; returns (x, None).
+    * loss: ``positions`` only; returns (x, None, aux).
     * prefill: ``collect_cache=True``; returns each slot's roped
       {"k", "v"} stacked to (n_periods, B, S, KV, d).
     * ring decode: ``cache`` (the ``layers`` subtree of ``Model.init_cache``)
       with ``cur_pos`` and ``decode_positions``; each layer writes its ring
       slice in place and ``cache`` is returned.
     * paged: ``cache`` = the pools' ``layers`` subtree and ``paged``; each
-      layer writes its slice of the stacked pools in place."""
-    _require_dense(cfg)
-    collected = []
+      layer writes its slice of the stacked pools in place.
+
+    Each layer's window is a Python int from ``_window_array``: constant
+    per layer, so a captured CUDA graph holds it as it holds a shape."""
+    _require_attention_stack(cfg)
+    plan = layer_plan(cfg, "dec")
+    wins = _window_array(cfg, "dec")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    collected = {f"s{slot}": [] for slot in range(len(plan))}
     for period in range(n_periods(cfg)):
-        lp = map_tensors(lambda t: t[period], params_stack["s0"])
-        layer_cache = (None if cache is None
-                       else map_tensors(lambda t: t[period], cache["s0"]))
-        x, nc = _block(x, lp, cfg, positions=positions, cur_pos=cur_pos,
-                       cache=layer_cache, decode_positions=decode_positions,
-                       paged=paged)
-        if collect_cache:
-            collected.append(nc["attn"])
+        for slot, (_mixer, ffn) in enumerate(plan):
+            name = f"s{slot}"
+            lp = map_tensors(lambda t: t[period], params_stack[name])
+            layer_cache = (None if cache is None else
+                           map_tensors(lambda t: t[period], cache[name]))
+            x, nc, a = _block(x, lp, cfg, ffn, window=wins[period][slot],
+                              positions=positions, cur_pos=cur_pos,
+                              cache=layer_cache,
+                              decode_positions=decode_positions, paged=paged)
+            if a is not None:
+                aux = aux + a
+            if collect_cache:
+                collected[name].append(nc["attn"])
     if collect_cache:
-        cache = {"s0": {"attn": {
-            name: torch.stack([c[name] for c in collected])
-            for name in ("k", "v")}}}
-    return x, cache
+        cache = {name: {"attn": {k: torch.stack([c[k] for c in cs])
+                                 for k in ("k", "v")}}
+                 for name, cs in collected.items()}
+    return x, cache, aux

@@ -865,3 +865,125 @@ def test_qtensor_matmul_runs_kernel_a_on_a_solver_output(cuda):
     assert mm_ops.msb_matmul.launches == before + 1
     torch.testing.assert_close(y, y_ref, rtol=0,
                                atol=1e-5 * y_ref.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the model families: kernel A's expert batch, B and C with a window
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8, 112, 200])
+def test_msb_matmul_experts_is_msb_matmul_per_expert(cuda, m, dtype):
+    """Each expert's rows of the expert batch are bit for bit
+    ``msb_matmul`` on that expert alone; experts with count 0 are exactly
+    0; the batch counts one launch and agrees with its plain version."""
+    rng = np.random.default_rng(30 + m)
+    e, k, n = 6, 512, 256
+    packed = torch.from_numpy(rng.integers(0, 256, (e, k, n // 2)).astype(
+        np.uint8)).to(cuda)
+    scales = torch.from_numpy(np.sort(rng.random((e, k, n // 64, 8)).astype(
+        np.float32) * 0.1, axis=-1)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((e, m, k)).astype(
+        np.float32)).to(cuda).to(dtype)
+    counts = torch.tensor([m, 0, 1, 0, 3, m], dtype=torch.int32,
+                          device=cuda)
+    before = mm_ops.msb_matmul_experts.launches
+    y = mm_ops.msb_matmul_experts(x, packed, scales, counts)
+    assert mm_ops.msb_matmul_experts.launches == before + 1
+    for i in range(e):
+        if int(counts[i]) == 0:
+            assert (y[i] == 0).all()
+        else:
+            alone = mm_ops.msb_matmul(x[i].contiguous(), packed[i], scales[i])
+            assert torch.equal(y[i], alone), f"expert {i}"
+    want = mm_ref.msb_matmul_experts_ref(x, packed, scales, counts)
+    tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * \
+        want.float().abs().max().item()
+    torch.testing.assert_close(y.float(), want.float(), rtol=0, atol=tol)
+
+
+WINDOW_LENS = [0, 1, 17, 100, 300, 517, 1029, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [6, 100, 260])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_paged_attention_window_rows_alone_and_plain(cuda, bits, window):
+    """B (kv16) and C with a per-row window start (decode: kv_len -
+    window, mid-page for most rows) at d=256, KV=4, softcap 50: every row
+    agrees with the plain version and is bit for bit the same alone, with
+    a block table only as wide as it needs."""
+    rng = np.random.default_rng(40 + bits + window)
+    ps, kv, h, d = 16, 4, 8, 256
+    if bits == 16:
+        q, k_pool, v_pool, bt, lens = _kv16_case(
+            rng, torch.bfloat16, WINDOW_LENS, cuda, ps=ps, kv=kv, h=h, d=d)
+        pools = (k_pool, v_pool)
+        run, plain = pa_ops.paged_attention_decode, \
+            pa_ref.paged_attention_decode_ref
+        tail, kw = (), {}
+    else:
+        args, _ = _quant_case(rng, bits, torch.bfloat16, WINDOW_LENS, cuda,
+                              ps=ps, kv=kv, h=h, d=d)
+        q, pools, bt, lens, hot_rows = (args[0], args[1:7], args[7],
+                                        args[8], args[9])
+        run, plain = pa_ops.paged_attention_decode_quant, \
+            pa_ref.paged_attention_decode_quant_ref
+        tail, kw = (hot_rows,), dict(kv_bits=bits)
+    starts = torch.clamp(lens - window, min=0)
+    out = run(q, *pools, bt, lens, *tail, kv_start=starts, softcap=50.0,
+              **kw)
+    want = plain(q, *pools, bt, lens, *tail, kv_start=starts, softcap=50.0,
+                 **kw)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
+    assert (out[0] == 0).all()
+    for i, n in enumerate(WINDOW_LENS):
+        w = max(1, -(-n // ps))
+        alone = run(q[i:i + 1].contiguous(), *pools,
+                    bt[i:i + 1, :w].contiguous(), lens[i:i + 1].contiguous(),
+                    *(t[i:i + 1].contiguous() for t in tail),
+                    kv_start=starts[i:i + 1].contiguous(), softcap=50.0,
+                    **kw)
+        assert torch.equal(alone[0], out[i]), f"row of {n} keys"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("bits", [16, 4])
+def test_family_engines_warm_and_match_the_cpu(cuda, arch, bits):
+    """Smoke gemma2 (window 6, binding) and granite-moe served through
+    warmed dispatch graphs: no capture after warmup(), the expert batch
+    counted on the MoE path, tokens equal to the same engine on the CPU
+    (fp32 smoke params: near ties aside, which this seed has none of).
+    MoE runs with a capacity no expert can overflow: the scratch page its
+    pads read is written through duplicate indices, in another order on
+    the card than on the CPU (ROADMAP §3)."""
+    cfg = smoke_config(arch)
+    if cfg.sliding_window:
+        cfg = dataclasses.replace(cfg, sliding_window=6)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=(
+            cfg.n_experts_padded / cfg.n_experts_active))
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    qparams, _ = quantize_params(params, QuantPolicy(min_size=1024),
+                                 device="cpu")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ContinuousEngine(model, qparams, decode_horizon=8, kv_bits=bits,
+                               device=dev, **GRAPH_ENGINE)
+        if dev == "cuda":
+            eng.warmup()
+            n0 = jit_trace_count()
+            before = mm_ops.msb_matmul_experts.launches
+        for p in _graph_prompts(cfg.vocab_size):
+            eng.submit(p, 12)
+        outs[dev] = eng.run()
+        if dev == "cuda":
+            assert jit_trace_count() == n0, "a capture after warmup()"
+            moe = mm_ops.msb_matmul_experts.launches - before
+            assert (moe > 0) == bool(cfg.n_experts)
+        eng.close()
+    for rid in outs["cpu"]:
+        np.testing.assert_array_equal(outs["cuda"][rid], outs["cpu"][rid])

@@ -120,13 +120,22 @@ def test_unported_engine_options_name_their_roadmap_item(name):
 
 
 def test_window_attention_names_its_roadmap_item():
+    """The paged path now takes a sliding window (gemma2), so the window
+    no longer raises; the stacks ROADMAP item 10 still brings (jamba's
+    mamba layers, xlstm, whisper's enc-dec, the internvl frontend) are
+    refused by name."""
+    from repro_torch.configs import get_config
     from repro_torch.models.attention import paged_attention
-    q = torch.zeros(1, 1, 2, 4)
-    pool = torch.zeros(2, 2, 1, 4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        paged_attention(q, pool, pool, torch.ones(1, 1, dtype=torch.int32),
-                        torch.zeros(1, 1, dtype=torch.int32),
-                        torch.ones(1, dtype=torch.int32), window=4)
+    q = torch.ones(1, 1, 2, 16)
+    pool = torch.ones(2, 2, 1, 16)
+    out = paged_attention(q, pool, pool, torch.ones(1, 1, dtype=torch.int32),
+                          torch.ones(1, 1, dtype=torch.int32),
+                          torch.full((1,), 2, dtype=torch.int32), window=4)
+    assert torch.allclose(out, torch.ones(1, 1, 2, 16))
+    for name in ("jamba-v0.1-52b", "xlstm-125m", "whisper-large-v3",
+                 "internvl2-76b"):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            Model(get_config(name)).init(torch.Generator(), device="cpu")
 
 
 def test_package_version_and_plain_init_is_seeded():
