@@ -30,12 +30,13 @@ each token's first visible position ``max(0, q_pos + 1 - window)``,
 computed on the device from ``q_pos`` (``_window_starts``), so no host
 value enters a captured graph. Pad rows differ from the reference on
 purpose: they come out 0, where the reference returns the mean of V; pad
-logits are discarded and pad K/V land on page 0. Except in MoE stacks
-(``mean_pads``): their routing gives every token of a dispatch, pads
-included, a share of each expert's capacity, so a pad's hidden state can
-move a real token's; there a query that sees no key (``q_pos < 0``) takes
-the reference's output, the mean of V over every position of its
-block-table row (``_mean_for_pads``).
+logits are discarded and pad K/V land on page 0. Except where an MoE
+expert can overflow (``mean_pads``, decided per dispatch shape by
+``transformer._pads_reach_tokens``): routing gives every token of a
+dispatch, pads included, a share of each expert's capacity, so a pad's
+hidden state can then move a real token's; there a query that sees no key
+(``q_pos < 0``) takes the reference's output, the mean of V over every
+position of its block-table row (``_mean_for_pads``).
 """
 from __future__ import annotations
 

@@ -58,7 +58,7 @@ def dense(x, w, b=None):
 
 def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
                     cur_pos=None, cross=False, decode_positions=None,
-                    paged=None):
+                    paged=None, mean_pads=False):
     """Self-attention. Returns (out, new_cache).
 
     Prefill and loss: ``cache`` None -> causal flash attention over the
@@ -76,7 +76,10 @@ def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
     With ``seg_ids`` the (1, T) row is a packed ragged prefill: per-token
     segment ids route every write and read to the token's own block-table
     row. ``window`` > 0 (a Python int; gemma2's local layers) hides keys at
-    or below ``q_pos - window`` on every path. Cross-attention
+    or below ``q_pos - window`` on every path. ``mean_pads`` (paged): pads
+    take the reference's mean of V over their row, for dispatches where a
+    pad can move a real token (``transformer._pads_reach_tokens``).
+    Cross-attention
     (``cross=True``, enc-dec) is not ported."""
     if cross:
         raise NotImplementedError(
@@ -98,9 +101,8 @@ def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
     k = rope(k, safe_pos, cfg.rope_theta)
     seg_ids = paged.get("seg_ids")
     t = q.shape[1]
-    # MoE routes pads too: their attention must be the reference's
     kw = dict(window=window, softcap=softcap, scale=scale,
-              mean_pads=bool(cfg.n_experts))
+              mean_pads=mean_pads)
     if "k_codes" in cache:
         kv_bits = paged["kv_bits"]
         if seg_ids is not None:

@@ -18,7 +18,7 @@ import torch
 from ..core.quantize import map_tensors
 from ..device import resolve_device
 from .layers import attention_layer, mlp_layer, rms_norm
-from .moe import moe_layer
+from .moe import _capacity, moe_layer
 
 
 def layer_plan(cfg, stack="dec"):
@@ -161,18 +161,32 @@ def init_params(cfg, generator, device=None):
     return _nest(flat)
 
 
+def _pads_reach_tokens(cfg, plan, tokens):
+    """Whether a paged dispatch of ``tokens`` (B * T) can let its pads move
+    a real token: only through an MoE layer's capacity, and only where an
+    expert can overflow. Top-k picks distinct experts, so an expert takes
+    at most ``tokens`` choices and overflows only if its capacity is below
+    that (never at decode with B <= 8). Host ints: constant per dispatch
+    shape."""
+    return (any(ffn != "dense" for _, ffn in plan)
+            and _capacity(tokens, cfg.n_experts_active, cfg.n_experts_padded,
+                          cfg.capacity_factor) < tokens)
+
+
 def _block(x, lp, cfg, ffn, *, window, positions, cur_pos, cache,
-           decode_positions, paged):
+           decode_positions, paged, mean_pads=False):
     """One attention + FFN residual block, pre-norm and (gemma2) post-norm
     after the mixer and after the FFN; ``ffn`` is "dense", "moe" or
-    "moe+dense" (the two summed, arctic). Returns (x, new_cache, aux): the
-    router's load-balancing loss, None without an MoE FFN."""
+    "moe+dense" (the two summed, arctic). ``mean_pads``: paged pads take
+    the reference's attention output (``_pads_reach_tokens``). Returns (x,
+    new_cache, aux): the router's load-balancing loss, None without an MoE
+    FFN."""
     aux = None
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     y, new_cache = attention_layer(
         lp["attn"], h, cfg, positions, window=window,
         cache=None if cache is None else cache["attn"], cur_pos=cur_pos,
-        decode_positions=decode_positions, paged=paged)
+        decode_positions=decode_positions, paged=paged, mean_pads=mean_pads)
     if cfg.post_norm:
         y = rms_norm(y, lp["norm1b"], cfg.norm_eps)
     x = x + y
@@ -221,6 +235,8 @@ def forward_stack(params_stack, x, cfg, *, positions=None, cache=None,
     _require_attention_stack(cfg)
     plan = layer_plan(cfg, "dec")
     wins = _window_array(cfg, "dec")
+    mean_pads = paged is not None and _pads_reach_tokens(
+        cfg, plan, x.shape[0] * x.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     collected = {f"s{slot}": [] for slot in range(len(plan))}
     for period in range(n_periods(cfg)):
@@ -232,7 +248,8 @@ def forward_stack(params_stack, x, cfg, *, positions=None, cache=None,
             x, nc, a = _block(x, lp, cfg, ffn, window=wins[period][slot],
                               positions=positions, cur_pos=cur_pos,
                               cache=layer_cache,
-                              decode_positions=decode_positions, paged=paged)
+                              decode_positions=decode_positions, paged=paged,
+                              mean_pads=mean_pads)
             if a is not None:
                 aux = aux + a
             if collect_cache:

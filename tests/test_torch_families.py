@@ -7,9 +7,17 @@ The layer plan's windows and ``supports_paged`` for all ten archs; the
 loss with the router's aux loss; ``prefill`` and ring ``decode_step``;
 ``paged_prefill_packed``, ``paged_step`` and ``paged_decode_horizon`` at
 kv_bits 16, 8 and 4 (logits 1e-4, as ``tests/test_torch_model.py``: the
-projections sum in another order than XLA's dot); ``ServeEngine`` greedy
-tokens identical to ``repro.serve.ServeEngine``'s and ``score`` within
-1e-5. The stacks still to port name ROADMAP item 10."""
+projections sum in another order than XLA's dot); ``ContinuousEngine``
+greedy tokens identical to ``repro.serve.ContinuousEngine``'s at kv_bits
+16, 8 and 4; ``ServeEngine`` greedy tokens identical to
+``repro.serve.ServeEngine``'s and ``score`` within 1e-5. The stacks still
+to port name ROADMAP item 10.
+
+The paged-path test calls the reference engine's own jitted dispatches at
+the engine's shapes, so the reference compiles each once per arch and
+kv_bits for both tests (its compiles are most of this file's time)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -108,35 +116,49 @@ def test_prefill_and_decode_steps_match_reference(arch):
         cur += 1
 
 
-def _run(fn_j, fn_t, jp, tp, pools, args, static, **kw):
-    """One call of the reference and of the port. Over quantized pools the
-    reference is jitted (``static`` its static keyword names): its commit
-    is slow op by op."""
-    if kw["kv_bits"] != 16:
-        fn_j = jax.jit(fn_j, static_argnames=static)
-    jout = fn_j(jp, pools[0], *(jnp.asarray(a) for a in args),
-                **{k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
-                   for k, v in kw.items()})
-    tout = fn_t(tp, pools[1], *(torch.from_numpy(a) for a in args),
-                **{k: torch.from_numpy(v) if isinstance(v, np.ndarray)
-                   else v for k, v in kw.items()})
-    return jout, tout
+# the engine both packages' ContinuousEngine tests run (``ENGINE``) and the
+# shapes of its dispatches, which the paged-path test reuses so that the
+# reference's jitted dispatches compile once per arch and kv_bits
+ENGINE = dict(max_batch=4, page_size=fam.PS, num_pages=64, max_seq=40,
+              prefill_chunk=6, prefill_buckets=(24,), decode_horizon=8)
+WIDTH = ENGINE["max_seq"] // fam.PS               # block-table width
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: small ops run faster alone beside the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _j(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _t(arrays):
+    return [torch.from_numpy(a) for a in arrays]
 
 
 @pytest.mark.parametrize("bits", [16, 8, 4])
 @pytest.mark.parametrize("arch", fam.ARCHS)
 def test_paged_paths_match_reference(arch, bits):
-    """Packed params over kv16 or quantized pools: a packed prefill wave
-    of two segments (11 and 7 tokens, past gemma2's window, pads behind),
-    a paged decode step of both rows, then a decode horizon of 4 with
-    greedy sampling on the device: logits 1e-4, horizon tokens and masks
+    """Packed params over kv16 or quantized pools, through the reference
+    engine's jitted dispatches at the shapes of ``ENGINE``: a packed
+    prefill wave of two segments (11 and 7 tokens, past gemma2's window,
+    pads behind), a paged decode step of both rows, then a decode horizon
+    of 8 with greedy sampling on the device (rows stopping after 4 and 3
+    tokens, two pad rows): logits 1e-4, horizon tokens and masks
     identical."""
+    from repro.serve import continuous as jc
     jm, tm, trees = fam.setup(arch)
     jp, tp = trees["packed"]
-    kw = {} if bits == 16 else dict(max_seqs=3)
-    pools = (jm.init_paged_pools(16, fam.PS, kv_bits=bits, **kw),
-             tm.init_paged_pools(16, fam.PS, kv_bits=bits, device="cpu",
-                                 **kw))
+
+    def quant(slots):
+        return {} if bits == 16 else dict(slots=torch.from_numpy(slots))
+
     rng = np.random.default_rng(10 + bits)
     t = 24
     tokens, seg, pos = (np.zeros(t, np.int32), np.full(t, -1, np.int32),
@@ -144,30 +166,89 @@ def test_paged_paths_match_reference(arch, bits):
     tokens[:18] = rng.integers(0, fam.VOCAB, 18)
     seg[:11], seg[11:18] = 0, 1
     pos[:11], pos[11:18] = np.arange(11), np.arange(7)
-    bt = _i32([[1, 2, 3, 4, 5], [6, 7, 8, 9, 10], [0] * 5])
-    slots = _i32([0, 2, -1])
-    (jl, jpools), (tl, tpools) = _run(
-        jm.paged_prefill_packed, tm.paged_prefill_packed, jp, tp, pools,
-        (tokens, seg, pos, _i32([11, 7, 0]), bt, slots, _i32([10, 17, 0]),
-         _i32([0, 11, 0])), ("kv_bits",), kv_bits=bits)
+    bt = np.zeros((4, WIDTH), np.int32)
+    bt[0, :5], bt[1, :5] = np.arange(1, 6), np.arange(6, 11)
+    slots = _i32([0, 2, -1, -1])
+    wave = (tokens, seg, pos, _i32([11, 7, 0, 0]), bt, slots,
+            _i32([10, 17, 0, 0]), _i32([0, 11, 0, 0]))
+    jl, jpools = jc._paged_prefill_packed(
+        jm, bits, jm.init_paged_pools(64, fam.PS, kv_bits=bits, max_seqs=4),
+        jp, *_j(wave))
+    tl, tpools = tm.paged_prefill_packed(
+        tp, tm.init_paged_pools(64, fam.PS, kv_bits=bits, max_seqs=4,
+                                device="cpu"), *_t(wave), kv_bits=bits)
     np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2], rtol=0,
                                atol=1e-4)
-    quant = {} if bits == 16 else dict(slots=slots[:2])
-    first = _i32(np.asarray(jl)[:2].argmax(-1))
-    (jl, jpools), (tl, tpools) = _run(
-        jm.paged_step, tm.paged_step, jp, tp, (jpools, tpools),
-        (first[:, None], _i32([[11], [7]]), _i32([12, 8]), bt[:2]),
-        ("kv_bits",), kv_bits=bits, **quant)
+    step = (_i32(np.asarray(jl)[:2].argmax(-1))[:, None], _i32([[11], [7]]),
+            _i32([12, 8]), bt[:2])
+    jl, jpools = jc._paged_step(jm, bits, jpools, jp, *_j(step),
+                                jnp.asarray(slots[:2]))
+    tl, tpools = tm.paged_step(tp, tpools, *_t(step), kv_bits=bits,
+                               **quant(slots[:2]))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                atol=1e-4)
-    nxt = _i32(np.asarray(jl).argmax(-1))
-    (jt, jv, _), (tt, tv, _) = _run(
-        jm.paged_decode_horizon, tm.paged_decode_horizon, jp, tp,
-        (jpools, tpools), (nxt, _i32([12, 8]), bt[:2], _i32([4, 3]),
-                           _i32([-1, -1])), ("horizon", "kv_bits"),
-        horizon=4, kv_bits=bits, **quant)
+    nxt = np.zeros(4, np.int32)
+    nxt[:2] = np.asarray(jl).argmax(-1)
+    start, n_left, eos = _i32([12, 8, -1, -1]), _i32([4, 3, 0, 0]), \
+        _i32([-1] * 4)
+    jt, jv, _ = jc._paged_horizon_step(jm, 8, bits, jpools, jp, *_j(
+        (nxt, start, n_left, eos, bt, slots)))
+    tt, tv, _ = tm.paged_decode_horizon(
+        tp, tpools, *_t((nxt, start, bt, n_left, eos)), 8, kv_bits=bits,
+        **quant(slots))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+def _serve(eng):
+    """The five requests of ``fam.requests``, the first alone so that the
+    second hits the prefix cache. Returns (outputs, prefix hits)."""
+    reqs = fam.requests()
+    out = {}
+    eng.submit(*reqs[0])
+    out.update(eng.run())
+    for r in reqs[1:]:
+        eng.submit(*r)
+    out.update(eng.run())
+    return out, eng.n_prefix_hits
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("arch", fam.ARCHS)
+def test_continuous_engine_tokens_match_reference(arch, bits):
+    """Greedy tokens of the port's ``ContinuousEngine`` identical to
+    ``repro.serve.ContinuousEngine``'s on the same quantized params
+    (packed execution, decode horizon 8, packed prefill, prefix cache on;
+    ``fam.requests``), and the same prefix hits.
+
+    MoE at kv_bits 8 and 4 runs with a capacity no expert can overflow
+    (``capacity_factor`` = padded experts / top-k, so capacity >= tokens):
+    where an expert overflows, which choices drop depends on the pads'
+    routing, and the reference gives a pad the mean of V over its row, the
+    scratch page included, whose bytes its quantized commit writes through
+    duplicate indices in an order the port does not reproduce (ROADMAP §3;
+    witnessed by ``tests/test_torch_moe.py::
+    test_moe_quantized_commit_writes_other_scratch_bytes``). At kv16 the
+    scratch bytes agree and MoE runs its own capacity."""
+    from repro.serve import ContinuousEngine as JEngine
+    from repro_torch.serve import ContinuousEngine
+    jm, tm, trees = fam.setup(arch)
+    jq, tq = trees["quantized"]
+    cfg = jm.cfg
+    if cfg.n_experts and bits != 16:
+        cf = cfg.n_experts_padded / cfg.n_experts_active
+        jm = type(jm)(dataclasses.replace(cfg, capacity_factor=cf))
+        tm = type(tm)(dataclasses.replace(tm.cfg, capacity_factor=cf))
+    want, j_hits = _serve(JEngine(jm, jq, execution="packed", kv_bits=bits,
+                                  **ENGINE))
+    eng = ContinuousEngine(tm, tq, kv_bits=bits, device="cpu", **ENGINE)
+    got, hits = _serve(eng)
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    assert hits == j_hits >= 1
+    eng.close()
+    eng.cache.check_invariants(expect_idle=True)
 
 
 @pytest.mark.parametrize("arch", fam.ARCHS)

@@ -18,9 +18,7 @@ import pytest
 import torch
 
 from repro.configs import smoke_config as j_smoke
-from repro.core import QuantPolicy as JPolicy
 from repro.core import pack_params as j_pack
-from repro.core import quantize_params as j_quant
 from repro.kernels.msb_matmul.ref import msb_matmul_ref as j_mm_ref
 from repro.models import moe as jmoe
 from repro.models import transformer as jtr
@@ -45,8 +43,8 @@ def _moe_params(arch, tree):
     params = jtr.init_params(j_smoke(arch), jax.random.PRNGKey(3))
     jp = jax.tree_util.tree_map(lambda a: a[0], params["dec"]["s0"]["moe"])
     if tree != "dense":
-        jp, _ = j_quant(jp, JPolicy(bits=4, block=64, solver="dp",
-                                    min_size=1024))
+        import torch_families_setup as fam
+        jp = fam._quantize(jp)          # quantize_params, jitted per leaf
         if tree == "packed":
             jp, _ = j_pack(jp)
     return jp, from_reference(jp, "cpu")
@@ -115,6 +113,22 @@ def test_moe_layer_matches_reference(arch, tree):
     ty, taux = tmoe.moe_layer(tp, torch.from_numpy(x), tcfg)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=0, atol=1e-5)
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch,tokens,reach", [
+    ("granite-moe-3b-a800m", 8, False),      # decode at B = 8
+    ("granite-moe-3b-a800m", 512, True),     # a packed-prefill wave
+    ("arctic-480b", 8, False), ("arctic-480b", 512, True),
+    ("granite-3-2b", 512, False)])           # no MoE layer
+def test_pads_reach_tokens_only_where_an_expert_can_overflow(arch, tokens,
+                                                             reach):
+    """Pads take the reference's mean of V (``mean_pads``) only in paged
+    dispatches whose MoE capacity is below their token count; at decode
+    with B <= 8 every expert has room for every token."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as ttr
+    cfg = get_config(arch)
+    assert ttr._pads_reach_tokens(cfg, ttr.layer_plan(cfg), tokens) == reach
 
 
 def test_capacity_overflow_drops_the_same_choices():

@@ -19,7 +19,8 @@ import numpy as np
 from repro.configs import smoke_config as j_smoke
 from repro.core import QuantPolicy as JPolicy
 from repro.core import pack_params as j_pack
-from repro.core import quantize_params as j_quant
+from repro.core.policy import _path_str
+from repro.core.quantize import quantize_blockwise
 from repro.models import Model as JModel
 from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.convert import from_reference
@@ -51,16 +52,31 @@ def _perturb(tree, rng, path=""):
     return tree
 
 
+POLICY = JPolicy(bits=4, block=64, solver="dp", min_size=1024)
+_quantize_leaf = jax.jit(functools.partial(
+    quantize_blockwise, bits=POLICY.bits, block=POLICY.block,
+    solver=POLICY.solver, lam=POLICY.lam))
+
+
+def _quantize(tree):
+    """The reference's ``quantize_params(tree, POLICY)`` jitted leaf by
+    leaf: the smoke configs share their widths, so each leaf shape
+    compiles once for all of them."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, leaf: (_quantize_leaf(leaf) if POLICY.selects(
+            _path_str(path), leaf) else leaf), tree)
+
+
 @functools.lru_cache(maxsize=None)
 def setup(arch):
     """(jm, tm, {"plain" | "quantized" | "packed": (reference tree, port
-    tree)}): seeded params, 4-bit block-64 DP (jitted), and packed."""
+    tree)}): seeded params, 4-bit block-64 DP (``_quantize``), and
+    packed."""
     jcfg, tcfg = configs(arch)
     jm, tm = JModel(jcfg), TModel(tcfg)
     plain = _perturb(jm.init(jax.random.PRNGKey(0)),
                      np.random.default_rng(1))
-    policy = JPolicy(bits=4, block=64, solver="dp", min_size=1024)
-    quant = jax.jit(lambda p: j_quant(p, policy)[0])(plain)
+    quant = _quantize(plain)
     packed, _ = j_pack(quant)
     trees = {"plain": plain, "quantized": quant, "packed": packed}
     return jm, tm, {k: (v, from_reference(v, "cpu"))
