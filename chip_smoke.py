@@ -16,7 +16,11 @@ one line each (details indented), any failure exits non-zero:
    projection), with times; rows bit-identical at M = 1, 8, 17, 512 and
    4096; its expert batch at granite-moe's shapes (48 experts, C = 8 and
    112, counts with zeros), every expert bit-identical to msb_matmul on
-   it alone
+   it alone; the unembedding's kernel (``msb_unembed``) at internlm2's
+   k-blocked table and gemma2's and qwen1.5-0.5b's tied tables at M = 1,
+   8 and 64, with its plain version, ``torch.matmul`` on the
+   pre-dequantized f32 table and its bound; rows at M = 1 and 8
+   bit-identical to the same rows at M = 64
 4. paged_attention_decode (split-KV) vs its plain version on full-width
    bf16 pools and at a 512-token packed-prefill wave, and with gemma2's
    sliding window (d=256, KV=4, softcap 50, rows to 8192 keys, windows
@@ -34,7 +38,7 @@ one line each (details indented), any failure exits non-zero:
    pools, each engine's dispatch set captured as CUDA graphs by warmup()
    first (report printed; no capture after it); the kernels' launch
    counters are zeroed just before the horizon-8 run and those of its path
-   must be non-zero after it. Before the timed runs, graph replay is held
+   (A, the unembedding's kernel, B) must be non-zero after it. Before the timed runs, graph replay is held
    against the same dispatches run eagerly (one packed-prefill bucket, one
    decode-horizon batch): outputs and pools bit-identical, pool addresses
    unchanged. Decode-step and prefill-wave profiles over graph replays
@@ -80,8 +84,8 @@ one line each (details indented), any failure exits non-zero:
    tokens (kernel D with the window) then score; granite-moe at kv16
    (kernel A's expert batch) and through ServeEngine; every engine as in
    phase 7 (graph replay bitwise against eager, warmed H=8 and H=1, no
-   capture after warm-up, H=8 tokens against H=1, launch counters) with a
-   decode-step profile; granite-moe also at its own capacity with uneven
+   capture after warm-up, H=8 tokens against H=1, launch counters: the
+   tied table's unembedding on its kernel) with a decode-step profile; granite-moe also at its own capacity with uneven
    new-token counts, kv16 and kv4, H=8 against H=1 reported, not held;
    then the smoke configs of gemma2, granite-moe, qwen1.5-0.5b and
    arctic-480b served on the card and on the CPU (granite-moe at kv8/kv4
@@ -92,7 +96,8 @@ output row within ``ROW_REL_TOL`` of its own largest value, since rows
 over ~4096 keys have values near 0.03.
 
 The second-to-last line is the kernel table as JSON (kernel A at the
-decode shape, at M=4096 and as the expert batch; B and C without and,
+decode shape, at M=4096 and as the expert batch; the unembedding's kernel
+at internlm2's k-blocked and gemma2's tied table, M=8; B and C without and,
 at kv16 and kv4, with the window; D at the static prefill and at
 gemma2's windowed d=256 prefill); the last line
 is ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
@@ -300,6 +305,71 @@ def phase_msb_matmul(torch, timer, device):
         f"(worst err/max|ref| {worst:.3g}); rows at M = 1, 8, 17, 512 "
         "bit-identical to the same rows at M=4096; every expert of the "
         "expert batch bit-identical to msb_matmul on it alone")
+    return rows
+
+
+# the unembedding's tables: (name, V, D, k-blocked, table dtype) —
+# internlm2-1.8b's untied table, gemma2-2b's and qwen1.5-0.5b's tied ones
+UNEMBED_TABLES = [("internlm2", 92672, 2048, True, "float32"),
+                  ("gemma2", 256000, 2304, False, "bfloat16"),
+                  ("qwen", 151936, 1024, False, "bfloat16")]
+
+
+def phase_msb_unembed(torch, timer, device):
+    """The unembedding's kernel against its plain version at the tables
+    the engines serve (``UNEMBED_TABLES``), M = 1, 8 and 64, each within
+    1e-5 of the plain result's largest value; rows at M = 1 and 8
+    bit-identical to the same rows at M = 64. Kernel and library
+    (``torch.matmul`` of x against the pre-dequantized f32 table,
+    transposed for the tied layout) are medians of 20 cold launches; the
+    plain version 2 launches."""
+    from repro_torch.core.quantize import PackedQTensor
+    from repro_torch.kernels.msb_matmul import ops, ref
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows = []
+    for name, v, d, kb, dt in UNEMBED_TABLES:
+        packed, scales = rand_packed(torch, gen, d if kb else v,
+                                     v if kb else d, kb, device)
+        pq = PackedQTensor(packed, scales, 4, 64, getattr(torch, dt),
+                           v if kb else d, kblocked=kb)
+        w = pq.dequantize().to(torch.float32)      # (D, V) or (V, D)
+        wt = w if kb else w.t()
+        x = torch.randn((64, d), generator=gen, device=device)
+        y64 = ops.msb_unembed(x, pq)
+        for m in (1, 8, 64):
+            xm = x[:m].contiguous()
+            y = ops.msb_unembed(xm, pq)
+            y_ref = ref.msb_unembed_ref(xm, pq)
+            torch.cuda.synchronize()
+            err = (y - y_ref).abs().max().item()
+            tol = 1e-5 * y_ref.abs().max().item()
+            if not err <= tol:
+                fail(f"msb_unembed {name} M={m}: max err {err} > {tol}")
+            if not torch.equal(y, y64[:m]):
+                fail(f"msb_unembed {name}: rows at M={m} differ from the "
+                     "same rows at M=64")
+            ms, ms_mean = timer.stats(lambda: ops.msb_unembed(xm, pq))
+            plain = timer(lambda: ref.msb_unembed_ref(xm, pq), reps=2,
+                          warmup=1)
+            lib, _ = timer.stats(lambda: torch.matmul(xm, wt))
+            nbytes = d * v // 2 + d // 64 * v * 8 * 4 + m * d * 4 + m * v * 4
+            b_ms, b_by = bound(nbytes, 2.0 * m * d * v, "float32")
+            row = dict(shape=f"{name} M={m} D={d} V={v} "
+                       f"{'k-blocked' if kb else 'tied'} {dt} table",
+                       table=name, m=m, max_abs_err=err, ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                       bound_by=b_by)
+            rows.append(row)
+            log(f"  msb_unembed {row['shape']}: err {err:.3g} (tol "
+                f"{tol:.3g}) kernel {ms:.4f} ms median of 20 (mean "
+                f"{ms_mean:.4f}) | plain {plain:.4f} | library "
+                f"(torch.matmul, f32 table) {lib:.4f} | bound {b_ms:.4f} "
+                f"({b_by}), {100 * b_ms / ms:.1f} % of it reached")
+        del packed, scales, pq, w, wt, x, y64
+        torch.cuda.empty_cache()
+    log(f"[msb_unembed] {len(rows)} shapes agree with the plain version "
+        "(1e-5 of its largest value); rows at M = 1 and 8 bit-identical to "
+        "the same rows at M=64")
     return rows
 
 
@@ -1054,7 +1124,7 @@ def phase_serve(torch, device):
     engine_kw = SERVE_ENGINE
     results, counts, kv_bytes, chunks = serve_horizons(
         model, packed, prompts, engine_kw, max_new, 16,
-        ("msb_matmul", "paged_attention_decode"))
+        ("msb_matmul", "msb_unembed", "paged_attention_decode"))
     log(f"  kv16 pools: {kv_bytes / 1e9:.3f} GB")
     direct = {16: results[8]}
     direct_chunks = {16: chunks}
@@ -1082,6 +1152,7 @@ def _wrappers():
     from repro_torch.kernels.paged_attention import ops as pa_ops
     return {"msb_matmul": mm_ops.msb_matmul,
             "msb_matmul_experts": mm_ops.msb_matmul_experts,
+            "msb_unembed": mm_ops.msb_unembed,
             "paged_attention_decode": pa_ops.paged_attention_decode,
             "paged_attention_decode_quant":
                 pa_ops.paged_attention_decode_quant,
@@ -1254,7 +1325,7 @@ def phase_serve_quant(torch, device, ctx):
         spec = KVQuantSpec(bits, ps, kv, hd)
         results, counts[bits], kv_bytes, chunks = serve_horizons(
             model, packed, prompts, engine_kw, max_new, bits,
-            ("msb_matmul", "paged_attention_decode_quant"))
+            ("msb_matmul", "msb_unembed", "paged_attention_decode_quant"))
         ctx["direct"][bits] = results[8]
         ctx["direct_chunks"][bits] = chunks
         log(f"  kv{bits} pools: {kv_bytes / 1e9:.3f} GB; per page per K-or-V "
@@ -1299,7 +1370,8 @@ def phase_serve_static(torch, device, ctx):
     counts = read_launch_counters()
     peak = torch.cuda.max_memory_allocated()
     log(f"  generate launches: {counts}")
-    if not (counts["flash_attention_fwd"] > 0 and counts["msb_matmul"] > 0):
+    if not (counts["flash_attention_fwd"] > 0 and counts["msb_matmul"] > 0
+            and counts["msb_unembed"] > 0):
         fail(f"serve static: a kernel of the path never launched: {counts}")
     if toks.shape != (b, n) or not ((toks >= 0) & (toks < cfg.vocab_size)
                                     ).all():
@@ -2179,6 +2251,7 @@ def family_static(torch, model, packed, b, p, n):
         fail(f"{cfg.name} static: tokens of shape {toks.shape} or out of "
              "range")
     if not (counts["flash_attention_fwd"] > 0 and counts["msb_matmul"] > 0
+            and counts["msb_unembed"] > 0
             and (counts["msb_matmul_experts"] > 0) == bool(cfg.n_experts)):
         fail(f"{cfg.name} static: a kernel of the path never launched: "
              f"{counts}")
@@ -2284,7 +2357,7 @@ def phase_families(torch, device):
     model, packed = build_full(torch, "gemma2-2b")
     prompts = serve_prompts(model.cfg, last=LONG_PROMPT)
     out["gemma2"] = serve_family(torch, device, model, packed, prompts,
-                                 (16, 4), ("msb_matmul",))
+                                 (16, 4), ("msb_matmul", "msb_unembed"))
     short = serve_prompts(model.cfg)
     for bits in (16, 4):
         log(f"  gemma2-2b kv{bits}:")
@@ -2305,7 +2378,8 @@ def phase_families(torch, device):
     # page, which an MoE wave's pads read (ROADMAP §3): H=8 and H=1 would
     # then see other scratch bytes in a later wave
     out["moe"] = serve_family(torch, device, model, packed, prompts, (16,),
-                              ("msb_matmul", "msb_matmul_experts"),
+                              ("msb_matmul", "msb_matmul_experts",
+                               "msb_unembed"),
                               max_new=33)
     for bits in (16, 4):
         report_horizons(torch, model, packed, prompts, bits)
@@ -2339,11 +2413,13 @@ def phase_families(torch, device):
     return out
 
 
-def kernel_line(mm_rows, pa_rows, paq_rows, fa_rows, counts, q_counts,
-                s_counts, f_counts):
+def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
+                q_counts, s_counts, f_counts):
     """The kernel table as the JSON line's rows: each kernel at its main
     path's representative shape (A at decode and at M=4096, and its expert
-    batch at granite-moe's decode; B and C at the decode shape and, with
+    batch at granite-moe's decode; the unembedding's kernel at M=8 on
+    internlm2's k-blocked and gemma2's tied table; B and C at the decode
+    shape and, with
     gemma2's window, at d=256; D at the static prefill and at gemma2's
     d=256 windowed prefill), with the launches of the run that serves it
     (counters zeroed just before it)."""
@@ -2366,6 +2442,11 @@ def kernel_line(mm_rows, pa_rows, paq_rows, fa_rows, counts, q_counts,
                     (m, k, n) and r.get("experts", False) == experts)
 
     mm_err = max(r["max_abs_err"] for r in mm_rows)
+    un_err = max(r["max_abs_err"] for r in un_rows)
+
+    def un_row(table):
+        return next(r for r in un_rows if (r["table"], r["m"]) == (table, 8))
+
     plain_pa = [r for r in pa_rows if not r.get("window")]
     pa_w = next(r for r in pa_rows if r.get("window"))
     pa_err = max(r["max_abs_err"] for r in pa_rows)
@@ -2380,6 +2461,10 @@ def kernel_line(mm_rows, pa_rows, paq_rows, fa_rows, counts, q_counts,
         row("msb_matmul_experts", mm_src, a_tpu,
             moe[16]["msb_matmul_experts"], mm_row(8, 1536, 512, True),
             mm_err),
+        row("msb_unembed_kblocked", mm_src, a_tpu, counts["msb_unembed"],
+            un_row("internlm2"), un_err),
+        row("msb_unembed_tied", mm_src, a_tpu, gem[16]["msb_unembed"],
+            un_row("gemma2"), un_err),
         row("paged_attention_decode", pa_src, b_tpu,
             counts["paged_attention_decode"], plain_pa[-1], pa_err),
         row("paged_attention_decode_window", pa_src, b_tpu,
@@ -2424,6 +2509,7 @@ def main():
     phase_build()
     timer = Timer(torch, device)
     mm_rows = phase_msb_matmul(torch, timer, device)
+    un_rows = phase_msb_unembed(torch, timer, device)
     pa_rows = phase_paged_attention(torch, timer, device)
     paq_rows = phase_paged_attention_quant(torch, timer, device)
     fa_rows = phase_flash_attention(torch, timer, device)
@@ -2436,8 +2522,8 @@ def main():
     del ctx
     phase_quantizer(torch, device)
     f_counts = phase_families(torch, device)
-    kernels = kernel_line(mm_rows, pa_rows, paq_rows, fa_rows, counts,
-                          q_counts, s_counts, f_counts)
+    kernels = kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows,
+                          counts, q_counts, s_counts, f_counts)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

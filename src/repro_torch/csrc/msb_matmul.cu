@@ -57,11 +57,15 @@
 // zeros: the reference's lax.cond zero branch, with no host sync, so a
 // CUDA graph can capture it.
 //
-// f32 x (the k-blocked unembedding): SIMT f32 FMA (TF32 would miss the
-// 1e-5 tolerance): each 256-thread block owns a BM x 64 tile and one K
-// split, stages the packed bytes and a 64 x 8 f32 codebook table a step,
-// decodes them into an f32 tile and runs 64 FMAs a thread; splits summed
-// by split_reduce_kernel in ascending order.
+// f32 x (f32 projections): SIMT f32 FMA (TF32 would miss the 1e-5
+// tolerance): each 256-thread block owns a BM x 64 tile and one K split,
+// stages the packed bytes and a 64 x 8 f32 codebook table a step, decodes
+// them into an f32 tile and runs 64 FMAs a thread; splits summed by
+// split_reduce_kernel in ascending order.
+//
+// The unembedding (msb_unembed, below) has a kernel of its own: it streams
+// the table's weights into registers and reads both of its layouts, the
+// untied k-blocked table and a tied n-blocked table as its transpose.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -646,6 +650,366 @@ int run(const void* x, const void* packed, const void* scales, const void* bias,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// f32 unembedding: one weight-streaming kernel for both table layouts
+// ---------------------------------------------------------------------------
+//
+// logits[m, v] = sum_d x[m, d] * w[d, v], x f32 (M, K), out f32 (M, N),
+// for the two packed layouts of an unembedding table:
+//   * k-blocked (an untied unembed): packed (K, N/2), scales (K/64, N, 8);
+//   * tied (the embedding, n-blocked, read as its transpose): packed
+//     (N, Kp/2), scales (N, Kp/64, 8). Row v of the table is column v of
+//     w, and its Kp/64 codebooks all lie on the reduction axis; Kp >= K is
+//     the padded width, x's columns past K count as 0.
+// Each weight is +-codebook[level] in f32, or the codebook rounded to bf16
+// first (round_bf16: a tied table that dequantizes to bf16). Sums in f32.
+//
+// What bounds it: the table streams once per MT rows of x at 1 B a weight
+// (0.5 B of codes, 0.5 B of codebooks): (K*N/2 + K/64*N*32) B / 3.35 TB/s,
+// 0.057 ms for internlm2's 2048 x 92672 and 0.176 ms for gemma2's 256000 x
+// 2304. At M = 8 the SIMT FMAs come close behind (8 a weight: 0.14 ms at
+// gemma2's table on 67 TFLOP/s), so every other instruction a weight
+// counts: the decode is one shared-memory load and two integer ops.
+//
+// Design (replaces msb_matmul_f32_kernel on this path, whose 64-row K
+// steps each loaded x, codes and codebooks synchronously into shared
+// memory, decoded an f32 tile and crossed three barriers):
+//   * a block of 16 warps stages its MT rows of x once, transposed to
+//     xs[d * MT + m] (one row d's MT values are one or two 16-byte loads),
+//     and crosses no block barrier in its K loop;
+//   * each codebook becomes a signed 16-entry decode table of one lane's
+//     own in shared memory, lane-interleaved (entry e of lane l at e * 32 +
+//     l, so every lookup is free of bank conflicts), indexed by the nibble
+//     (sign << 3) | level itself; a lane reads only what it wrote;
+//   * tied: a quad of lanes owns a table row, lane t of the quad its
+//     k-blocks t, t + 4, ... (a quad's 16-byte loads cover 64 bytes of one
+//     128-byte line: codes and codebooks of 4 neighbouring k-blocks); a
+//     lane holds 2 rows (a warp 16), loads a k-block's 32 bytes of codes
+//     and 32 of codebook per row into registers one k-block ahead, and the
+//     quad's 4 sums are added by two shuffles in a fixed order. The 4
+//     k-blocks a warp reads at once sit in distinct shared-memory banks of
+//     x: xs pads 4 floats (1 at MT = 1) after each 64-row k-block;
+//   * k-blocked: a lane owns 2 adjacent columns (a warp 64) and walks its K
+//     slice row by row, every lane at the same row (x a broadcast); the
+//     warp's codes, 32 bytes a row, stream through a 3-stage cp.async ring
+//     of 64-row k-blocks in shared memory, its codebooks (64 contiguous
+//     bytes a lane) into registers one k-block ahead;
+//   * the K slices (ops.unembed_slices: a function of Kp, N and the layout
+//     only) are warps of one block: after the loop slices 1.. leave their
+//     sums in shared memory and slice 0 adds them in ascending order.
+// Rows independent of M: every (m, v) is summed in an order fixed by (Kp,
+// N): one f32 FMA chain per lane over its k-blocks in ascending d, the
+// quad's chains added (t0 + t1) + (t2 + t3), the slices in ascending
+// order; MT (rows of x a block, chosen from M) changes none of it.
+
+constexpr int UN_THREADS = 512;
+constexpr int UN_WARPS = UN_THREADS / 32;
+constexpr int UN_SLOTS = 2;         // tied: rows a lane holds; k-blocked: columns a lane owns
+constexpr int TAB = 16 * 32;        // floats of one signed decode table, all lanes
+constexpr int KB_STAGES = 3;        // k-blocked: cp.async ring of 64-row k-blocks
+constexpr int KB_STAGE_BYTES = BK * 32;   // one k-block of a warp's 64 columns
+constexpr size_t UN_SMEM_LIMIT = 232448;
+
+__host__ __device__ constexpr int x_pad(bool kblocked, int mt) {
+  return kblocked ? 0 : (mt == 1 ? 1 : 4);
+}
+
+// Shared memory of a launch: the warps' decode tables, the k-blocked code
+// ring, then x (MT rows, transposed, padded per k-block) or, after the K
+// loop, the slices' sums. ops.unembed_smem computes the same.
+size_t unembed_smem(bool kblocked, int mt, int Kp, int S) {
+  const size_t tables = (size_t)UN_WARPS * UN_SLOTS * TAB * 4;
+  const size_t ring = kblocked ? (size_t)UN_WARPS * KB_STAGES * KB_STAGE_BYTES : 0;
+  const size_t xb = ((size_t)mt * Kp + (size_t)(Kp / BK) * x_pad(kblocked, mt)) * 4;
+  const size_t red = (size_t)(S - 1) * (UN_WARPS / S) * 32 * UN_SLOTS * mt * 4;
+  return tables + ring + (xb > red ? xb : red);
+}
+
+// A lane's signed decode table of one codebook: tab[e * 32] = c_e,
+// tab[(8 + e) * 32] = -c_e (tab already offset by the lane).
+__device__ __forceinline__ void put_table(float* tab, float4 lo, float4 hi, int round_bf16) {
+  const float c[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float v = round_bf16 ? __bfloat162float(__float2bfloat16_rn(c[e])) : c[e];
+    tab[e * 32] = v;
+    tab[(8 + e) * 32] = -v;
+  }
+}
+
+template <int MT>
+__device__ __forceinline__ void load_x(const float* p, float (&xv)[MT]) {
+  if constexpr (MT % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < MT / 4; ++i) {
+      const float4 t = reinterpret_cast<const float4*>(p)[i];
+      xv[4 * i] = t.x;
+      xv[4 * i + 1] = t.y;
+      xv[4 * i + 2] = t.z;
+      xv[4 * i + 3] = t.w;
+    }
+  } else if constexpr (MT == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    xv[0] = t.x;
+    xv[1] = t.y;
+  } else {
+    xv[0] = p[0];
+  }
+}
+
+// Rows m0 .. m0 + MT of x (M, K) into xs[d * MT + (d / 64) * PAD + m] for
+// d < Kp, zero past M and K.
+template <int MT, int PAD>
+__device__ __forceinline__ void stage_x(float* xs, const float* __restrict__ x, int m0, int M,
+                                        int K, int Kp) {
+  for (int i = threadIdx.x; i < MT * Kp; i += UN_THREADS) {
+    const int m = i / Kp, d = i - m * Kp;
+    xs[d * MT + (d / BK) * PAD + m] = (m0 + m < M && d < K) ? x[(size_t)(m0 + m) * K + d] : 0.f;
+  }
+}
+
+// Slices 1 .. S-1 of a strip leave their F sums a lane in red; slice 0 adds
+// them to its own in ascending order. Returns whether this warp stores.
+template <int F>
+__device__ __forceinline__ bool reduce_slices(float (&acc)[F], float* red, int S, int slice,
+                                              int wstrip, int lane) {
+  if (S == 1) return true;
+  __syncthreads();   // every warp is past its K loop: x's region is free
+  float* base = red + (size_t)wstrip * (S - 1) * F * 32 + lane;
+  if (slice > 0) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) base[((slice - 1) * F + f) * 32] = acc[f];
+  }
+  __syncthreads();
+  if (slice > 0) return false;
+  for (int s = 1; s < S; ++s) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] += base[((s - 1) * F + f) * 32];
+  }
+  return true;
+}
+
+// grid: (ceil(N / (16 * 16 / S)), ceil(M / MT)); warp w: slice w % S of
+// strip w / S of the block's 16 / S strips of 16 rows; lane 4 q + t: rows
+// strip * 16 + q + 8 r (r = 0, 1), k-blocks kb0 + t, kb0 + t + 4, ...
+template <int MT>
+__global__ void __launch_bounds__(UN_THREADS, 1)
+unembed_tied_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+                    const float* __restrict__ scales, float* __restrict__ out, int M, int K,
+                    int Kp, int N, int S, int round_bf16) {
+  extern __shared__ __align__(16) unsigned char un_smem[];
+  float* smem = reinterpret_cast<float*>(un_smem);
+  constexpr int R = UN_SLOTS, PAD = x_pad(false, MT);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q = lane / 4, t = lane % 4;
+  const int slice = warp % S, wstrip = warp / S;
+  const int strip = blockIdx.x * (UN_WARPS / S) + wstrip;
+  const int kblocks = Kp / BK, kps = kblocks / S;
+  const int kb1 = (slice + 1) * kps;
+  const int m0 = blockIdx.y * MT;
+  float* tab = smem + warp * R * TAB + lane;
+  float* xs = smem + UN_WARPS * R * TAB;
+
+  const uint4* pk[R];
+  const float4* sc[R];
+  int v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    v[r] = strip * 16 + q + 8 * r;
+    const size_t row = v[r] < N ? v[r] : 0;   // a row past N reads row 0, stores nothing
+    pk[r] = reinterpret_cast<const uint4*>(packed + row * (Kp / 2));
+    sc[r] = reinterpret_cast<const float4*>(scales + row * kblocks * LEVELS);
+  }
+  int kb = slice * kps + t;
+  uint4 c[R][2];
+  float4 s[R][2];
+  if (kb < kb1) {   // the first k-block in flight while x is staged
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      c[r][0] = pk[r][2 * kb];
+      c[r][1] = pk[r][2 * kb + 1];
+      s[r][0] = sc[r][2 * kb];
+      s[r][1] = sc[r][2 * kb + 1];
+    }
+  }
+  stage_x<MT, PAD>(xs, x, m0, M, K, Kp);
+  __syncthreads();
+
+  float acc[R * MT];
+#pragma unroll
+  for (int f = 0; f < R * MT; ++f) acc[f] = 0.f;
+  for (; kb < kb1; kb += 4) {
+    uint32_t cw[R][8];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      put_table(tab + r * TAB, s[r][0], s[r][1], round_bf16);
+      cw[r][0] = c[r][0].x; cw[r][1] = c[r][0].y; cw[r][2] = c[r][0].z; cw[r][3] = c[r][0].w;
+      cw[r][4] = c[r][1].x; cw[r][5] = c[r][1].y; cw[r][6] = c[r][1].z; cw[r][7] = c[r][1].w;
+    }
+    if (kb + 4 < kb1) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        c[r][0] = pk[r][2 * kb + 8];
+        c[r][1] = pk[r][2 * kb + 9];
+        s[r][0] = sc[r][2 * kb + 8];
+        s[r][1] = sc[r][2 * kb + 9];
+      }
+    }
+    const float* xb = xs + (size_t)kb * (BK * MT + PAD);
+#pragma unroll
+    for (int qq = 0; qq < 8; ++qq) {   // code word qq: the k-block's d = 8 qq .. 8 qq + 7
+      float w[R][8];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) w[r][j] = tab[r * TAB + ((cw[r][qq] >> (4 * j)) & 15) * 32];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float xv[MT];
+        load_x<MT>(xb + (qq * 8 + j) * MT, xv);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int m = 0; m < MT; ++m) acc[r * MT + m] = fmaf(w[r][j], xv[m], acc[r * MT + m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < R * MT; ++f) {   // the quad's chains: (t0 + t1) + (t2 + t3)
+    acc[f] += __shfl_xor_sync(0xffffffffu, acc[f], 1);
+    acc[f] += __shfl_xor_sync(0xffffffffu, acc[f], 2);
+  }
+  if (!reduce_slices<R * MT>(acc, xs, S, slice, wstrip, lane)) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (v[r] >= N) continue;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)   // lane t of the quad stores rows m = t mod 4
+      if ((m & 3) == t && m0 + m < M) out[(size_t)(m0 + m) * N + v[r]] = acc[r * MT + m];
+  }
+}
+
+// grid: (ceil(N / (64 * 16 / S)), ceil(M / MT)); warp w: slice w % S of
+// strip w / S of the block's 16 / S strips of 64 columns; lane l: columns
+// strip * 64 + 2 l and + 1 (one byte of codes a K row).
+template <int MT>
+__global__ void __launch_bounds__(UN_THREADS, 1)
+unembed_kblocked_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+                        const float* __restrict__ scales, float* __restrict__ out, int M,
+                        int K, int N, int S) {
+  extern __shared__ __align__(16) unsigned char un_smem[];
+  float* smem = reinterpret_cast<float*>(un_smem);
+  constexpr int C = UN_SLOTS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slice = warp % S, wstrip = warp / S;
+  const int strip = blockIdx.x * (UN_WARPS / S) + wstrip;
+  const int kps = K / BK / S, kb0 = slice * kps;
+  const int m0 = blockIdx.y * MT;
+  float* tab = smem + warp * C * TAB + lane;
+  uint8_t* ring = un_smem + (size_t)UN_WARPS * C * TAB * 4 +
+                  (size_t)warp * KB_STAGES * KB_STAGE_BYTES;
+  float* xs = reinterpret_cast<float*>(un_smem + (size_t)UN_WARPS * C * TAB * 4 +
+                                       (size_t)UN_WARPS * KB_STAGES * KB_STAGE_BYTES);
+
+  const int n = strip * 64 + 2 * lane;        // the lane's first column
+  const int sn = strip * 64 < N ? strip : 0;  // a strip past N reads strip 0, stores nothing
+  // the ring's copies: lane l brings 16 bytes of rows l / 2 + 16 i (i < 4)
+  const uint8_t* src = packed + (size_t)(kb0 * BK + lane / 2) * (N / 2) + sn * 32 + 16 * (lane % 2);
+  const size_t src_kb = (size_t)BK * (N / 2), src_i = (size_t)16 * (N / 2);
+  const int dst0 = (lane / 2) * 32 + 16 * (lane % 2);
+  const float4* sc = reinterpret_cast<const float4*>(
+      scales + ((size_t)kb0 * N + (n < N ? n : 0)) * LEVELS);
+  const size_t sc_step = (size_t)N * LEVELS / 4;   // float4s from one k-block to the next
+
+#pragma unroll
+  for (int st = 0; st < KB_STAGES - 1; ++st) {
+    if (st < kps) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cp_async16(smem_u32(ring + st * KB_STAGE_BYTES + dst0 + i * 16 * 32),
+                   src + st * src_kb + i * src_i, true);
+    }
+    cp_async_commit();
+  }
+  float4 s[2 * C];
+#pragma unroll
+  for (int i = 0; i < 2 * C; ++i) s[i] = sc[i];
+  stage_x<MT, 0>(xs, x, m0, M, K, K);
+  __syncthreads();
+
+  float acc[C * MT];
+#pragma unroll
+  for (int f = 0; f < C * MT; ++f) acc[f] = 0.f;
+  for (int i = 0; i < kps; ++i) {
+    const int ld = i + KB_STAGES - 1;   // the k-block this iteration brings in
+    if (ld < kps) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        cp_async16(smem_u32(ring + (ld % KB_STAGES) * KB_STAGE_BYTES + dst0 + j * 16 * 32),
+                   src + ld * src_kb + j * src_i, true);
+    }
+    cp_async_commit();
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) put_table(tab + cc * TAB, s[2 * cc], s[2 * cc + 1], 0);
+    if (i + 1 < kps) {
+#pragma unroll
+      for (int u = 0; u < 2 * C; ++u) s[u] = sc[(size_t)(i + 1) * sc_step + u];
+    }
+    cp_async_wait<KB_STAGES - 1>();   // this lane's copies of k-block i have landed
+    __syncwarp();                     // and every lane's
+    const uint8_t* codes = ring + (i % KB_STAGES) * KB_STAGE_BYTES + lane;
+    const float* xb = xs + (size_t)(kb0 + i) * BK * MT;
+#pragma unroll 8
+    for (int r = 0; r < BK; ++r) {
+      const uint32_t cb = codes[r * 32];
+      const float w0 = tab[(cb & 15) * 32], w1 = tab[TAB + (cb >> 4) * 32];
+      float xv[MT];
+      load_x<MT>(xb + r * MT, xv);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        acc[m] = fmaf(w0, xv[m], acc[m]);
+        acc[MT + m] = fmaf(w1, xv[m], acc[MT + m]);
+      }
+    }
+    __syncwarp();   // k-block i's stage is read before the next iteration refills it
+  }
+  cp_async_wait<0>();
+  if (!reduce_slices<C * MT>(acc, xs, S, slice, wstrip, lane)) return;
+  if (n >= N) return;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (m0 + m >= M) continue;
+    *reinterpret_cast<float2*>(out + (size_t)(m0 + m) * N + n) = make_float2(acc[m], acc[MT + m]);
+  }
+}
+
+template <int MT>
+int launch_unembed(const float* x, const uint8_t* packed, const float* scales, float* out,
+                   int M, int K, int Kp, int N, int kblocked, int round_bf16, int S,
+                   cudaStream_t stream) {
+  const size_t smem = unembed_smem(kblocked, MT, Kp, S);
+  if (smem > UN_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int per_warp = kblocked ? 64 : 16;
+  const int strips = (N + per_warp - 1) / per_warp;
+  const int per_block = UN_WARPS / S;
+  dim3 grid((strips + per_block - 1) / per_block, (M + MT - 1) / MT);
+  cudaError_t e;
+  if (kblocked) {
+    e = cudaFuncSetAttribute(unembed_kblocked_kernel<MT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    unembed_kblocked_kernel<MT><<<grid, UN_THREADS, smem, stream>>>(x, packed, scales, out, M,
+                                                                    K, N, S);
+  } else {
+    e = cudaFuncSetAttribute(unembed_tied_kernel<MT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    unembed_tied_kernel<MT><<<grid, UN_THREADS, smem, stream>>>(x, packed, scales, out, M, K,
+                                                                Kp, N, S, round_bf16);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). The caller (ops.plan) has
@@ -674,4 +1038,31 @@ extern "C" int msb_matmul_experts(const void* x, const void* packed, const void*
                                   int kblocked, int x_is_bf16, void* stream) {
   return run(x, packed, scales, nullptr, static_cast<const int*>(counts), out, partial, E,
              M, K, N, splits, grid_splits, bm, kblocked, x_is_bf16, stream);
+}
+
+// The unembedding: out (M, N) f32 = x (M, K) f32 against a table in either
+// layout (kblocked: packed (K, N/2), scales (K/64, N, 8), Kp == K; tied:
+// packed (N, Kp/2), scales (N, Kp/64, 8), K <= Kp). mt rows of x a block
+// (1, 2, 4 or 8) and slices K splits (a divisor of 16 and of Kp/64): ops
+// .unembed_plan. Returns cudaErrorInvalidValue for what it does not take,
+// else cudaGetLastError().
+extern "C" int msb_unembed(const void* x, const void* packed, const void* scales, void* out,
+                           int M, int K, int Kp, int N, int kblocked, int round_bf16, int mt,
+                           int slices, void* stream) {
+  if (M < 0 || K < 1 || K > Kp || Kp % BK || N < 1 || slices < 1 || UN_WARPS % slices ||
+      (Kp / BK) % slices || (kblocked && (K != Kp || N % 64 || round_bf16)))
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  auto* xx = static_cast<const float*>(x);
+  auto* pk = static_cast<const uint8_t*>(packed);
+  auto* sc = static_cast<const float*>(scales);
+  auto* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mt) {
+    case 1: return launch_unembed<1>(xx, pk, sc, o, M, K, Kp, N, kblocked, round_bf16, slices, s);
+    case 2: return launch_unembed<2>(xx, pk, sc, o, M, K, Kp, N, kblocked, round_bf16, slices, s);
+    case 4: return launch_unembed<4>(xx, pk, sc, o, M, K, Kp, N, kblocked, round_bf16, slices, s);
+    case 8: return launch_unembed<8>(xx, pk, sc, o, M, K, Kp, N, kblocked, round_bf16, slices, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -8,6 +8,10 @@ plan, ``msb_matmul.launches`` counts kernel launches.
 ``msb_matmul_experts`` is the same kernel over a batch of MoE experts in
 one launch, with device-side routed-token counts (its own ``.launches``);
 ``packed_matmul_experts`` runs it on a layer's stacked expert weights.
+``msb_unembed`` is the unembedding: logits in f32 from a packed table of
+either layout (the untied k-blocked ``unembed``, or a tied n-blocked
+``embed`` read as its transpose) through a weight-streaming kernel of the
+same source (its own ``.launches``; ``unembed_plan`` is its launch plan).
 
 ``qtensor_matmul`` / ``to_kernel_layout`` take a raw 4-bit/64 ``QTensor``
 (a solver's output, without ``pack_params``); the packing is memoized on
@@ -23,7 +27,7 @@ import torch
 from .. import _build
 from ...core.quantize import (PACK_BLOCK, PACK_LEVELS, PackedQTensor,
                               QTensor, pack_codes_int4, pack_qtensor)
-from .ref import msb_matmul_experts_ref, msb_matmul_ref
+from .ref import msb_matmul_experts_ref, msb_matmul_ref, msb_unembed_ref
 
 
 def k_splits(k, n):
@@ -65,12 +69,16 @@ def plan(m, k, n, bf16=True):
     return Plan(128, 128, splits, k // splits, 1)
 
 
+_ARGS = {"msb_matmul": (6, 8), "msb_matmul_experts": (6, 9),
+         "msb_unembed": (4, 8)}    # (leading pointers, ints), then the stream
+
+
 def _lib(name="msb_matmul"):
     fn = getattr(_build.load("msb_matmul"), name)
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 6 + [ci] * (8 if name == "msb_matmul" else 9) \
-            + [vp]
+        ptrs, ints = _ARGS[name]
+        fn.argtypes = [vp] * ptrs + [ci] * ints + [vp]
         fn.restype = ci
     return fn
 
@@ -216,6 +224,150 @@ def packed_matmul_experts(x, pq: PackedQTensor, counts):
                            counts.to(torch.int32).contiguous(),
                            kblocked=pq.kblocked)
     return y[..., :pq.n]
+
+
+# -- the unembedding --------------------------------------------------------
+
+UNEMBED_WARPS = 16        # warps of a block: K slices x output strips
+UNEMBED_OUTPUTS = {True: 64, False: 16}   # outputs a warp owns: k-blocked
+                                          # columns, tied table rows
+UNEMBED_RING = 16 * 3 * 64 * 32           # k-blocked: the warps' code rings
+UNEMBED_SMEM_LIMIT = 232448               # shared bytes a block may opt into
+UNEMBED_TARGET_WARPS = 2 * 132 * 16       # two waves of 16-warp blocks
+
+
+class UnembedPlan(NamedTuple):
+    """One launch of the unembedding kernel: ``mt`` rows of x a block
+    (grid rows ceil(M / mt)); ``slices`` K splits, run by warps of one
+    block and added in ascending order; ``smem`` bytes of shared memory."""
+    mt: int
+    slices: int
+    smem: int
+
+
+def unembed_smem(mt, kp, slices, kblocked):
+    """Shared bytes of a launch: the warps' decode tables (16 signed
+    entries a codebook, 2 codebooks a lane), the k-blocked code ring, then
+    x's ``mt`` rows of ``kp`` (tied: padded 4 floats a k-block, 1 at mt 1)
+    or, after the K loop, the slices' sums (the kernel computes the
+    same)."""
+    tables = UNEMBED_WARPS * 2 * 16 * 32 * 4
+    ring = UNEMBED_RING if kblocked else 0
+    pad = 0 if kblocked else (1 if mt == 1 else 4)
+    x = (mt * kp + kp // PACK_BLOCK * pad) * 4
+    red = (slices - 1) * (UNEMBED_WARPS // slices) * 32 * 2 * mt * 4
+    return tables + ring + max(x, red)
+
+
+def unembed_slices(kp, n, kblocked):
+    """K splits of the unembedding kernel for a table of ``n`` outputs and
+    reduction width ``kp``: doubled from 1 while the grid has fewer than
+    two waves of 16-warp blocks on 132 SMs, up to 16 and as long as every
+    slice keeps at least 4 of the 64-row k-blocks. A function of (kp, n,
+    layout) only, never of M, so an output row's sum order is the same at
+    every batch size."""
+    kblocks = kp // PACK_BLOCK
+    warps = -(-n // UNEMBED_OUTPUTS[kblocked])
+    s = 1
+    while (warps * s < UNEMBED_TARGET_WARPS and 2 * s <= UNEMBED_WARPS
+           and kblocks % (2 * s) == 0 and kblocks // (2 * s) >= 4):
+        s *= 2
+    return s
+
+
+def unembed_plan(m, kp, n, kblocked):
+    """The unembedding kernel's launch plan for x (M, K) against a table
+    of ``n`` outputs and packed reduction width ``kp``: ``mt`` is M up to
+    8 (rounded up to 1, 2, 4 or 8), halved while the shared memory would
+    not fit; ``slices`` depends on (kp, n, layout) only."""
+    slices = unembed_slices(kp, n, kblocked)
+    mt = 1 if m <= 1 else 2 if m == 2 else 4 if m <= 4 else 8
+    while mt > 1 and unembed_smem(mt, kp, slices, kblocked) > \
+            UNEMBED_SMEM_LIMIT:
+        mt //= 2
+    smem = unembed_smem(mt, kp, slices, kblocked)
+    if smem > UNEMBED_SMEM_LIMIT:
+        raise ValueError(f"msb_unembed: a reduction width of {kp} needs "
+                         f"{smem} B of shared memory, more than a block has")
+    return UnembedPlan(mt, slices, smem)
+
+
+def _check_unembed(x, pq: PackedQTensor):
+    """Checks what the unembedding kernel takes: x (M, K) f32, a 2-D
+    4-bit/64 table on x's device, contiguous, 16-byte aligned; a tied
+    table of dtype f32 or bf16 (its weights are rounded to it). Returns
+    (M, K, Kp, N)."""
+    what = "msb_unembed"
+    packed, scales = pq.packed, pq.scales
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise TypeError(f"{what}: x must be f32 (M, K), got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if packed.dim() != 2 or packed.dtype != torch.uint8 or \
+            pq.bits != 4 or pq.block != PACK_BLOCK:
+        raise ValueError(f"{what}: the table must be 2-D 4-bit block-"
+                         f"{PACK_BLOCK} storage, got {pq.bits}-bit block "
+                         f"{pq.block}, packed {tuple(packed.shape)}")
+    m, k = x.shape
+    if pq.kblocked:
+        kp, n = packed.shape[0], packed.shape[1] * 2
+        want = (kp // PACK_BLOCK, n, PACK_LEVELS)
+        ok = k == kp and kp % PACK_BLOCK == 0 and n % PACK_BLOCK == 0
+    else:
+        n, kp = packed.shape[0], packed.shape[1] * 2
+        want = (n, kp // PACK_BLOCK, PACK_LEVELS)
+        ok = k == pq.n and kp % PACK_BLOCK == 0
+        if pq.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{what}: a tied table dequantizes to f32 or "
+                            f"bf16, got {pq.dtype}")
+    if not ok:
+        raise ValueError(f"{what}: x (M, {k}) does not fit the table "
+                         f"{tuple(packed.shape)} "
+                         f"({'k-blocked' if pq.kblocked else 'tied'})")
+    if scales.dtype != torch.float32 or tuple(scales.shape) != want:
+        raise ValueError(f"{what}: scales must be f32 {want}, got "
+                         f"{scales.dtype} {tuple(scales.shape)}")
+    ts = (x, packed, scales)
+    if any(t.device != x.device for t in ts):
+        raise ValueError(f"{what}: all tensors must be on one device")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError(f"{what}: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what}: x, packed and scales must start on a "
+                         "16-byte boundary")
+    return m, k, kp, n
+
+
+def _launch_unembed(x, pq: PackedQTensor):
+    m, k, kp, n = _check_unembed(x, pq)
+    dev = x.device
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0:
+        return out
+    p = unembed_plan(m, kp, n, pq.kblocked)
+    round_bf16 = not pq.kblocked and pq.dtype == torch.bfloat16
+    err = _lib("msb_unembed")(
+        x.data_ptr(), pq.packed.data_ptr(), pq.scales.data_ptr(),
+        out.data_ptr(), m, k, kp, n, int(pq.kblocked), int(round_bf16),
+        p.mt, p.slices, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "msb_unembed")
+    msb_unembed.launches += 1
+    return out
+
+
+def msb_unembed(x, pq: PackedQTensor):
+    """Logits in f32 of hidden states x (M, D) against a packed
+    unembedding table of either layout: the untied k-blocked ``unembed``
+    (packed (D, V/2)) or a tied n-blocked ``embed`` (packed (V, D/2)), read
+    in place as its transpose. Returns (M, V). CPU tensors take the plain
+    version (``ref.msb_unembed_ref``: k-blocked ``msb_matmul_ref``, tied
+    ``x @ dequant(table).t()``); CUDA tensors launch the kernel or raise."""
+    if not x.is_cuda:
+        return msb_unembed_ref(x, pq)
+    y = _launch_unembed(x.to(torch.float32).contiguous(), pq)
+    return y[:, :pq.n] if pq.kblocked else y
+
+
+msb_unembed.launches = 0
 
 
 # -- QTensor conveniences (tests / benchmarks) -------------------------------

@@ -37,3 +37,15 @@ def msb_matmul_experts_ref(x, packed, scales, counts, kblocked=False):
                                     kblocked=kblocked)
                      for e in range(x.shape[0])])
     return torch.where((counts > 0)[:, None, None], y, torch.zeros_like(y))
+
+
+def msb_unembed_ref(x, pq: PackedQTensor):
+    """The unembedding's logits in f32, x (M, D): a k-blocked table
+    through ``msb_matmul_ref`` (weights in f32), sliced to its ``n``
+    outputs; a tied n-blocked table as ``x @ dequant(table).t()``, its
+    weights rounded to the table's dtype as ``dequantize`` gives them."""
+    x = x.to(torch.float32)
+    if pq.kblocked:
+        return msb_matmul_ref(x.contiguous(), pq.packed, pq.scales,
+                              kblocked=True)[:, :pq.n]
+    return x @ packed_dequantize(pq).to(torch.float32).t()

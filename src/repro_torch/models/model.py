@@ -20,7 +20,7 @@ from ..configs.base import ModelConfig
 from ..core.quantize import KVQuantSpec, PackedQTensor, QTensor, \
     packed_gather
 from ..device import resolve_device
-from ..kernels.msb_matmul.ops import packed_matmul
+from ..kernels.msb_matmul.ops import msb_unembed
 from .layers import chunked_softmax_xent, rms_norm
 from .transformer import (_require_attention_stack, forward_stack,
                           init_params, layer_plan, n_periods)
@@ -76,17 +76,19 @@ class Model:
         return table
 
     def _logits(self, params, hidden):
-        """Unembedding projection in f32 + softcap + vocab mask. A
-        k-blocked packed table runs the msb_matmul kernel (hidden in f32,
-        as the reference's kernel path takes it). A tied table (packed in
-        natural orientation for the embedding gather: gemma2, qwen,
-        granite, granite-moe) is dequantized whole and multiplied in f32,
-        as the reference computes it outside any kernel."""
+        """Unembedding projection in f32 + softcap + vocab mask. A packed
+        table of either layout runs the unembedding kernel
+        (``msb_unembed``, hidden in f32): the untied k-blocked ``unembed``,
+        and a tied table (packed in natural orientation for the embedding
+        gather: gemma2, qwen, granite, granite-moe) read in place as its
+        transpose, where the reference dequantizes it whole and multiplies
+        outside any kernel. Unpacked and dense tables are multiplied in
+        f32."""
         cfg = self.cfg
         table = params.get("unembed", params["embed"])
         hidden = hidden.to(torch.float32)
-        if isinstance(table, PackedQTensor) and table.kblocked:
-            logits = packed_matmul(hidden, table)
+        if isinstance(table, PackedQTensor):
+            logits = msb_unembed(hidden, table)
         else:
             logits = hidden @ self._unembed_vd(params).to(torch.float32).t()
         if cfg.logit_softcap > 0:

@@ -43,14 +43,15 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..kernels.msb_matmul.ops import msb_matmul, msb_matmul_experts
+from ..kernels.msb_matmul.ops import (msb_matmul, msb_matmul_experts,
+                                      msb_unembed)
 from ..kernels.paged_attention.ops import (paged_attention_decode,
                                            paged_attention_decode_quant)
 
 # the wrappers a dispatch reaches; a replay advances each one's
 # ``.launches`` by its capture's count
-_WRAPPERS = (msb_matmul, msb_matmul_experts, paged_attention_decode,
-             paged_attention_decode_quant)
+_WRAPPERS = (msb_matmul, msb_matmul_experts, msb_unembed,
+             paged_attention_decode, paged_attention_decode_quant)
 
 # every input of the all-pad dummy dispatch (serve/warmup.py)
 PAD = {"tokens": 0, "seg_ids": -1, "q_pos": -1, "kv_lens": 0, "slots": -1,

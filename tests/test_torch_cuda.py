@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.core import QuantPolicy, quantize_params
-from repro_torch.core.quantize import KVQuantSpec, kv_quantize_pages
+from repro_torch.core.quantize import (KVQuantSpec, PackedQTensor,
+                                       kv_quantize_pages)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.msb_matmul import ops as mm_ops
@@ -121,6 +122,78 @@ def test_msb_matmul_tensor_cores_match_plain(cuda, m, kblocked, bias):
     assert y.dtype == torch.bfloat16 and y.shape == (m, n)
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=0,
                                atol=1e-2 * y_ref.float().abs().max().item())
+
+
+def _unembed_table(rng, v, d, kblocked, dtype, device):
+    """Random codes and sorted codebooks of a (V, D) unembedding table in
+    storage layout: tied (V, D/2) n-blocked, or k-blocked (D, V/2)."""
+    if kblocked:
+        packed = rng.integers(0, 256, (d, v // 2)).astype(np.uint8)
+        scales = rng.random((d // 64, v, 8)).astype(np.float32)
+    else:
+        packed = rng.integers(0, 256, (v, d // 2)).astype(np.uint8)
+        scales = rng.random((v, d // 64, 8)).astype(np.float32)
+    scales = np.sort(scales * 0.1, axis=-1)
+    return PackedQTensor(torch.from_numpy(packed).to(device),
+                         torch.from_numpy(scales).to(device), 4, 64, dtype,
+                         v if kblocked else d, kblocked=kblocked)
+
+
+UNEMBED_TABLES = {  # name: (V, D, kblocked, table dtype)
+    "kblocked": (4160, 512, True, torch.float32),      # 2 K slices
+    "tied_f32": (4100, 512, False, torch.float32),     # 256.25 row strips
+    "tied_bf16": (1000, 2304, False, torch.bfloat16),  # gemma2's width,
+}                                                      # 4 slices of 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(UNEMBED_TABLES))
+def test_unembed_kernel_matches_plain_and_rows_do_not_depend_on_m(cuda,
+                                                                  name):
+    """The unembedding's kernel against its plain version (1e-5 of the
+    largest logit: f32 products summed in another order) at M = 1, 3, 8,
+    17 and 64, both layouts, the tied one with f32 and bf16 codebooks;
+    every row bit-identical to the same row at M=64."""
+    v, d, kb, dtype = UNEMBED_TABLES[name]
+    rng = np.random.default_rng(v)
+    pq = _unembed_table(rng, v, d, kb, dtype, cuda)
+    x = torch.from_numpy(rng.standard_normal((64, d)).astype(
+        np.float32)).to(cuda)
+    full = mm_ops.msb_unembed(x, pq)
+    for m in (1, 3, 8, 17, 64):
+        before = mm_ops.msb_unembed.launches
+        y = mm_ops.msb_unembed(x[:m], pq)
+        assert mm_ops.msb_unembed.launches == before + 1
+        want = mm_ref.msb_unembed_ref(x[:m], pq)
+        assert y.shape == want.shape == (m, v)
+        torch.testing.assert_close(y, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+        assert torch.equal(y, full[:m]), f"rows at M={m} differ from M=64"
+
+
+@pytest.mark.cuda
+def test_unembed_kernel_in_a_captured_graph(cuda):
+    """The entry launches inside a CUDA graph (no host sync, outputs from
+    the graph's pool); a replay on new inputs gives the eager launch's
+    bits."""
+    rng = np.random.default_rng(5)
+    pq = _unembed_table(rng, 1000, 2304, False, torch.bfloat16, cuda)
+
+    def hidden():
+        return torch.from_numpy(rng.standard_normal((8, 2304)).astype(
+            np.float32)).to(cuda)
+
+    x = hidden()
+    eager = mm_ops.msb_unembed(x, pq)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mm_ops.msb_unembed(x, pq)
+    x.copy_(hidden())
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, mm_ops.msb_unembed(x, pq))
+    assert not torch.equal(out, eager)
 
 
 @pytest.mark.cuda
@@ -717,10 +790,10 @@ def test_warmup_captures_everything_and_pools_stay_put(graph_model, bits):
 @pytest.mark.parametrize("bits", [16, 8])
 def test_replays_count_the_eager_launches(graph_model, bits):
     """A replay adds the launches of the forwards it holds: kernel A 7 a
-    layer + the unembedding (169 a forward at 24 layers), B or C one a
-    layer (24); a capture itself counts none."""
+    layer (168 a forward at 24 layers) and the unembedding's kernel once,
+    B or C one a layer (24); a capture itself counts none."""
     model, qparams = graph_model
-    per_a, per_attn = 7 * GRAPH_LAYERS + 1, GRAPH_LAYERS
+    per_a, per_attn = 7 * GRAPH_LAYERS, GRAPH_LAYERS
     attn = ("paged_attention_decode" if bits == 16
             else "paged_attention_decode_quant")
     eng = ContinuousEngine(model, qparams, decode_horizon=8, kv_bits=bits,
@@ -730,15 +803,17 @@ def test_replays_count_the_eager_launches(graph_model, bits):
         h = 8 if kind == "decode_horizon" else 1
         counts = eng.graphs.graph_launches(kind, size)
         assert counts["msb_matmul"] == h * per_a, (kind, counts)
+        assert counts["msb_unembed"] == h, (kind, counts)
         assert counts[attn] == h * per_attn, (kind, counts)
-        assert sum(counts.values()) == h * (per_a + per_attn)
-    before = (mm_ops.msb_matmul.launches,
+        assert sum(counts.values()) == h * (per_a + 1 + per_attn)
+    before = (mm_ops.msb_matmul.launches, mm_ops.msb_unembed.launches,
               getattr(pa_ops, attn).launches)
     slots, inputs = pad_inputs("decode_horizon", 4, eng.max_batch)
     eng.graphs.run("decode_horizon", 4, inputs, eng.cache.table_rows(slots))
     assert (mm_ops.msb_matmul.launches - before[0],
-            getattr(pa_ops, attn).launches - before[1]) == \
-        (8 * per_a, 8 * per_attn)
+            mm_ops.msb_unembed.launches - before[1],
+            getattr(pa_ops, attn).launches - before[2]) == \
+        (8 * per_a, 8, 8 * per_attn)
     eng.close()
 
 

@@ -12,6 +12,7 @@ import torch
 import repro_torch
 from repro_torch.configs import smoke_config
 from repro_torch.core import QuantPolicy, pack_params, quantize_params
+from repro_torch.core.quantize import PackedQTensor
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.msb_matmul import ops as mm_ops
@@ -22,7 +23,7 @@ from repro_torch.serve import ContinuousEngine, ServeEngine
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
-    ROOT / "chip_window_mutant.py"]
+    ROOT / "chip_window_mutant.py", ROOT / "chip_unembed_variants.py"]
 
 
 def _forbidden_imports(path):
@@ -86,7 +87,7 @@ def test_device_none_means_cuda_and_raises_without_it(name, monkeypatch):
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    before = (mm_ops.msb_matmul.launches,
+    before = (mm_ops.msb_matmul.launches, mm_ops.msb_unembed.launches,
               pa_ops.paged_attention_decode.launches,
               fa_ops.flash_attention_fwd.launches)
     x = torch.ones(2, 64)
@@ -94,6 +95,9 @@ def test_cpu_tensors_take_the_plain_versions():
     scales = torch.ones(64, 1, 8)
     y = mm_ops.msb_matmul(x, packed, scales)
     assert torch.equal(y, torch.full((2, 64), 64.0))
+    table = PackedQTensor(packed, scales, 4, 64, torch.float32, 64)
+    assert torch.equal(mm_ops.msb_unembed(x, table),
+                       torch.full((2, 64), 64.0))
     q = torch.ones(1, 2, 4)
     pool = torch.ones(2, 2, 1, 4)
     out = pa_ops.paged_attention_decode(
@@ -103,7 +107,7 @@ def test_cpu_tensors_take_the_plain_versions():
     k = torch.ones(1, 1, 3, 16)
     out = fa_ops.flash_attention_fwd(torch.ones(1, 2, 3, 16), k, k)
     assert torch.allclose(out, torch.ones(1, 2, 3, 16))
-    assert (mm_ops.msb_matmul.launches,
+    assert (mm_ops.msb_matmul.launches, mm_ops.msb_unembed.launches,
             pa_ops.paged_attention_decode.launches,
             fa_ops.flash_attention_fwd.launches) == before
 
