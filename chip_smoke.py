@@ -14,10 +14,12 @@ one line each (details indented), any failure exits non-zero:
    packed-prefill M, the static prefill's M=4096, the f32 unembedding;
    gemma2-2b's projections at M = 8 and 4096, qwen1.5-0.5b's biased q
    projection), with times; rows bit-identical at M = 1, 8, 17, 512 and
-   4096; its expert batch at granite-moe's shapes (48 experts, C = 8 and
-   112, counts with zeros), every expert bit-identical to msb_matmul on
-   it alone; the unembedding's kernel (``msb_unembed``) at internlm2's
-   k-blocked table and gemma2's and qwen1.5-0.5b's tied tables at M = 1,
+   4096; jamba's dt_proj (K=256) at M = 8 and 2048; its expert batch at
+   granite-moe's shapes (48 experts, C = 8 and 112, counts with zeros)
+   and jamba's (16 experts, 4096 x 14336 both ways, C = 8), every expert
+   bit-identical to msb_matmul on it alone; the unembedding's kernel
+   (``msb_unembed``) at internlm2's and jamba's k-blocked tables and
+   gemma2's and qwen1.5-0.5b's tied tables at M = 1,
    8 and 64, with its plain version, ``torch.matmul`` on the
    pre-dequantized f32 table and its bound; rows at M = 1 and 8
    bit-identical to the same rows at M = 64
@@ -30,9 +32,11 @@ one line each (details indented), any failure exits non-zero:
    every row bit-identical alone and in the batch
 6. flash_attention_fwd vs its plain version at the static path's prefill
    shape and at long, ragged, windowed + softcapped, segmented (bf16: the
-   tensor-core kernel), f32 (the SIMT kernel) and gemma2's (head_dim 256,
-   window 4096, softcap 50, S=4608) shapes; pad rows exactly 0,
-   cross-segment isolation bit for bit
+   tensor-core kernel), f32 (the SIMT kernel), gemma2's (head_dim 256,
+   window 4096, softcap 50, S=4608) and whisper's (head_dim 64, not
+   causal: the encoder over 1500 frames, and the cross-attention of 64
+   queries onto them) shapes; pad rows exactly 0, cross-segment
+   isolation bit for bit
 7. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
    the card, pack, ContinuousEngine at decode_horizon 8 and 1 over kv16
    pools, each engine's dispatch set captured as CUDA graphs by warmup()
@@ -90,16 +94,30 @@ one line each (details indented), any failure exits non-zero:
    then the smoke configs of gemma2, granite-moe, qwen1.5-0.5b and
    arctic-480b served on the card and on the CPU (granite-moe at kv8/kv4
    and its own capacity with uneven counts: reported, not held)
+14. state stacks — the stacks with per-sequence state at full width
+   (random weights, seed 0, each drawn, 4b/64 DP quantized and packed
+   leaf by leaf on the card, freed before the next): xlstm-125m (12
+   layers) and jamba-v0.1-52b cut to one 8-layer period (7 mamba, 1
+   attention, 4 MoE layers) through ServeEngine (prefill, 32 greedy
+   tokens, score) with decode-step profiles; whisper-large-v3 (32 + 32
+   layers, 1500 frames) and internvl2-76b cut to 2 layers (1024 patch
+   embeddings) through Model.prefill, greedy decode_steps and
+   Model.loss; kernel D's launches held exactly (whisper 96, jamba 1,
+   internvl 2, xlstm 0), A and the unembedding's kernel non-zero, the
+   expert batch for jamba; then the four smoke configs on the card and
+   on the CPU
 
-Windowed B/C cases (phases 4-5) and D at d=256 (phase 6) also hold every
-output row within ``ROW_REL_TOL`` of its own largest value, since rows
-over ~4096 keys have values near 0.03.
+Windowed B/C cases (phases 4-5) and D at d=256 and without the causal
+mask (phase 6) also hold every output row within ``ROW_REL_TOL`` of its
+own largest value, since rows over ~1500-4096 keys have values near
+0.03.
 
 The second-to-last line is the kernel table as JSON (kernel A at the
-decode shape, at M=4096 and as the expert batch; the unembedding's kernel
-at internlm2's k-blocked and gemma2's tied table, M=8; B and C without and,
-at kv16 and kv4, with the window; D at the static prefill and at
-gemma2's windowed d=256 prefill); the last line
+decode shape, at M=4096 and as the expert batch at granite-moe's and
+jamba's shapes; the unembedding's kernel at internlm2's k-blocked and
+gemma2's tied table, M=8; B and C without and, at kv16 and kv4, with the
+window; D at the static prefill, at gemma2's windowed d=256 prefill and
+at whisper's encoder and cross-attention); the last line
 is ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
 stream is timed cold (L2 flushed before every launch), as decode meets it.
 Phases 3-6 report the median of 20 launches (the mean beside it) for the
@@ -235,8 +253,10 @@ def rand_packed(torch, gen, k, n, kblocked, device):
 def phase_msb_matmul(torch, timer, device):
     """Kernel A against its plain version at the main path's shapes: decode
     and packed-prefill M (1-512) at every projection shape and the f32
-    k-blocked unembedding, and the static prefill's M=4096 at the three
-    projection shapes (the plain version timed with 2 reps there). Kernel
+    k-blocked unembedding, the static prefill's M=4096 at the three
+    projection shapes, and every projection of phase 14's stacks at its
+    decode and prefill M (the plain version timed with 2 reps at M of
+    2048 and more). Kernel
     and library (``torch.matmul`` on the pre-dequantized weights) are
     medians of 20 cold launches. Also checks, bit for bit, that rows do
     not depend on M: each M=4096 product's first rows equal the same rows
@@ -254,6 +274,23 @@ def phase_msb_matmul(torch, timer, device):
               ((2304, 2048), (2304, 1024), (2304, 9216), (9216, 2304),
                (2048, 2304))]
     cases.append((1024, 1024, False, bf16, (8,)))
+    # jamba-v0.1-52b's dt_proj: K=256, four k-blocks (decode, the prefill)
+    cases.append((256, 8192, False, bf16, (8, 2048)))
+    # phase 14's stacks, each projection at its decode M (the batch) and
+    # its prefill M (the batch's rows): jamba's mamba in/out, attention q,
+    # k/v and dense MLP (B=4, 4 x 512); whisper's attention and MLP (B=4,
+    # the decoder's 4 x 64, the encoder's 4 x 1500; K=1280 is 20
+    # k-blocks); xlstm's sLSTM w_in and its 768-wide projections (B=8,
+    # 8 x 512); internvl's q/o, k/v and MLP (B=2, 2 x 1088)
+    cases += [(k, n, False, bf16, (4, 2048)) for k, n in
+              ((4096, 8192), (8192, 4096), (4096, 4096), (4096, 1024),
+               (4096, 14336), (14336, 4096))]
+    cases += [(k, n, False, bf16, (4, 256, 6000)) for k, n in
+              ((1280, 1280), (1280, 5120), (5120, 1280))]
+    cases += [(k, n, False, bf16, (8, 4096)) for k, n in
+              ((768, 3072), (768, 768))]
+    cases += [(k, n, False, bf16, (2, 2176)) for k, n in
+              ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192))]
     biased = {(2048, 1024, 8), (1024, 1024, 8)}
     rows, worst = [], 0.0
     for k, n, kb, xdt, ms_ in cases:
@@ -283,7 +320,7 @@ def phase_msb_matmul(torch, timer, device):
                 x, packed, scales, bias, kblocked=kb))
             plain = timer(lambda: ref.msb_matmul_ref(x, packed, scales, bias,
                                                      kblocked=kb),
-                          reps=2 if m == 4096 else 3, warmup=1)
+                          reps=2 if m >= 2048 else 3, warmup=1)
             lib, _ = timer.stats(lambda: torch.matmul(x, w))
             xb = x.element_size()
             nbytes = (m * k * xb + k * n // 2 + scales.numel() * 4
@@ -309,10 +346,16 @@ def phase_msb_matmul(torch, timer, device):
 
 
 # the unembedding's tables: (name, V, D, k-blocked, table dtype) —
-# internlm2-1.8b's untied table, gemma2-2b's and qwen1.5-0.5b's tied ones
+# internlm2-1.8b's, jamba-v0.1-52b's and internvl2-76b's untied tables,
+# gemma2-2b's, qwen1.5-0.5b's, xlstm-125m's and whisper-large-v3's tied
+# ones
 UNEMBED_TABLES = [("internlm2", 92672, 2048, True, "float32"),
+                  ("jamba", 65536, 4096, True, "float32"),
+                  ("internvl", 128256, 8192, True, "float32"),
                   ("gemma2", 256000, 2304, False, "bfloat16"),
-                  ("qwen", 151936, 1024, False, "bfloat16")]
+                  ("qwen", 151936, 1024, False, "bfloat16"),
+                  ("xlstm", 50432, 768, False, "bfloat16"),
+                  ("whisper", 51968, 1280, False, "bfloat16")]
 
 
 def phase_msb_unembed(torch, timer, device):
@@ -385,70 +428,89 @@ def expert_counts(torch, gen, tokens, k, n_real, e_total, capacity, device):
     return torch.clamp(counts, max=capacity)
 
 
+# the expert batch's shapes: (model, padded experts, routed experts, top-k,
+# d_model, d_ff, [(capacity C, tokens)]) — granite-moe-3b-a800m at a decode
+# step and a 512-token packed-prefill wave, jamba-v0.1-52b at a B=8 decode
+EXPERT_SHAPES = [("granite-moe", 48, 40, 8, 1536, 512, ((8, 8), (112, 512))),
+                 ("jamba", 16, 16, 2, 4096, 14336, ((8, 8),))]
+
+
 def msb_matmul_experts_cases(torch, timer, device, gen):
-    """Kernel A's expert batch at granite-moe-3b-a800m's shapes (48 padded
-    experts of which 40 route, top-8, d_model 1536, d_ff 512): the gate/up
-    direction (K=1536, N=512) and the down direction (K=512, N=1536), at a
-    decode step (8 tokens: capacity C=8) and at a 512-token packed-prefill
-    wave (C=112), routed counts with zeros. Every expert bit for bit
-    ``msb_matmul`` on it alone; against the plain version (a loop of
+    """Kernel A's expert batch at ``EXPERT_SHAPES``: the gate/up direction
+    (K=d_model, N=d_ff) and the down direction (K=d_ff, N=d_model), routed
+    counts with zeros (granite-moe: 48 padded experts of which 40 route,
+    top-8; capacity 8 at a decode step, 112 at a 512-token wave; jamba: 16
+    experts, top-2, a B=8 decode step at capacity 8). Every expert bit for
+    bit ``msb_matmul`` on it alone; against the plain version (a loop of
     ``msb_matmul_ref``) within 1e-2 relative. Library: a loop of
     ``torch.matmul`` over the routed experts' pre-dequantized weights."""
     from repro_torch.kernels.msb_matmul import ops, ref
-    e, n_real, topk = 48, 40, 8
     rows = []
-    for c, tokens in ((8, 8), (112, 512)):
-        counts = expert_counts(torch, gen, tokens, topk, n_real, e, c, device)
-        live = [i for i in range(e) if int(counts[i]) > 0]
-        for k, n in ((1536, 512), (512, 1536)):
-            packed = torch.randint(0, 256, (e, k, n // 2), generator=gen,
-                                   device=device, dtype=torch.int32).to(
-                                       torch.uint8)
-            scales = torch.sort(torch.rand((e, k, n // 64, 8), generator=gen,
-                                           device=device) * 0.05,
-                                dim=-1).values.contiguous()
-            x = torch.randn((e, c, k), generator=gen, device=device).to(
-                torch.bfloat16)
-            y = ops.msb_matmul_experts(x, packed, scales, counts)
-            y_ref = ref.msb_matmul_experts_ref(x, packed, scales, counts)
-            torch.cuda.synchronize()
-            err = (y.float() - y_ref.float()).abs().max().item()
-            scale = y_ref.float().abs().max().item()
-            if not err <= 1e-2 * scale:
-                fail(f"msb_matmul_experts C={c} K={k} N={n}: max err {err}")
-            for i in range(e):
-                if i not in live:
-                    if y[i].abs().max().item() != 0.0:
-                        fail(f"msb_matmul_experts: expert {i} with count 0 "
-                             "is not exactly 0")
-                elif not torch.equal(y[i], ops.msb_matmul(
-                        x[i].contiguous(), packed[i], scales[i])):
-                    fail(f"msb_matmul_experts C={c} K={k} N={n}: expert {i}"
-                         " differs from msb_matmul on it alone")
-            ws = {i: ref.dequant_ref(packed[i], scales[i]).to(torch.bfloat16)
-                  for i in live}
-            ms, ms_mean = timer.stats(lambda: ops.msb_matmul_experts(
-                x, packed, scales, counts))
-            plain = timer(lambda: ref.msb_matmul_experts_ref(
-                x, packed, scales, counts), reps=2, warmup=1)
-            lib, _ = timer.stats(lambda: [torch.matmul(x[i], ws[i])
-                                          for i in live])
-            del ws
-            nbytes = (e * c * k * 2 + len(live) * (k * n // 2 + k * n // 8 * 4)
-                      + e * c * n * 2 + e * 4)
-            b_ms, b_by = bound(nbytes, 2.0 * c * k * n * len(live),
-                               "bfloat16")
-            row = dict(shape=f"experts E={e} ({len(live)} routed) C={c} "
-                       f"K={k} N={n} n-blocked bf16", experts=True, m=c, k=k,
-                       n=n, max_abs_err=err, ms=ms, plain_ms=plain,
-                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-            rows.append(row)
-            log(f"  msb_matmul_experts {row['shape']}: err {err:.3g} kernel "
-                f"{ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | plain "
-                f"{plain:.4f} | library (torch.matmul loop over routed "
-                f"experts) {lib:.4f} | bound {b_ms:.4f} ({b_by}), "
-                f"{100 * b_ms / ms:.1f} % of it reached")
-            del packed, scales, x
+    for model, e, n_real, topk, dm, df, waves in EXPERT_SHAPES:
+        for c, tokens in waves:
+            rows += expert_shape_cases(torch, timer, device, gen, model, e,
+                                       n_real, topk, dm, df, c, tokens, ops,
+                                       ref)
+    return rows
+
+
+def expert_shape_cases(torch, timer, device, gen, model, e, n_real, topk,
+                       dm, df, c, tokens, ops, ref):
+    """Both directions of one model's expert batch at capacity ``c``."""
+    rows = []
+    counts = expert_counts(torch, gen, tokens, topk, n_real, e, c, device)
+    live = [i for i in range(e) if int(counts[i]) > 0]
+    for k, n in ((dm, df), (df, dm)):
+        packed = torch.randint(0, 256, (e, k, n // 2), generator=gen,
+                               device=device, dtype=torch.int32).to(
+                                   torch.uint8)
+        scales = torch.sort(torch.rand((e, k, n // 64, 8), generator=gen,
+                                       device=device) * 0.05,
+                            dim=-1).values.contiguous()
+        x = torch.randn((e, c, k), generator=gen, device=device).to(
+            torch.bfloat16)
+        y = ops.msb_matmul_experts(x, packed, scales, counts)
+        y_ref = ref.msb_matmul_experts_ref(x, packed, scales, counts)
+        torch.cuda.synchronize()
+        err = (y.float() - y_ref.float()).abs().max().item()
+        scale = y_ref.float().abs().max().item()
+        if not err <= 1e-2 * scale:
+            fail(f"msb_matmul_experts {model} C={c} K={k} N={n}: max err "
+                 f"{err}")
+        for i in range(e):
+            if i not in live:
+                if y[i].abs().max().item() != 0.0:
+                    fail(f"msb_matmul_experts: expert {i} with count 0 "
+                         "is not exactly 0")
+            elif not torch.equal(y[i], ops.msb_matmul(
+                    x[i].contiguous(), packed[i], scales[i])):
+                fail(f"msb_matmul_experts C={c} K={k} N={n}: expert {i}"
+                     " differs from msb_matmul on it alone")
+        ws = {i: ref.dequant_ref(packed[i], scales[i]).to(torch.bfloat16)
+              for i in live}
+        ms, ms_mean = timer.stats(lambda: ops.msb_matmul_experts(
+            x, packed, scales, counts))
+        plain = timer(lambda: ref.msb_matmul_experts_ref(
+            x, packed, scales, counts), reps=2, warmup=1)
+        lib, _ = timer.stats(lambda: [torch.matmul(x[i], ws[i])
+                                      for i in live])
+        del ws
+        nbytes = (e * c * k * 2 + len(live) * (k * n // 2 + k * n // 8 * 4)
+                  + e * c * n * 2 + e * 4)
+        b_ms, b_by = bound(nbytes, 2.0 * c * k * n * len(live),
+                           "bfloat16")
+        row = dict(shape=f"{model} experts E={e} ({len(live)} routed) "
+                   f"C={c} K={k} N={n} n-blocked bf16", experts=True,
+                   model=model, m=c, k=k, n=n, max_abs_err=err, ms=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                   bound_by=b_by)
+        rows.append(row)
+        log(f"  msb_matmul_experts {row['shape']}: err {err:.3g} kernel "
+            f"{ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | plain "
+            f"{plain:.4f} | library (torch.matmul loop over routed "
+            f"experts) {lib:.4f} | bound {b_ms:.4f} ({b_by}), "
+            f"{100 * b_ms / ms:.1f} % of it reached")
+        del packed, scales, x
     return rows
 
 
@@ -883,22 +945,41 @@ def phase_flash_attention(torch, timer, device):
     gen = torch.Generator(device=device).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = [  # name, B, H, KV, S, d, dtype, causal, window, softcap, segs
-        ("prefill B=8 S=512", 8, 16, 8, 512, 128, bf16, True, 0, 0.0, False),
-        ("B=1 S=2048", 1, 16, 8, 2048, 128, bf16, True, 0, 0.0, False),
-        ("ragged B=8 S=300", 8, 16, 8, 300, 128, bf16, True, 0, 0.0, False),
-        ("window 512 softcap 50 B=1 S=2048", 1, 16, 8, 2048, 128, bf16, True,
-         512, 50.0, False),
-        ("3 segments + pads B=2 S=1024", 2, 16, 8, 1024, 128, bf16, True, 0,
-         0.0, True),
-        ("f32 d=16 B=2 S=300", 2, 4, 2, 300, 16, f32, True, 0, 0.0, False),
+    cases = [  # name, B, H, KV, Sq, Skv, d, dtype, causal, window,
+        # softcap, segs
+        ("prefill B=8 S=512", 8, 16, 8, 512, 512, 128, bf16, True, 0, 0.0,
+         False),
+        ("B=1 S=2048", 1, 16, 8, 2048, 2048, 128, bf16, True, 0, 0.0, False),
+        ("ragged B=8 S=300", 8, 16, 8, 300, 300, 128, bf16, True, 0, 0.0,
+         False),
+        ("window 512 softcap 50 B=1 S=2048", 1, 16, 8, 2048, 2048, 128,
+         bf16, True, 512, 50.0, False),
+        ("3 segments + pads B=2 S=1024", 2, 16, 8, 1024, 1024, 128, bf16,
+         True, 0, 0.0, True),
+        ("f32 d=16 B=2 S=300", 2, 4, 2, 300, 300, 16, f32, True, 0, 0.0,
+         False),
         # gemma2-2b's static prefill: head_dim 256, window 4096, softcap 50
-        ("gemma2 window 4096 softcap 50 B=2 S=4608", 2, 8, 4, 4608, 256,
-         bf16, True, 4096, 50.0, False),
+        ("gemma2 window 4096 softcap 50 B=2 S=4608", 2, 8, 4, 4608, 4608,
+         256, bf16, True, 4096, 50.0, False),
+        # whisper-large-v3 (head_dim 64): the encoder over 1500 frames, and
+        # the decoder's 64-token prompt's cross-attention onto them; the
+        # last key tile holds 28 of 64 rows
+        ("whisper encoder B=4 S=1500", 4, 20, 20, 1500, 1500, 64, bf16,
+         False, 0, 0.0, False),
+        ("whisper cross B=4 Sq=64 Skv=1500", 4, 20, 20, 64, 1500, 64, bf16,
+         False, 0, 0.0, False),
+        # phase 14's causal prefills: whisper's decoder (64 tokens),
+        # internvl2-76b's (1024 patches + 64 tokens), jamba's attention layer
+        ("whisper decoder B=4 S=64", 4, 20, 20, 64, 64, 64, bf16, True, 0,
+         0.0, False),
+        ("internvl B=2 S=1088", 2, 64, 8, 1088, 1088, 128, bf16, True, 0,
+         0.0, False),
+        ("jamba B=4 S=512", 4, 32, 8, 512, 512, 128, bf16, True, 0, 0.0,
+         False),
     ]
     rows = []
-    for name, b, h, kv, s, d, dt, causal, window, softcap, seg in cases:
-        q = torch.randn((b, h, s, d), generator=gen, device=device).to(dt)
+    for name, b, h, kv, sq, s, d, dt, causal, window, softcap, seg in cases:
+        q = torch.randn((b, h, sq, d), generator=gen, device=device).to(dt)
         k = torch.randn((b, kv, s, d), generator=gen, device=device).to(dt)
         v = torch.randn((b, kv, s, d), generator=gen, device=device).to(dt)
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -914,7 +995,8 @@ def phase_flash_attention(torch, timer, device):
         tol = 2e-2 if dt == bf16 else 1e-5
         if not err <= tol:
             fail(f"flash_attention {name}: max err {err} > {tol}")
-        if d == 256:   # rows over ~4096 keys: hold each row to its scale
+        if d == 256 or not causal:   # rows over ~1500-4096 keys: hold
+            # each row to its own scale
             rel = row_rel_err(torch, out, out_ref)
             log(f"  flash_attention {name}: worst row err / max|row| "
                 f"{rel:.3g} (tol {ROW_REL_TOL})")
@@ -943,14 +1025,15 @@ def phase_flash_attention(torch, timer, device):
         if not (seg or window or softcap):   # one PyTorch call computes it
             lib, lib_mean = timer.stats(lambda: sdpa(
                 q, k, v, is_causal=causal, enable_gqa=True))
-        pairs = visible_pairs(s, s, causal, window, segs_np)
+        pairs = visible_pairs(sq, s, causal, window, segs_np)
         if segs_np is None:
             pairs *= b
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         nbytes += 0 if segs_np is None else 2 * segs_np.nbytes
         b_ms, b_by = bound(nbytes, 4.0 * pairs * h * d, str(dt)[6:])
         row = dict(shape=f"{name} H={h} KV={kv} d={d} {str(dt)[6:]} "
-                   f"{'causal' if causal else 'full'}", max_abs_err=err,
+                   f"{'causal' if causal else 'full'}", name=name,
+                   max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
                    bound_by=b_by)
         rows.append(row)
@@ -962,9 +1045,9 @@ def phase_flash_attention(torch, timer, device):
             f"({b_by}), {100 * b_ms / ms:.1f} % of it reached")
         del q, k, v, out, out_ref
     log(f"[flash_attention] {len(rows)} shapes agree with the plain version"
-        " (tol 2e-2 abs bf16, 1e-5 f32; at d=256 also every row within 1e-2"
-        " of its largest value; pad rows exactly 0; segment isolation "
-        "bitwise)")
+        " (tol 2e-2 abs bf16, 1e-5 f32; at d=256 and non-causal also every "
+        "row within 1e-2 of its largest value; pad rows exactly 0; segment "
+        "isolation bitwise)")
     return rows
 
 
@@ -1456,20 +1539,23 @@ def time_commit(torch, device, model, engine_kw, b=8, reps=10):
 
 def device_breakdown(prof, wall, n_steps, what):
     """Device time by kernel from a profiler run over ``n_steps`` steps of
-    ``wall`` ms each: the busy share of the wall time, the host time spent
-    launching CUDA graphs, and the top ten."""
-    by_name, graph_launch = {}, 0.0
+    ``wall`` ms each: the busy share of the wall time, the device kernels
+    a step, the host time spent launching CUDA graphs, and the top ten.
+    Returns (busy ms, kernels) a step."""
+    by_name, graph_launch, kernels = {}, 0.0, 0
     for evt in prof.key_averages():
         dev = getattr(evt, "self_device_time_total",
                       getattr(evt, "self_cuda_time_total", 0))
         if dev > 0 and evt.device_type.name == "CUDA":
             by_name[evt.key] = by_name.get(evt.key, 0.0) + dev / 1e3
+            kernels += evt.count
         if evt.key == "cudaGraphLaunch":
             graph_launch += evt.self_cpu_time_total / 1e3
     busy = sum(by_name.values()) / n_steps
     log(f"  {what}: wall {wall:.2f} ms/step, device busy {busy:.2f} ms/step "
-        f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%); "
-        f"host in cudaGraphLaunch {graph_launch / n_steps:.2f} ms/step")
+        f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%), "
+        f"{kernels / n_steps:.0f} kernels/step; host in cudaGraphLaunch "
+        f"{graph_launch / n_steps:.2f} ms/step")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, ms in ranked[:10]:
         log(f"    {ms / n_steps:8.3f} ms/step  {name[:90]}")
@@ -1477,6 +1563,7 @@ def device_breakdown(prof, wall, n_steps, what):
         if "paged_attention" in name or "flash_attention" in name:
             log(f"    {ms / n_steps:8.3f} ms/step  {name[:90]} (outside the "
                 "top ten)")
+    return busy, kernels / n_steps
 
 
 def profile_decode(torch, engine, prompts, max_new, n_steps=4):
@@ -1540,21 +1627,28 @@ def profile_prefill(torch, engine, prompts, max_new, n_steps=1):
     engine.close()
 
 
-def profile_static(torch, engine, prompts, n_steps=4):
+def profile_static(torch, engine, prompts, n_steps=4, prefill=True):
     """Where the static engine's time goes: torch.profiler over one
-    prefill of ``prompts`` and then over ``n_steps`` ring decode steps."""
+    prefill of ``prompts`` (unless not ``prefill``: a prefill of a
+    recurrent stack is ~1e5 small launches, whose trace takes the
+    profiler longer to digest than the run) and then over ``n_steps``
+    ring decode steps."""
     from torch.profiler import ProfilerActivity, profile
     model, params = engine.model, engine.params
     tokens = torch.from_numpy(prompts).to(engine.device)
     b, p = prompts.shape
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    if prefill:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        device_breakdown(prof, wall, 1,
+                         f"static prefill profile (B={b}, P={p})")
+    else:
         logits, cache = model.prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    device_breakdown(prof, wall, 1, f"static prefill profile (B={b}, P={p})")
     cache = engine._grow_cache(cache, p)
     cur = torch.full((b,), p, dtype=torch.int32, device=engine.device)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
@@ -2193,82 +2287,123 @@ LONG_PROMPT = 4500           # one of phase 13's gemma2 requests
 STATIC_PROMPT = 4608         # gemma2's static prefill: D with the window
 
 
-def build_full(torch, arch):
-    """``arch`` at full width with random weights from seed 0 on the
-    card, 4-bit block-64 DP quantized on the card and packed; the f32
-    weights are freed. Returns (model, packed params)."""
-    from repro_torch.configs import get_config
+def build_leafwise(torch, cfg, device):
+    """``cfg`` with random weights from seed 0 on the card, each leaf
+    drawn, 4-bit block-64 DP quantized on the card and packed before the
+    next is drawn (``init_leaves``), so the f32 tree never exists whole
+    (jamba's cut 13.3B weights would be 53 GB in f32). Same numbers as
+    ``Model.init`` from that seed. Returns (model, packed params)."""
     from repro_torch.core import QuantPolicy, pack_params, quantize_params
     from repro_torch.models import Model
-    cfg = get_config(arch)
-    model = Model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    from repro_torch.models.transformer import _nest, init_leaves
+    policy = QuantPolicy(bits=4, block=64, solver="dp")
     torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    qparams, report = quantize_params(
-        params, QuantPolicy(bits=4, block=64, solver="dp"))
-    torch.cuda.synchronize()
-    t_quant = time.perf_counter() - t0
-    del params
-    packed, _ = pack_params(qparams)
-    del qparams
-    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flat, t_init, t_quant, n_quant = {}, 0.0, 0.0, 0
+    leaves = init_leaves(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    while True:
+        t0 = time.perf_counter()
+        item = next(leaves, None)
+        torch.cuda.synchronize()
+        t_init += time.perf_counter() - t0
+        if item is None:
+            break
+        path, leaf = item
+        del item
+        t0 = time.perf_counter()
+        q, report = quantize_params(_nest({path: leaf}), policy,
+                                    device=device)
+        del leaf
+        node, _ = pack_params(q, device=device)
+        del q
+        for part in path.split("/"):
+            node = node[part]
+        flat[path] = node
+        torch.cuda.synchronize()
+        t_quant += time.perf_counter() - t0
+        n_quant += len(report)
+    packed = _nest(flat)
     pbytes = sum(t.numel() * t.element_size() for _, leaf in _leaves(packed)
                  for t in _tensors(leaf))
-    log(f"  {arch} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim "
-        f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}"
-        + (f", {cfg.n_experts} experts padded to {cfg.n_experts_padded}, "
-           f"top-{cfg.n_experts_active}" if cfg.n_experts else "")
-        + f"): init {t_init:.2f} s, DP quantize of {len(report)} tensors on "
-        f"the card {t_quant:.2f} s, packed params {pbytes / 1e9:.3f} GB")
-    return model, packed
+    log(f"  {cfg.name} ({cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder" if cfg.is_encdec else "")
+        + f", d {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
+        f"heads, head_dim {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_padded}"
+        + (f", {cfg.n_experts} experts top-{cfg.n_experts_active}"
+           if cfg.n_experts else "")
+        + f"): init {t_init:.3f} s, DP quantize + pack of {n_quant} tensors "
+        f"on the card {t_quant:.2f} s, packed params {pbytes / 1e9:.3f} GB, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} "
+        "GB")
+    return Model(cfg), packed
 
 
-def family_static(torch, model, packed, b, p, n):
-    """ServeEngine on ``b`` random prompts of ``p`` tokens: ``n`` greedy
-    tokens, then ``score`` of prompts and tokens, launch counters zeroed
-    before each. Returns the generate's counts."""
+def check_counts(name, counts, fa, experts, unembed=True):
+    """Kernel D launched exactly ``fa`` times; A at least once, and the
+    unembedding's kernel where ``unembed`` (the logits of prefill and
+    decode; the loss's cross-entropy multiplies the dequantized table, as
+    the reference's does); the expert batch iff ``experts``."""
+    if not (counts["flash_attention_fwd"] == fa and counts["msb_matmul"] > 0
+            and (counts["msb_unembed"] > 0) == unembed
+            and (counts["msb_matmul_experts"] > 0) == experts):
+        fail(f"{name}: launches {counts}, want flash_attention_fwd {fa}, "
+             f"msb_matmul > 0, msb_unembed {'> 0' if unembed else '0'}, "
+             f"msb_matmul_experts {'> 0' if experts else '0'}")
+
+
+def timed(torch, fn):
+    """(fn(), wall seconds, launch counts), counters zeroed just before."""
+    torch.cuda.synchronize()
+    zero_launch_counters()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launch_counters()
+
+
+def state_static(torch, model, packed, b, p, n, fa, device):
+    """``ServeEngine`` on ``b`` random prompts of ``p`` tokens (seed 7):
+    the prefill alone, then ``generate`` of ``n`` greedy tokens and
+    ``score`` of the prompts and the first token, counters zeroed before
+    each. Kernel D launches ``fa`` times in each (prefill and the loss
+    forward; the ring decode runs no kernel D). Returns (engine, prompts,
+    the generate's counts)."""
     from repro_torch.serve import ServeEngine
     cfg = model.cfg
     prompts = np.random.default_rng(7).integers(
         0, cfg.vocab_size, (b, p)).astype(np.int32)
-    eng = ServeEngine(model, packed, max_seq=p + n)
+    eng = ServeEngine(model, packed, max_seq=p + n, device=device)
     eng.generate(prompts[:, :16], 2)           # lazy set-up, untimed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launch_counters()
-    t0 = time.perf_counter()
-    toks = eng.generate(prompts, n)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_launch_counters()
-    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.from_numpy(prompts).to(device)
+    (logits, _), t_pre, pre_counts = timed(
+        torch, lambda: model.prefill(eng.params, {"tokens": tokens}))
+    check_counts(f"{cfg.name} prefill", pre_counts, fa, bool(cfg.n_experts))
+    if not torch.isfinite(logits[:, :cfg.vocab_size]).all():
+        fail(f"{cfg.name}: prefill logits not finite")
+    toks, wall, counts = timed(torch, lambda: eng.generate(prompts, n))
+    check_counts(f"{cfg.name} generate", counts, fa, bool(cfg.n_experts))
     if toks.shape != (b, n) or not ((toks >= 0) & (toks < cfg.vocab_size)
                                     ).all():
-        fail(f"{cfg.name} static: tokens of shape {toks.shape} or out of "
-             "range")
-    if not (counts["flash_attention_fwd"] > 0 and counts["msb_matmul"] > 0
-            and counts["msb_unembed"] > 0
-            and (counts["msb_matmul_experts"] > 0) == bool(cfg.n_experts)):
-        fail(f"{cfg.name} static: a kernel of the path never launched: "
-             f"{counts}")
-    zero_launch_counters()
-    t0 = time.perf_counter()
-    nll = eng.score(np.concatenate([prompts, toks[:, :1]], axis=1))
-    torch.cuda.synchronize()
-    t_score = time.perf_counter() - t0
-    score_counts = read_launch_counters()
-    if not (np.isfinite(nll) and score_counts["flash_attention_fwd"] > 0):
-        fail(f"{cfg.name} static: score {nll}, launches {score_counts}")
-    log(f"  {cfg.name} ServeEngine B={b} P={p}: generate {n} tokens "
-        f"{wall:.3f} s wall, peak device memory {peak / 1e9:.3f} GB, "
-        f"launches {counts}; score of ({b}, {p + 1}) NLL {nll:.6f} in "
-        f"{t_score:.3f} s, launches {score_counts}")
-    del eng
-    return counts
+        fail(f"{cfg.name}: tokens of shape {toks.shape} or out of range")
+    peak = torch.cuda.max_memory_allocated()
+    nll, t_score, score_counts = timed(torch, lambda: eng.score(
+        np.concatenate([prompts, toks[:, :1]], axis=1)))
+    check_counts(f"{cfg.name} score", score_counts, fa, bool(cfg.n_experts),
+                 unembed=False)
+    if not np.isfinite(nll):
+        fail(f"{cfg.name}: score {nll}")
+    dec = wall - t_pre
+    log(f"  {cfg.name} ServeEngine B={b} P={p}: prefill {t_pre:.3f} s "
+        f"({b * p / t_pre:.1f} tok/s), launches {pre_counts}; generate {n} "
+        f"tokens {wall:.3f} s wall, decode {dec:.3f} s ({b * n / dec:.1f} "
+        f"tok/s), launches {counts}; peak device memory {peak / 1e9:.3f} "
+        f"GB; score of ({b}, {p + 1}) NLL {nll:.6f} in {t_score:.3f} s, "
+        f"launches {score_counts}")
+    return eng, prompts, counts
 
 
 # new tokens per request of the report-only runs: rows finish mid-horizon,
@@ -2351,10 +2486,11 @@ def phase_families(torch, device):
     qwen1.5-0.5b (qkv bias) and arctic-480b (MoE beside a dense MLP)
     served on the card and on the CPU from the same weights. Returns the
     launch counts the kernel line reads."""
+    from repro_torch.configs import get_config
     from repro_torch.serve import ContinuousEngine
     out = {}
     t0 = time.perf_counter()
-    model, packed = build_full(torch, "gemma2-2b")
+    model, packed = build_leafwise(torch, get_config("gemma2-2b"), device)
     prompts = serve_prompts(model.cfg, last=LONG_PROMPT)
     out["gemma2"] = serve_family(torch, device, model, packed, prompts,
                                  (16, 4), ("msb_matmul", "msb_unembed"))
@@ -2363,15 +2499,17 @@ def phase_families(torch, device):
         log(f"  gemma2-2b kv{bits}:")
         profile_decode(torch, ContinuousEngine(model, packed, kv_bits=bits,
                                                **FAMILY_ENGINE), short, 32)
-    out["gemma2_static"] = family_static(torch, model, packed, 2,
-                                         STATIC_PROMPT, 8)
+    out["gemma2_static"] = state_static(torch, model, packed, 2,
+                                        STATIC_PROMPT, 8,
+                                        model.cfg.n_layers, device)[2]
     log(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.3f} GB in "
         f"use, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     del model, packed
     torch.cuda.empty_cache()
     log(f"  gemma2-2b done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    model, packed = build_full(torch, "granite-moe-3b-a800m")
+    model, packed = build_leafwise(torch, get_config("granite-moe-3b-a800m"),
+                                   device)
     prompts = serve_prompts(model.cfg)
     # 33 new tokens: 32 decoded, whole horizons of 8, so no row finishes
     # mid-horizon. A finished row's no-op iterations write the scratch
@@ -2386,7 +2524,8 @@ def phase_families(torch, device):
     log("  granite-moe-3b-a800m kv16:")
     profile_decode(torch, ContinuousEngine(model, packed, **FAMILY_ENGINE),
                    prompts, 32)
-    out["moe_static"] = family_static(torch, model, packed, 8, 512, 32)
+    out["moe_static"] = state_static(torch, model, packed, 8, 512, 32,
+                                     model.cfg.n_layers, device)[2]
     log(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.3f} GB in "
         f"use, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     del model, packed
@@ -2413,16 +2552,313 @@ def phase_families(torch, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the stacks with per-sequence state
+# ---------------------------------------------------------------------------
+
+def recurrence_costs(torch, cfg, params, b, device, n=4):
+    """Each recurrent layer kind of ``cfg`` alone (layer 0's mamba, sLSTM
+    or mLSTM block: its projections and its plain-PyTorch recurrence):
+    the wall ms of a ``STATE_PROMPT``-position prefill of ``b`` rows,
+    then wall ms, device-busy ms and device kernels of one decode step
+    from that state (torch.profiler over ``n`` steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.quantize import map_tensors
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.transformer import layer_plan
+    fns = {"mamba": ssm.mamba_layer, "slstm": xlstm.slstm_layer,
+           "mlstm": xlstm.mlstm_layer}
+    gen = torch.Generator(device=device).manual_seed(11)
+    seen = set()
+    for slot, (mixer, _) in enumerate(layer_plan(cfg)):
+        if mixer not in fns or mixer in seen:
+            continue
+        seen.add(mixer)
+        fn = fns[mixer]
+        lp = map_tensors(lambda t: t[0], params["dec"][f"s{slot}"][mixer])
+        x = torch.randn((b, STATE_PROMPT, cfg.d_model), generator=gen,
+                        device=device).to(cfg.dtype)
+        x1 = x[:, :1].contiguous()
+        fn(lp, x[:, :16], cfg)                          # untimed set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state = fn(lp, x, cfg)
+        torch.cuda.synchronize()
+        t_pre = (time.perf_counter() - t0) * 1e3
+        fn(lp, x1, cfg, state)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(lp, x1, cfg, state)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n * 1e3
+        log(f"  {cfg.name} one {mixer} layer, plain torch: prefill of "
+            f"{b} x {STATE_PROMPT} {t_pre:.2f} ms")
+        device_breakdown(prof, wall, n, f"one {mixer} layer's decode step "
+                         f"(B={b})")
+
+
+def frontend_batch(torch, cfg, b, p, device, gen):
+    """Random prompts of ``p`` tokens (seed 7) and the frontend's inputs
+    from ``gen``: whisper's audio frames (b, 1500, d_model), internvl's
+    ``n_frontend_tokens`` patch embeddings, in ``cfg.dtype``."""
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (b, p)).astype(np.int32)).to(device)}
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((b, WHISPER_FRAMES, cfg.d_model),
+                                      generator=gen, device=device).to(
+                                          cfg.dtype)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.randn(
+            (b, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+            device=device).to(cfg.dtype)
+    return batch
+
+
+def grown_prefill(torch, model, params, batch, max_seq):
+    """``Model.prefill`` of ``batch`` and its cache grown to ``max_seq``
+    (``ServeEngine._grow_cache``: attention K/V only). Returns (logits,
+    cache, the next position (B,))."""
+    from repro_torch.serve import ServeEngine
+    logits, cache = model.prefill(params, batch)
+    s0 = cache["pos"].shape[1] if "pos" in cache else batch[
+        "tokens"].shape[1]
+    cache = ServeEngine(model, {}, max_seq=max_seq,
+                        device=logits.device)._grow_cache(cache, s0)
+    cur = torch.full((logits.shape[0],), s0, dtype=torch.int32,
+                     device=logits.device)
+    return logits, cache, cur
+
+
+def decode_greedy(torch, model, params, logits, cache, cur, n,
+                  keep_logits=False):
+    """``n`` greedy ``decode_step``s from ``logits`` and ``cache`` (the
+    reference's stepwise generate: sample, decode, advance), on the
+    device with no sync until the tokens are read. Returns (tokens (B, n)
+    numpy, the logits each token was drawn from on the CPU where
+    ``keep_logits``, else [])."""
+    toks, seen = [], []
+    for _ in range(n):
+        if keep_logits:
+            seen.append(logits.float().cpu())
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok)
+        logits, cache = model.decode_step(params, cache, tok[:, None], cur)
+        cur = cur + 1
+    return torch.stack(toks, 1).cpu().numpy(), seen
+
+
+def frontend_static(torch, model, packed, b, p, n, fa, device):
+    """``Model.prefill`` of ``b`` prompts of ``p`` tokens with the
+    frontend's inputs, ``n`` greedy ``decode_step``s from its grown cache
+    (timed alone), then ``Model.loss`` on the same batch; counters zeroed
+    before each; kernel D launches ``fa`` times in the prefill and in the
+    loss, never in a decode step. Whisper's encoder also runs alone, its
+    D launches counted. Returns (the prefill's counts, the encoder's
+    counts or None)."""
+    cfg = model.cfg
+    batch = frontend_batch(torch, cfg, b, p, device,
+                           torch.Generator(device=device).manual_seed(8))
+    extra = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    warm = {k: v[:, :16] for k, v in batch.items()}    # untimed set-up
+    decode_greedy(torch, model, packed,
+                  *grown_prefill(torch, model, packed, warm, 48), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cache, cur), t_pre, pre_counts = timed(
+        torch, lambda: grown_prefill(torch, model, packed, batch,
+                                     p + extra + n))
+    check_counts(f"{cfg.name} prefill", pre_counts, fa, False)
+    if not torch.isfinite(logits[:, :cfg.vocab_size]).all():
+        fail(f"{cfg.name}: prefill logits not finite")
+    (toks, _), t_dec, counts = timed(torch, lambda: decode_greedy(
+        torch, model, packed, logits, cache, cur, n))
+    check_counts(f"{cfg.name} decode", counts, 0, False)
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{cfg.name}: greedy tokens out of range")
+    peak = torch.cuda.max_memory_allocated()
+    del logits, cache
+    enc_counts = None
+    if cfg.is_encdec:
+        _, _, enc_counts = timed(torch, lambda: model._encoder(packed,
+                                                               batch))
+        if enc_counts["flash_attention_fwd"] != cfg.n_enc_layers:
+            fail(f"{cfg.name}: the encoder alone launched D "
+                 f"{enc_counts['flash_attention_fwd']} times, want "
+                 f"{cfg.n_enc_layers}")
+    labels = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (b, p + extra)).astype(np.int32)).to(device)
+    (loss, _), t_loss, loss_counts = timed(
+        torch, lambda: model.loss(packed, dict(batch, labels=labels)))
+    check_counts(f"{cfg.name} loss", loss_counts, fa, False, unembed=False)
+    if not torch.isfinite(loss):
+        fail(f"{cfg.name}: loss {float(loss)}")
+    log(f"  {cfg.name} B={b} P={p}"
+        + (f" + {extra} patches" if extra else "")
+        + (f" + {WHISPER_FRAMES} frames" if cfg.is_encdec else "")
+        + f": prefill {t_pre:.3f} s ({b * (p + extra) / t_pre:.1f} tok/s), "
+        f"launches {pre_counts}"
+        + (f" (the encoder alone {enc_counts['flash_attention_fwd']} D)"
+           if enc_counts else "")
+        + f"; {n} greedy decode_steps {t_dec:.3f} s ({b * n / t_dec:.1f} "
+        f"tok/s), launches {counts}; peak device memory {peak / 1e9:.3f} "
+        f"GB; loss {float(loss):.6f} in {t_loss:.3f} s, launches "
+        f"{loss_counts}")
+    return pre_counts, enc_counts
+
+
+def state_paths_check(torch, arch):
+    """``arch``'s smoke config (fp32) on the card and on the CPU from the
+    same quantized weights (4-bit block-64 DP, min_size 1024): prefill and
+    16 greedy decode steps of 4 prompts of 19 tokens (with whisper's 24
+    frames or internvl's patch embeddings); jamba and xlstm also through
+    ``ServeEngine.generate`` (its tokens those of the stepwise loop on the
+    same device) and ``score``, whisper and internvl through
+    ``Model.loss``. Greedy tokens agree or first diverge at a top-2 logit
+    gap < 1e-2 (the CPU's logits at that step); the loss within 1e-4
+    relative."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import QuantPolicy, quantize_params
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+    cfg = smoke_config(arch)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    qparams, _ = quantize_params(params, QuantPolicy(min_size=1024),
+                                 device="cpu")
+    batch = frontend_batch(torch, cfg, 4, 19, "cpu",
+                           torch.Generator().manual_seed(1))
+    if cfg.is_encdec:
+        batch["frames"] = batch["frames"][:, :24]
+    extra = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    labels = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 19 + extra)).astype(np.int32))
+    served = not (cfg.is_encdec or extra)       # jamba, xlstm
+    toks, seen, loss = {}, {}, {}
+    card, cpu = "cuda", "cpu"
+    for dev in (card, cpu):
+        eng = ServeEngine(model, qparams, max_seq=64, device=dev)
+        b_dev = {k: v.to(dev) for k, v in batch.items()}
+        toks[dev], seen[dev] = decode_greedy(
+            torch, model, eng.params,
+            *grown_prefill(torch, model, eng.params, b_dev, 64), 16,
+            keep_logits=True)
+        if served:
+            gen = eng.generate(batch["tokens"].numpy(), 16)
+            if not np.array_equal(gen, toks[dev]):
+                fail(f"{arch} {dev}: ServeEngine.generate differs from the "
+                     "stepwise loop")
+            loss[dev] = eng.score(np.concatenate(
+                [batch["tokens"].numpy(), gen], axis=1))
+        else:
+            loss[dev] = float(model.loss(eng.params, dict(
+                b_dev, labels=labels.to(dev)))[0])
+    for r in range(4):
+        a, c = toks[card][r], toks[cpu][r]
+        if np.array_equal(a, c):
+            continue
+        i = int(np.argmax(a != c))
+        gap = top2_gap(seen[cpu][i][r, :cfg.vocab_size])
+        log(f"  {arch} cuda vs cpu: row {r} diverges at step {i} ({a[i]} vs "
+            f"{c[i]}), top-2 logit gap {gap:.3g}")
+        if not gap < 1e-2:
+            fail(f"{arch}: cuda vs cpu diverge at step {i} of row {r} with "
+                 f"top-2 gap {gap} >= 1e-2")
+    rel = abs(loss[card] - loss[cpu]) / abs(loss[cpu])
+    log(f"  {arch} smoke cuda vs cpu: greedy tokens identical or near-tie "
+        f"only; {'score' if served else 'loss'} cuda {loss[card]:.7f} vs "
+        f"cpu {loss[cpu]:.7f} (rel {rel:.3g}, tol 1e-4)")
+    if not rel <= 1e-4:
+        fail(f"{arch}: loss differs between cuda and cpu: rel {rel}")
+
+
+WHISPER_FRAMES = 1500        # whisper's encoder: 30 s of audio frames
+STATE_PROMPT = 512           # jamba's and xlstm's static prompts
+
+
+def phase_state_stacks(torch, device):
+    """Phase 14: the stacks with per-sequence state, at full width with
+    random weights from seed 0, each drawn, quantized (4b/64 DP) and
+    packed leaf by leaf on the card (``build_leafwise``) and freed before
+    the next:
+    * xlstm-125m, full size (12 layers, sLSTM / mLSTM, no attention):
+      ``ServeEngine`` B=8 x 512, 32 greedy tokens, ``score`` (8, 513);
+      kernel D 0 times;
+    * jamba-v0.1-52b at full width cut to one period of 8 layers (7 mamba,
+      1 attention; 4 MoE layers of 16 experts, 4 dense MLPs): its 32
+      layers (52B weights, ~52 GB packed) do not fit one card beside the
+      engine. ``ServeEngine`` B=4 x 512, 32 tokens, ``score`` (4, 513);
+      D once a prefill, the expert batch on every MoE layer;
+    * whisper-large-v3, full size (32 + 32 layers): 1500 frames and
+      64-token prompts, B=4; ``Model.prefill``, 32 greedy ``decode_step``s,
+      ``Model.loss``; D 96 times a prefill (32 encoder, 32 decoder, 32
+      cross-attention);
+    * internvl2-76b at full width cut to 2 layers: 1024 patch embeddings
+      and 64 tokens, B=2; prefill, 16 decode steps, loss; D twice.
+    Decode-step profiles of jamba and xlstm; then the smoke configs of
+    all four on the card and on the CPU (``state_paths_check``). Returns
+    {name: launch counts of its main run (the prefill's for whisper and
+    internvl)}, and under "whisper-encoder" the launch counts of
+    whisper's encoder run alone."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_plan, n_periods
+    out = {}
+    runs = [("xlstm-125m", {}), ("jamba-v0.1-52b", dict(n_layers=8)),
+            ("whisper-large-v3", {}), ("internvl2-76b", dict(n_layers=2))]
+    for arch, repl in runs:
+        t0 = time.perf_counter()
+        model, packed = build_leafwise(
+            torch, dataclasses.replace(get_config(arch), **repl), device)
+        cfg = model.cfg
+        if cfg.is_encdec:
+            out[arch], out["whisper-encoder"] = frontend_static(
+                torch, model, packed, 4, 64, 32,
+                cfg.n_enc_layers + 2 * cfg.n_layers, device)
+        elif cfg.frontend == "vision":
+            out[arch], _ = frontend_static(torch, model, packed, 2, 64, 16,
+                                           cfg.n_layers, device)
+        else:
+            b = 4 if cfg.n_experts else 8
+            fa = n_periods(cfg) * sum(m == "attn" for m, _ in
+                                      layer_plan(cfg))
+            eng, prompts, out[arch] = state_static(
+                torch, model, packed, b, STATE_PROMPT, 32, fa, device)
+            log(f"  {arch}:")
+            profile_static(torch, eng, prompts, prefill=False)
+            recurrence_costs(torch, cfg, eng.params, b, device)
+            del eng
+        del model, packed
+        torch.cuda.empty_cache()
+        log(f"  {arch} done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for arch, _ in runs:
+        state_paths_check(torch, arch)
+    log(f"  smoke configs on card and CPU in {time.perf_counter() - t0:.1f}"
+        " s")
+    log("[state stacks] ok: xlstm-125m, jamba-v0.1-52b (one period), "
+        "whisper-large-v3 and internvl2-76b (2 layers) at full width, "
+        "launch counts exact; smoke configs agree between card and CPU")
+    return out
+
+
 def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
-                q_counts, s_counts, f_counts):
+                q_counts, s_counts, f_counts, st_counts):
     """The kernel table as the JSON line's rows: each kernel at its main
     path's representative shape (A at decode and at M=4096, and its expert
-    batch at granite-moe's decode; the unembedding's kernel at M=8 on
+    batch at granite-moe's and jamba's decode; the unembedding's kernel at
+    M=8 on
     internlm2's k-blocked and gemma2's tied table; B and C at the decode
     shape and, with
-    gemma2's window, at d=256; D at the static prefill and at gemma2's
-    d=256 windowed prefill), with the launches of the run that serves it
-    (counters zeroed just before it)."""
+    gemma2's window, at d=256; D at the static prefill, at gemma2's
+    d=256 windowed prefill and at whisper's encoder and cross-attention),
+    with the launches of the run that serves it (counters zeroed just
+    before it). Whisper's rows split its prefill's D launches by shape:
+    the encoder's are those of the encoder run alone; the rest are the
+    decoder's, whose every layer launches D once causal and once across,
+    so the cross row has half of them."""
     src = "src/repro_torch/csrc/"
     mm_src, pa_src = src + "msb_matmul.cu", src + "paged_attention.cu"
     a_tpu = "src/repro/kernels/msb_matmul/msb_matmul.py:117"
@@ -2461,6 +2897,9 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
         row("msb_matmul_experts", mm_src, a_tpu,
             moe[16]["msb_matmul_experts"], mm_row(8, 1536, 512, True),
             mm_err),
+        row("msb_matmul_experts_jamba", mm_src, a_tpu,
+            st_counts["jamba-v0.1-52b"]["msb_matmul_experts"],
+            mm_row(8, 4096, 14336, True), mm_err),
         row("msb_unembed_kblocked", mm_src, a_tpu, counts["msb_unembed"],
             un_row("internlm2"), un_err),
         row("msb_unembed_tied", mm_src, a_tpu, gem[16]["msb_unembed"],
@@ -2489,6 +2928,14 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
             d_tpu, f_counts["gemma2_static"]["flash_attention_fwd"], fa_w,
             fa_err),
     ]
+    enc = st_counts["whisper-encoder"]["flash_attention_fwd"]
+    dec = st_counts["whisper-large-v3"]["flash_attention_fwd"] - enc
+    for name, case, launches in (("encoder", "whisper encoder", enc),
+                                 ("cross", "whisper cross", dec // 2)):
+        rows.append(row(f"flash_attention_fwd_whisper_{name}",
+                        src + "flash_attention.cu", d_tpu, launches,
+                        next(r for r in fa_rows
+                             if r["name"].startswith(case)), fa_err))
     for r in rows:
         if not r["launches"] > 0:
             fail(f"{r['name']}: no launch on its path")
@@ -2522,8 +2969,9 @@ def main():
     del ctx
     phase_quantizer(torch, device)
     f_counts = phase_families(torch, device)
+    st_counts = phase_state_stacks(torch, device)
     kernels = kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows,
-                          counts, q_counts, s_counts, f_counts)
+                          counts, q_counts, s_counts, f_counts, st_counts)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

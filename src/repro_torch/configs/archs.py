@@ -1,7 +1,9 @@
 """The 10 architectures of the JAX package's registry, field for field.
 
-Only internlm2-1.8b is servable by this slice of the port; the others are
-registered so configs compare one to one with the reference.
+The port runs every one on every path the reference gives it: the
+decoder-only attention stacks paged and static, jamba and xlstm through
+the static engine, whisper and internvl through ``Model.loss`` /
+``prefill`` / ``decode_step`` with their frontends' inputs.
 """
 from .base import ModelConfig, register
 

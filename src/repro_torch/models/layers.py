@@ -1,12 +1,12 @@
 """Transformer building blocks (plain functions, params as dicts).
 
-Port of ``repro.models.layers`` for decoder-only attention stacks: norms
-and RoPE in f32, projections through ``dense`` (the msb_matmul kernel for
-packed weights, qwen's qkv bias fused into it), ``attention_layer``'s
-static branches (whole-sequence flash
-attention for prefill and the loss; ring-buffer decode) and its paged
-branches over kv16 and quantized (kv_bits 8|4) pools, and the forward of
-the chunked cross-entropy.
+Port of ``repro.models.layers``: norms and RoPE in f32, projections
+through ``dense`` (the msb_matmul kernel for packed weights, qwen's qkv
+bias fused into it), ``attention_layer``'s static branches (whole-sequence
+flash attention for prefill and the loss, causal or not, self- or
+cross-attention; ring-buffer decode; cross-attention decode over the
+static encoder K/V) and its paged branches over kv16 and quantized
+(kv_bits 8|4) pools, and the forward of the chunked cross-entropy.
 """
 from __future__ import annotations
 
@@ -57,17 +57,23 @@ def dense(x, w, b=None):
 
 
 def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
-                    cur_pos=None, cross=False, decode_positions=None,
-                    paged=None, mean_pads=False):
-    """Self-attention. Returns (out, new_cache).
+                    cur_pos=None, xattn_kv=None, causal=True, cross=False,
+                    decode_positions=None, paged=None, mean_pads=False):
+    """Self- or cross-attention. Returns (out, new_cache). RoPE on q and k
+    where ``cfg.use_rope`` (not jamba, whisper), never in cross-attention.
 
-    Prefill and loss: ``cache`` None -> causal flash attention over the
-    sequence
-    at ``positions`` (S,) or (B, S); the new cache is the roped {"k", "v"}
-    (B, S, KV, d). Ring decode: ``cache`` = {"k", "v"} ring buffers (B,
-    S_max, KV, d), written in place at slot ``cur_pos[0] % S_max`` (the
-    reference's one shared slot) and attended under ``decode_positions``
-    (B, S_max), the position table the model keeps; returns the same dict.
+    Prefill and loss: ``cache`` None -> flash attention over the sequence
+    at ``positions`` (S,) or (B, S), causal when ``causal`` (not whisper's
+    encoder); the new cache is the (roped) {"k", "v"} (B, S, KV, d). With
+    ``xattn_kv`` (B, S_enc, D) it is cross-attention: K/V from the encoder
+    rows, not causal (Sq != Skv), and the new cache is their {"k", "v"}.
+    Ring decode: ``cache`` = {"k", "v"} ring buffers (B, S_max, KV, d),
+    written in place at slot ``cur_pos[0] % S_max`` (the reference's one
+    shared slot) and attended under ``decode_positions`` (B, S_max), the
+    position table the model keeps; returns the same dict. Cross-attention
+    decode (``cross=True``): ``cache`` holds the static encoder K/V, every
+    row visible (``decode_attention`` at ``cur_pos`` S - 1 over positions
+    0..S-1, as the reference computes it), returned as it is.
     Paged serving: ``paged`` = dict(block_tables, q_pos, kv_lens
     [, seg_ids][, slots, seg_off, kv_bits]); ``cache`` = this layer's
     pools, written in place: {"k", "v"} at kv16, or the quantized dual
@@ -78,23 +84,29 @@ def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
     row. ``window`` > 0 (a Python int; gemma2's local layers) hides keys at
     or below ``q_pos - window`` on every path. ``mean_pads`` (paged): pads
     take the reference's mean of V over their row, for dispatches where a
-    pad can move a real token (``transformer._pads_reach_tokens``).
-    Cross-attention
-    (``cross=True``, enc-dec) is not ported."""
-    if cross:
-        raise NotImplementedError(
-            "cross-attention decode (enc-dec): ROADMAP item 10 brings "
-            "whisper")
+    pad can move a real token (``transformer._pads_reach_tokens``)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     b = x.shape[0]
     q = dense(x, p["wq"], p.get("bq")).reshape(b, -1, h, hd)
-    k = dense(x, p["wk"], p.get("bk")).reshape(b, -1, kv, hd)
-    v = dense(x, p["wv"], p.get("bv")).reshape(b, -1, kv, hd)
     softcap = cfg.attn_softcap
     scale = hd ** -0.5 if cfg.query_scale == 0 else cfg.query_scale
+    if cross and cache is not None:
+        s = cache["k"].shape[1]
+        pos_tab = torch.arange(s, dtype=torch.int32, device=x.device)[
+            None].expand(b, s)
+        out = decode_attention(q, cache["k"], cache["v"], pos_tab,
+                               torch.full((b,), s - 1, dtype=torch.int32,
+                                          device=x.device),
+                               softcap=softcap, scale=scale)
+        return dense(out.reshape(b, 1, -1), p["wo"]), cache
+    kv_src = x if xattn_kv is None else xattn_kv
+    k = dense(kv_src, p["wk"], p.get("bk")).reshape(b, -1, kv, hd)
+    v = dense(kv_src, p["wv"], p.get("bv")).reshape(b, -1, kv, hd)
     if paged is None:
         return _static_attention(p, q, k, v, cfg, positions, cache, cur_pos,
-                                 decode_positions, window, softcap, scale)
+                                 decode_positions, window, softcap, scale,
+                                 causal and xattn_kv is None,
+                                 xattn_kv is None and cfg.use_rope)
     q_pos = paged["q_pos"]
     safe_pos = torch.clamp(q_pos, min=0)
     q = rope(q, safe_pos, cfg.rope_theta)
@@ -136,17 +148,20 @@ def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
 
 
 def _static_attention(p, q, k, v, cfg, positions, cache, cur_pos,
-                      decode_positions, window, softcap, scale):
+                      decode_positions, window, softcap, scale, causal,
+                      use_rope):
     b, t = q.shape[:2]
     if cache is None:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        out = flash_attention(q, k, v, window=window, softcap=softcap,
-                              scale=scale)
+        if use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale)
         new_cache = {"k": k, "v": v}
     else:
-        q = rope(q, cur_pos[:, None], cfg.rope_theta)
-        k = rope(k, cur_pos[:, None], cfg.rope_theta)
+        if use_rope:
+            q = rope(q, cur_pos[:, None], cfg.rope_theta)
+            k = rope(k, cur_pos[:, None], cfg.rope_theta)
         slot = (cur_pos[:1] % cache["k"].shape[1]).to(torch.int64)
         cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))

@@ -1,18 +1,22 @@
 """Top-level Model API: the loss forward, static prefill and ring decode,
 and paged serving.
 
-Port of ``repro.models.model`` for decoder-only attention stacks (dense,
-qwen's qkv bias, gemma2's windows, softcaps and post-norm, MoE FFNs):
-embedding and logits; ``loss`` (forward only, with the router's
-load-balancing loss), ``prefill`` and ``decode_step`` over a
-ring-buffer cache (``cache_defs``/``init_cache``) for the static engine;
-paged K/V pools (kv16, or MSB-quantized at kv_bits 8|4), one paged step
-(decode or chunked prefill), packed ragged prefill, and the decode horizon
-with on-device greedy sampling for the continuous engine.
+Port of ``repro.models.model`` for all ten architectures: embedding and
+logits; the frontends (internvl's patch embeddings before the tokens,
+whisper's audio frames through its encoder); sinusoidal positions where
+there is no RoPE (jamba; whisper's two stacks); ``loss`` (forward only,
+with the router's load-balancing loss), ``prefill`` and ``decode_step``
+over a cache (``cache_defs``/``init_cache``: attention rings, mamba and
+xLSTM state, whisper's static cross-attention K/V) for the static
+engine; paged K/V pools (kv16, or MSB-quantized at kv_bits 8|4), one
+paged step (decode or chunked prefill), packed ragged prefill, and the
+decode horizon with on-device greedy sampling for the continuous engine,
+for the stacks the reference serves paged (``supports_paged``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -21,9 +25,27 @@ from ..core.quantize import KVQuantSpec, PackedQTensor, QTensor, \
     packed_gather
 from ..device import resolve_device
 from ..kernels.msb_matmul.ops import msb_unembed
+from . import ssm, xlstm
 from .layers import chunked_softmax_xent, rms_norm
 from .transformer import (_require_attention_stack, forward_stack,
-                          init_params, layer_plan, n_periods)
+                          init_params, layer_plan, n_periods,
+                          supports_paged)
+
+
+def _sinusoid(positions, d):
+    """Sinusoidal position features (..., d) f32 of ``positions``, the
+    reference's (frequency step ``max(half - 1, 1)``)."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                     / max(half - 1, 1))
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _has_attn(cfg):
+    return any(m in ("attn", "enc_attn") for m, _ in layer_plan(cfg, "dec"))
 
 
 def _quant_paged(paged, kv_bits, slots, seg_off=None):
@@ -100,19 +122,50 @@ class Model:
                                  torch.full_like(logits, -float("inf")))
         return logits
 
+    def _assemble_inputs(self, params, batch):
+        """The decoder's input (B, S, D): internvl's ``patch_embeds``
+        before its tokens' embeddings; an audio model that is not enc-dec
+        reads ``frames``; otherwise the tokens' embeddings."""
+        cfg = self.cfg
+        if cfg.frontend == "vision":
+            patches = batch["patch_embeds"].to(cfg.dtype)
+            return torch.cat([patches, self._embed(params, batch["tokens"])],
+                             dim=1)
+        if cfg.frontend == "audio" and not cfg.is_encdec:
+            return batch["frames"].to(cfg.dtype)
+        return self._embed(params, batch["tokens"])
+
+    def _encoder(self, params, batch):
+        """Whisper's encoder over ``batch["frames"]`` (B, S_enc, D) with
+        sinusoidal positions; returns its normed output (B, S_enc, D)."""
+        cfg = self.cfg
+        frames = batch["frames"].to(cfg.dtype)
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        x = frames + _sinusoid(pos, cfg.d_model)[None].to(cfg.dtype)
+        x, _, _ = forward_stack(params["enc"], x, cfg, stack="enc",
+                                positions=pos)
+        return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
     # -- loss forward --------------------------------------------------------
     def loss(self, params, batch):
         """Mean next-token cross-entropy (plus the z-loss) of ``batch``
-        {"tokens" (B, S), "labels" (B, S); labels < 0 are masked}, plus
+        {"tokens" (B, S), "labels" (B, S'); labels < 0 are masked; internvl
+        adds "patch_embeds" (B, P, D) before the tokens (S' = P + S),
+        whisper "frames" (B, S_enc, D) for its encoder}, plus
         ``router_aux_weight`` times the router's load-balancing loss summed
         over MoE layers. Forward only: training (gradients, ROADMAP item
         12) is not ported. Returns (loss, {"ce", "router_aux"});
         ``router_aux`` is 0 without MoE."""
         cfg = self.cfg
-        _require_attention_stack(cfg)
-        x = self._embed(params, batch["tokens"])
+        enc_out = self._encoder(params, batch) if cfg.is_encdec else None
+        x = self._assemble_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _, aux = forward_stack(params["dec"], x, cfg, positions=positions)
+        if not cfg.use_rope and not cfg.is_encdec and _has_attn(cfg):
+            x = x + _sinusoid(positions, cfg.d_model)[None].to(cfg.dtype)
+        if cfg.is_encdec:
+            x = x + _sinusoid(positions, cfg.d_model)[None].to(cfg.dtype)
+        x, _, aux = forward_stack(params["dec"], x, cfg, positions=positions,
+                                  enc_out=enc_out)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         labels = batch["labels"].to(torch.int64)
         ce = chunked_softmax_xent(x, self._unembed_vd(params),
@@ -125,34 +178,46 @@ class Model:
 
     # -- static serving: prefill + ring-buffer decode ------------------------
     def prefill(self, params, batch):
-        """Forward over ``batch["tokens"]`` (B, S) collecting the cache.
-        Returns (last-position logits (B, V) f32, cache): cache["layers"]
-        holds each slot's roped {"k", "v"} (n_periods, B, S, KV, d) and
-        cache["pos"] (B, S) int32 the positions 0..S-1."""
+        """Forward over ``batch`` ({"tokens" (B, S)}, with "patch_embeds"
+        or "frames" as ``loss`` takes them) collecting the cache. Returns
+        (last-position logits (B, V) f32, cache): cache["layers"] holds
+        each slot's cache stacked over periods (``forward_stack``) and,
+        where the stack has attention, cache["pos"] (B, S) int32 the
+        positions 0..S-1."""
         cfg = self.cfg
-        _require_attention_stack(cfg)
-        x = self._embed(params, batch["tokens"])
+        enc_out = self._encoder(params, batch) if cfg.is_encdec else None
+        x = self._assemble_inputs(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)
+        if (not cfg.use_rope or cfg.is_encdec) and _has_attn(cfg):
+            x = x + _sinusoid(positions, cfg.d_model)[None].to(cfg.dtype)
         x, layer_cache, _ = forward_stack(params["dec"], x, cfg,
                                           positions=positions,
+                                          enc_out=enc_out,
                                           collect_cache=True)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x[:, -1])
-        pos = positions.to(torch.int32)[None].expand(b, s).contiguous()
-        return logits, {"layers": layer_cache, "pos": pos}
+        cache = {"layers": layer_cache}
+        if _has_attn(cfg):
+            cache["pos"] = positions.to(torch.int32)[None].expand(
+                b, s).contiguous()
+        return logits, cache
 
     def decode_step(self, params, cache, tokens, cur_pos):
         """One decode step. tokens (B, 1), cur_pos (B,) on the cache's
         device. Every row writes ring slot ``cur_pos[0] % S`` (as the
-        reference does), and ``cache`` — K/V rings and the ``pos`` table —
-        is updated in place, with no host sync. Returns (logits (B, V),
-        cache)."""
+        reference does), and ``cache`` — K/V rings, recurrent state and
+        the ``pos`` table — is updated in place, with no host sync.
+        Returns (logits (B, V), cache)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
-        pos = cache["pos"]
-        slot = (cur_pos[:1] % pos.shape[1]).to(torch.int64)
-        pos.index_copy_(1, slot, cur_pos[:, None].to(pos.dtype))
+        if (not cfg.use_rope or cfg.is_encdec) and _has_attn(cfg):
+            x = x + _sinusoid(cur_pos[:, None], cfg.d_model).to(cfg.dtype)
+        pos = None
+        if _has_attn(cfg):
+            pos = cache["pos"]
+            slot = (cur_pos[:1] % pos.shape[1]).to(torch.int64)
+            pos.index_copy_(1, slot, cur_pos[:, None].to(pos.dtype))
         x, _, _ = forward_stack(params["dec"], x, cfg,
                                 positions=cur_pos[:, None],
                                 cache=cache["layers"], cur_pos=cur_pos,
@@ -161,22 +226,40 @@ class Model:
         return self._logits(params, x[:, -1]), cache
 
     def cache_defs(self, batch, seq_len):
-        """(shape, dtype) per leaf of the ring-buffer cache, nested like
-        it: attn {"k", "v"} (n_periods, B, S, KV, d) per slot and "pos"
-        (B, S) int32."""
+        """(shape, dtype) per leaf of the decode cache, nested like it:
+        per slot, attn {"k", "v"} (n_periods, B, S, KV, d), mamba {"conv",
+        "ssm"}, sLSTM / mLSTM state, and whisper's xattn {"k", "v"} (S
+        rows here; ``prefill`` gives S_enc); "pos" (B, S) int32 where the
+        stack has attention."""
         cfg = self.cfg
-        _require_attention_stack(cfg)
-        kvshape = (n_periods(cfg), batch, seq_len, cfg.n_kv_heads,
-                   cfg.head_dim_)
-        layers = {f"s{slot}": {"attn": {"k": (kvshape, cfg.dtype),
-                                        "v": (kvshape, cfg.dtype)}}
-                  for slot, _ in enumerate(layer_plan(cfg, "dec"))}
-        return {"layers": layers, "pos": ((batch, seq_len), torch.int32)}
+        p = n_periods(cfg)
+        kvshape = (p, batch, seq_len, cfg.n_kv_heads, cfg.head_dim_)
+        layers = {}
+        for slot, (mixer, _ffn) in enumerate(layer_plan(cfg, "dec")):
+            sl = {}
+            if mixer == "attn":
+                sl["attn"] = {"k": (kvshape, cfg.dtype),
+                              "v": (kvshape, cfg.dtype)}
+            elif mixer == "mamba":
+                sl["mamba"] = {k: ((p,) + shp, dt) for k, (shp, dt) in
+                               ssm.mamba_cache_shapes(cfg, batch).items()}
+            else:
+                sl[mixer] = {k: ((p,) + shp, dt) for k, (shp, dt) in
+                             xlstm.xlstm_cache_shapes(cfg, batch,
+                                                      mixer).items()}
+            if cfg.is_encdec:
+                sl["xattn"] = {"k": (kvshape, cfg.dtype),
+                               "v": (kvshape, cfg.dtype)}
+            layers[f"s{slot}"] = sl
+        defs = {"layers": layers}
+        if _has_attn(cfg):
+            defs["pos"] = ((batch, seq_len), torch.int32)
+        return defs
 
     def init_cache(self, batch, seq_len, device=None):
-        """An empty ring cache on ``device`` (``None`` = the card): zero
-        K/V, and ``pos`` the positions 0..S-1 of every row, as the
-        reference initialises it."""
+        """An empty cache on ``device`` (``None`` = the card): every
+        float leaf zero (K/V and recurrent state alike), and ``pos`` the
+        positions 0..S-1 of every row, as the reference initialises it."""
         dev = resolve_device(device)
 
         def build(d):
@@ -194,9 +277,7 @@ class Model:
         """Paged serving covers decoder-only attention stacks (any FFN
         kind); ssm/xlstm/enc-dec caches are per-sequence state, not pages.
         The reference's rule."""
-        cfg = self.cfg
-        return (not cfg.is_encdec and cfg.frontend == "none"
-                and all(m == "attn" for m, _ in layer_plan(cfg, "dec")))
+        return supports_paged(self.cfg)
 
     def init_paged_pools(self, num_pages, page_size, kv_bits=16,
                          max_seqs=None, device=None):
@@ -212,8 +293,6 @@ class Model:
         in ``cfg.dtype``, one partial-page row per engine slot (row slot +
         1) plus scratch row 0."""
         cfg = self.cfg
-        if not self.supports_paged():
-            raise ValueError(f"{cfg.name}: not a paged-servable arch")
         _require_attention_stack(cfg)
         dev = resolve_device(device)
         p, kv, hd = n_periods(cfg), cfg.n_kv_heads, cfg.head_dim_

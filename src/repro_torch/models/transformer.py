@@ -1,11 +1,14 @@
-"""Layer plan, parameter declarations and the layer stack.
+"""Layer plan, parameter declarations and the layer stacks.
 
-Port of ``repro.models.transformer`` for decoder-only attention stacks,
-every FFN kind: dense RoPE decoders (internlm2, granite), qwen's qkv bias,
-gemma2's post-norm and local/global sliding windows, and MoE FFNs
-(granite-moe; arctic's MoE beside a dense residual MLP). Per-layer params
-are stacked along a leading ``L`` dim (one subtree per period slot, as in
-the reference); the reference's ``lax.scan`` over that dim is a Python loop
+Port of ``repro.models.transformer`` for all ten architectures: dense
+RoPE decoders (internlm2, granite), qwen's qkv bias, gemma2's post-norm
+and local/global sliding windows, MoE FFNs (granite-moe; arctic's MoE
+beside a dense residual MLP), jamba's hybrid of mamba and attention
+layers with MoE on every 2nd layer, xlstm's sLSTM / mLSTM blocks with no
+FFN, and whisper's encoder-decoder with cross-attention (internvl's
+frontend is the model's, ``models/model.py``). Per-layer params are
+stacked along a leading ``L`` dim (one subtree per period slot, as in the
+reference); the reference's ``lax.scan`` over that dim is a Python loop
 over layer slices here, and each layer's window is a Python int.
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from ..core.quantize import map_tensors
 from ..device import resolve_device
+from . import ssm, xlstm
 from .layers import attention_layer, mlp_layer, rms_norm
 from .moe import _capacity, moe_layer
 
@@ -51,19 +55,30 @@ def n_periods(cfg, stack="dec"):
     return n_layers // p
 
 
+def supports_paged(cfg):
+    """Paged serving covers decoder-only attention stacks (any FFN kind);
+    ssm/xlstm/enc-dec caches are per-sequence state, not pages. The
+    reference's rule (``Model.supports_paged``)."""
+    return (not cfg.is_encdec and cfg.frontend == "none"
+            and all(m == "attn" for m, _ in layer_plan(cfg, "dec")))
+
+
 def _require_attention_stack(cfg):
-    """The port runs the stacks the reference serves paged
-    (``Model.supports_paged``): decoder-only, no frontend, every mixer
-    attention with RoPE; any FFN kind. ROADMAP item 10 brings the rest."""
-    if (cfg.is_encdec or cfg.frontend != "none" or not cfg.use_rope
-            or any(mixer != "attn" for mixer, _ in layer_plan(cfg, "dec"))):
+    """The paged path (pools and paged steps) refuses what the reference
+    refuses: a stack with per-sequence state or a frontend. It also
+    refuses an attention stack without RoPE (no arch in ``archs.py``):
+    the reference's paged steps add sinusoidal positions there, the
+    port's apply RoPE only."""
+    if not supports_paged(cfg):
+        raise ValueError(f"{cfg.name}: not a paged-servable arch (ssm/"
+                         "xlstm/enc-dec caches are not paged)")
+    if not cfg.use_rope:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only attention stacks "
-            "(ROADMAP item 10 brings jamba's mamba layers, xlstm, the "
-            "whisper enc-dec and the internvl frontend)")
+            f"{cfg.name}: the port's paged steps apply RoPE; a paged stack "
+            "without it (sinusoidal positions) is not ported")
 
 
-def _attn_defs(cfg, prefix):
+def _attn_defs(cfg, prefix, cross=False):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     defs = {
         f"{prefix}/wq": ((d, h * hd), "fan_in"),
@@ -71,7 +86,7 @@ def _attn_defs(cfg, prefix):
         f"{prefix}/wv": ((d, kv * hd), "fan_in"),
         f"{prefix}/wo": ((h * hd, d), "fan_out"),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         defs.update({
             f"{prefix}/bq": ((h * hd,), "zero"),
             f"{prefix}/bk": ((kv * hd,), "zero"),
@@ -101,14 +116,25 @@ def _moe_defs(cfg, prefix):
     }
 
 
-def _slot_defs(cfg, slot_prefix, ffn):
+def _slot_defs(cfg, slot_prefix, mixer, ffn, cross=False):
     d = cfg.d_model
     defs = {f"{slot_prefix}/norm1": ((d,), "zero")}
-    defs.update(_attn_defs(cfg, f"{slot_prefix}/attn"))
-    defs[f"{slot_prefix}/norm2"] = ((d,), "zero")
+    if mixer in ("attn", "enc_attn"):
+        defs.update(_attn_defs(cfg, f"{slot_prefix}/attn"))
+    elif mixer == "mamba":
+        defs.update(ssm.mamba_param_defs(cfg, f"{slot_prefix}/mamba"))
+    else:
+        defs.update(xlstm.xlstm_param_defs(cfg, f"{slot_prefix}/{mixer}",
+                                           mixer))
     if cfg.post_norm:
         defs[f"{slot_prefix}/norm1b"] = ((d,), "zero")
-        defs[f"{slot_prefix}/norm2b"] = ((d,), "zero")
+    if cross:
+        defs[f"{slot_prefix}/normx"] = ((d,), "zero")
+        defs.update(_attn_defs(cfg, f"{slot_prefix}/xattn", cross=True))
+    if ffn != "none":
+        defs[f"{slot_prefix}/norm2"] = ((d,), "zero")
+        if cfg.post_norm:
+            defs[f"{slot_prefix}/norm2b"] = ((d,), "zero")
     if ffn in ("dense", "moe+dense"):
         defs.update(_ffn_defs(cfg, f"{slot_prefix}/mlp"))
     if ffn in ("moe", "moe+dense"):
@@ -118,13 +144,17 @@ def _slot_defs(cfg, slot_prefix, ffn):
 
 def param_defs(cfg):
     """path -> (shape, init_kind), as the reference declares them."""
-    _require_attention_stack(cfg)
     d, vp = cfg.d_model, cfg.vocab_padded
     defs = {"embed": ((vp, d), "embed"), "final_norm": ((d,), "zero")}
     if not cfg.tie_embeddings:
         defs["unembed"] = ((vp, d), "fan_out")
-    for slot, (_mixer, ffn) in enumerate(layer_plan(cfg, "dec")):
-        defs.update(_slot_defs(cfg, f"dec/s{slot}", ffn))
+    for slot, (mixer, ffn) in enumerate(layer_plan(cfg, "dec")):
+        defs.update(_slot_defs(cfg, f"dec/s{slot}", mixer, ffn,
+                               cross=cfg.is_encdec))
+    if cfg.is_encdec:
+        defs["enc_final_norm"] = ((d,), "zero")
+        for slot, (mixer, ffn) in enumerate(layer_plan(cfg, "enc")):
+            defs.update(_slot_defs(cfg, f"enc/s{slot}", mixer, ffn))
     return defs
 
 
@@ -139,26 +169,52 @@ def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
     return tree
 
 
-def init_params(cfg, generator, device=None):
-    """Random f32 params on ``device`` (``None`` = the card), drawn from
-    ``generator`` (a ``torch.Generator`` on that device) in sorted path
-    order. Layer params carry a leading ``n_periods`` dim. The numbers
-    differ from the reference's ``jax.random`` ones; the parity tests carry
-    the reference's params across instead (``repro_torch.convert``)."""
+def _init_leaf(shape, full, kind, generator, dev):
+    f32 = torch.float32
+    if kind == "zero":
+        return torch.zeros(full, dtype=f32, device=dev)
+    if kind == "one":
+        return torch.ones(full, dtype=f32, device=dev)
+    if kind == "f_bias":
+        return torch.full(full, 3.0, dtype=f32, device=dev)
+    if kind == "a_log":                      # log(1..N) along the last dim
+        n = shape[-1]
+        return torch.log(torch.arange(1, n + 1, dtype=f32, device=dev)
+                         ).expand(full).contiguous()
+    if kind == "dt_bias":    # softplus^-1 of a log-uniform draw in [1e-3, 0.1]
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand(full, generator=generator, dtype=f32, device=dev)
+        return torch.log(torch.expm1(torch.exp(lo + (hi - lo) * u)))
+    v = torch.randn(full, generator=generator, dtype=f32, device=dev)
+    if kind == "orth":
+        return v * 0.1
+    if kind != "embed":                      # fan_in / fan_out
+        v /= math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
+    return v
+
+
+def init_leaves(cfg, generator, device=None):
+    """Yield (path, random f32 leaf) on ``device`` (``None`` = the card),
+    drawn from ``generator`` (a ``torch.Generator`` on that device) in
+    sorted path order; layer params carry a leading ``n_periods`` dim. One
+    leaf at a time, so a caller can quantize each before the next exists.
+    Init kinds as the reference's: "zero", "one", "f_bias" (3), "a_log"
+    (log 1..N), "dt_bias" (the inverse softplus of a log-uniform draw),
+    "orth" (0.1 N(0, 1)), "embed" (N(0, 1)), fan-scaled normals. The
+    numbers differ from the reference's ``jax.random`` ones; the parity
+    tests carry the reference's params across instead
+    (``repro_torch.convert``)."""
     dev = resolve_device(device)
-    flat = {}
     for path, (shape, kind) in sorted(param_defs(cfg).items()):
-        full = ((n_periods(cfg),) + shape if path.startswith("dec/")
+        stack = path.split("/", 1)[0]
+        full = ((n_periods(cfg, stack),) + shape if stack in ("dec", "enc")
                 else shape)
-        if kind == "zero":
-            v = torch.zeros(full, dtype=torch.float32, device=dev)
-        else:
-            v = torch.randn(full, generator=generator, dtype=torch.float32,
-                            device=dev)
-            if kind != "embed":                  # fan_in / fan_out
-                v /= math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
-        flat[path] = v
-    return _nest(flat)
+        yield path, _init_leaf(shape, full, kind, generator, dev)
+
+
+def init_params(cfg, generator, device=None):
+    """The params tree of ``init_leaves``."""
+    return _nest(dict(init_leaves(cfg, generator, device)))
 
 
 def _pads_reach_tokens(cfg, plan, tokens):
@@ -173,23 +229,48 @@ def _pads_reach_tokens(cfg, plan, tokens):
                           cfg.capacity_factor) < tokens)
 
 
-def _block(x, lp, cfg, ffn, *, window, positions, cur_pos, cache,
-           decode_positions, paged, mean_pads=False):
-    """One attention + FFN residual block, pre-norm and (gemma2) post-norm
-    after the mixer and after the FFN; ``ffn`` is "dense", "moe" or
-    "moe+dense" (the two summed, arctic). ``mean_pads``: paged pads take
-    the reference's attention output (``_pads_reach_tokens``). Returns (x,
-    new_cache, aux): the router's load-balancing loss, None without an MoE
-    FFN."""
+def _block(x, lp, cfg, mixer, ffn, *, window, positions, cur_pos, cache,
+           enc_out, cross, decode_positions, paged, mean_pads=False):
+    """One (mixer + FFN) residual block, pre-norm and (gemma2) post-norm
+    after the mixer and after the FFN. ``mixer`` is "attn" (causal),
+    "enc_attn" (whisper's encoder, not causal), "mamba", "slstm" or
+    "mlstm"; ``cross`` adds whisper's cross-attention onto ``enc_out``
+    (prefill and the loss) or onto the static ``xattn`` cache (decode);
+    ``ffn`` is "dense", "moe", "moe+dense" (the two summed, arctic) or
+    "none" (xlstm). ``mean_pads``: paged pads take the reference's
+    attention output (``_pads_reach_tokens``). Returns (x, new_cache, aux):
+    new_cache keyed "attn" or the mixer's name (and "xattn"), aux the
+    router's load-balancing loss, None without an MoE FFN."""
     aux = None
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    y, new_cache = attention_layer(
-        lp["attn"], h, cfg, positions, window=window,
-        cache=None if cache is None else cache["attn"], cur_pos=cur_pos,
-        decode_positions=decode_positions, paged=paged, mean_pads=mean_pads)
+    key = "attn" if mixer in ("attn", "enc_attn") else mixer
+    mix_cache = None if cache is None else cache[key]
+    if key == "attn":
+        y, nc = attention_layer(
+            lp["attn"], h, cfg, positions, window=window, cache=mix_cache,
+            cur_pos=cur_pos, causal=mixer == "attn",
+            decode_positions=decode_positions, paged=paged,
+            mean_pads=mean_pads)
+    elif mixer == "mamba":
+        y, nc = ssm.mamba_layer(lp["mamba"], h, cfg, mix_cache)
+    elif mixer == "slstm":
+        y, nc = xlstm.slstm_layer(lp["slstm"], h, cfg, mix_cache)
+    else:
+        y, nc = xlstm.mlstm_layer(lp["mlstm"], h, cfg, mix_cache)
     if cfg.post_norm:
         y = rms_norm(y, lp["norm1b"], cfg.norm_eps)
     x = x + y
+    new_cache = {key: nc}
+    if cross:
+        h = rms_norm(x, lp["normx"], cfg.norm_eps)
+        y, new_cache["xattn"] = attention_layer(
+            lp["xattn"], h, cfg, positions,
+            cache=None if cache is None else cache["xattn"],
+            cur_pos=cur_pos, xattn_kv=enc_out, causal=False,
+            cross=cache is not None)
+        x = x + y
+    if ffn == "none":
+        return x, new_cache, aux
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
     y = None if ffn == "moe" else mlp_layer(lp["mlp"], h)
     if ffn != "dense":
@@ -197,7 +278,26 @@ def _block(x, lp, cfg, ffn, *, window, positions, cur_pos, cache,
         y = ym if y is None else y + ym
     if cfg.post_norm:
         y = rms_norm(y, lp["norm2b"], cfg.norm_eps)
-    return x + y, {"attn": new_cache}, aux
+    return x + y, new_cache, aux
+
+
+def _write_state(view, new):
+    """Copy the new recurrent state into the cache's layer slice; leaves
+    the block returned as they were (ring K/V written in place, the
+    static ``xattn`` K/V) are skipped."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _write_state(view[k], v)
+        elif v is not view[k]:
+            view[k].copy_(v)
+
+
+def _stack_caches(caches):
+    """Per-period cache trees -> one tree of leaves stacked on dim 0."""
+    first = caches[0]
+    if isinstance(first, dict):
+        return {k: _stack_caches([c[k] for c in caches]) for k in first}
+    return torch.stack(caches)
 
 
 def _window_array(cfg, stack="dec"):
@@ -214,48 +314,58 @@ def _window_array(cfg, stack="dec"):
     return wins
 
 
-def forward_stack(params_stack, x, cfg, *, positions=None, cache=None,
-                  cur_pos=None, collect_cache=False, decode_positions=None,
-                  paged=None):
-    """Run the layer stack (the reference's scan is a loop over layer
-    slices). Returns (x, cache, aux): ``aux`` the router losses summed
-    over layers (f32 scalar, 0 without MoE).
+def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
+                  cache=None, cur_pos=None, enc_out=None, collect_cache=False,
+                  decode_positions=None, paged=None):
+    """Run a layer stack, ``stack`` "dec" or "enc" (whisper's encoder; the
+    reference's scan is a loop over layer slices). Returns (x, cache,
+    aux): ``aux`` the router losses summed over layers (f32 scalar, 0
+    without MoE). ``enc_out`` (B, S_enc, D): the encoder's output, which
+    the decoder's cross-attention reads in prefill and the loss.
 
     * loss: ``positions`` only; returns (x, None, aux).
-    * prefill: ``collect_cache=True``; returns each slot's roped
-      {"k", "v"} stacked to (n_periods, B, S, KV, d).
-    * ring decode: ``cache`` (the ``layers`` subtree of ``Model.init_cache``)
-      with ``cur_pos`` and ``decode_positions``; each layer writes its ring
-      slice in place and ``cache`` is returned.
+    * prefill: ``collect_cache=True``; returns each slot's cache stacked
+      over periods: attention's roped {"k", "v"} (n_periods, B, S, KV, d),
+      mamba's {"conv", "ssm"} and sLSTM / mLSTM state after the last
+      position, and whisper's cross-attention {"k", "v"} over the S_enc
+      encoder rows ("xattn").
+    * decode: ``cache`` (the ``layers`` subtree of ``Model.init_cache``)
+      with ``cur_pos`` and ``decode_positions`` (None without attention);
+      each layer writes its ring slice and its recurrent state in place,
+      reads its static ``xattn`` K/V, and ``cache`` is returned.
     * paged: ``cache`` = the pools' ``layers`` subtree and ``paged``; each
       layer writes its slice of the stacked pools in place.
 
     Each layer's window is a Python int from ``_window_array``: constant
     per layer, so a captured CUDA graph holds it as it holds a shape."""
-    _require_attention_stack(cfg)
-    plan = layer_plan(cfg, "dec")
-    wins = _window_array(cfg, "dec")
+    if paged is not None:
+        _require_attention_stack(cfg)
+    plan = layer_plan(cfg, stack)
+    wins = _window_array(cfg, stack)
+    cross = cfg.is_encdec and stack == "dec"
     mean_pads = paged is not None and _pads_reach_tokens(
         cfg, plan, x.shape[0] * x.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     collected = {f"s{slot}": [] for slot in range(len(plan))}
-    for period in range(n_periods(cfg)):
-        for slot, (_mixer, ffn) in enumerate(plan):
+    for period in range(n_periods(cfg, stack)):
+        for slot, (mixer, ffn) in enumerate(plan):
             name = f"s{slot}"
             lp = map_tensors(lambda t: t[period], params_stack[name])
             layer_cache = (None if cache is None else
                            map_tensors(lambda t: t[period], cache[name]))
-            x, nc, a = _block(x, lp, cfg, ffn, window=wins[period][slot],
+            x, nc, a = _block(x, lp, cfg, mixer, ffn,
+                              window=wins[period][slot],
                               positions=positions, cur_pos=cur_pos,
-                              cache=layer_cache,
+                              cache=layer_cache, enc_out=enc_out,
+                              cross=cross,
                               decode_positions=decode_positions, paged=paged,
                               mean_pads=mean_pads)
             if a is not None:
                 aux = aux + a
             if collect_cache:
-                collected[name].append(nc["attn"])
+                collected[name].append(nc)
+            elif layer_cache is not None and paged is None:
+                _write_state(layer_cache, nc)
     if collect_cache:
-        cache = {name: {"attn": {k: torch.stack([c[k] for c in cs])
-                                 for k in ("k", "v")}}
-                 for name, cs in collected.items()}
+        cache = {name: _stack_caches(cs) for name, cs in collected.items()}
     return x, cache, aux

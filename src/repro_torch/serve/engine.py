@@ -7,9 +7,11 @@ so every forward streams 4-bit codes through the msb_matmul kernel;
 ``execution="simulated"`` keeps the QTensors and dequantizes them per call,
 the paper's simulation (Sec. 4.1). ``ServeEngine`` runs a fixed batch in
 lockstep: one prefill (every attention on the flash-attention kernel) and
-then one ring decode step per token; ``score`` is the held-out NLL through the loss
-forward. Production traffic goes through ``ContinuousEngine``; both give
-the same greedy tokens in either mode.
+then one ring decode step per token; ``score`` is the held-out NLL
+through the loss forward. It serves every decoder-only stack, those with
+per-sequence state too (jamba's mamba layers, xlstm), which paging does
+not. Production traffic goes through ``ContinuousEngine``; both give the
+same greedy tokens in either mode.
 """
 from __future__ import annotations
 
@@ -74,22 +76,31 @@ class ServeEngine:
 
     def _grow_cache(self, cache, prompt_len):
         """Move prefill caches (length P) into ``max_seq`` ring buffers.
-        Where the reference pads each K/V leaf, this allocates the rings
-        once (zeros) and copies the prefill K/V into their first P rows;
-        the position table is -1 (empty) past P."""
+        Only attention's K/V leaves grow, found by their path (``attn/k``,
+        ``attn/v``), as the reference finds them: recurrent state keeps its
+        shape, and whisper's ``xattn`` K/V is the static encoder's, every
+        row of which decode attends. Where the reference pads each K/V
+        leaf, this allocates the rings once (zeros) and copies the prefill
+        K/V into their first P rows; the position table, where the cache
+        has one, is -1 (empty) past P."""
         s = self.max_seq
 
-        def grow(node):
+        def grow(node, path=()):
             if isinstance(node, dict):
-                return {k: grow(v) for k, v in node.items()}
+                return {k: grow(v, path + (k,)) for k, v in node.items()}
+            if path[-2:] not in (("attn", "k"), ("attn", "v")):
+                return node
             ring = node.new_zeros(node.shape[:2] + (s,) + node.shape[3:])
             ring[:, :, :prompt_len] = node
             return ring
 
-        pos = torch.full((cache["pos"].shape[0], s), -1, dtype=torch.int32,
-                         device=cache["pos"].device)
-        pos[:, :prompt_len] = cache["pos"]
-        return {"layers": grow(cache["layers"]), "pos": pos}
+        new = {"layers": grow(cache["layers"])}
+        if "pos" in cache:
+            pos = torch.full((cache["pos"].shape[0], s), -1,
+                             dtype=torch.int32, device=cache["pos"].device)
+            pos[:, :prompt_len] = cache["pos"]
+            new["pos"] = pos
+        return new
 
     def generate(self, prompts, n_tokens, temperature=0.0, generator=None):
         """prompts: (B, P) int. Returns (B, n_tokens) int32 numpy tokens.

@@ -573,6 +573,9 @@ FLASH_CASES = {   # causal, window, softcap, H, KV, Sq, Skv, d
     "noncausal-s100x190-d256": (False, 0, 0.0, 4, 2, 100, 190, 256),
     "window40-softcap50-s150-d64": (True, 40, 50.0, 4, 1, 150, 150, 64),
     "causal-s200x330-d128": (True, 0, 0.0, 4, 2, 200, 330, 128),
+    # whisper's cross-attention: a 64-token prompt onto 1500 encoder rows,
+    # the last key tile 28 rows of 64
+    "noncausal-s64x1500-d64": (False, 0, 0.0, 20, 20, 64, 1500, 64),
 }
 
 
@@ -976,6 +979,39 @@ def test_msb_matmul_experts_is_msb_matmul_per_expert(cuda, m, dtype):
     tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * \
         want.float().abs().max().item()
     torch.testing.assert_close(y.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["gate_up", "down"])
+def test_msb_matmul_experts_at_jamba_shape(cuda, direction):
+    """The expert batch at jamba-v0.1-52b's shape (16 experts, d_model
+    4096, d_ff 14336; a B=8 decode step top-2 at capacity 8, three experts
+    unrouted): each routed expert bit for bit ``msb_matmul`` on it alone,
+    the others exactly 0, and within 1e-2 of the plain version's largest
+    value (bf16)."""
+    rng = np.random.default_rng(41)
+    e, c = 16, 8
+    k, n = (4096, 14336) if direction == "gate_up" else (14336, 4096)
+    packed = torch.from_numpy(rng.integers(0, 256, (e, k, n // 2),
+                                           dtype=np.uint8)).to(cuda)
+    scales = torch.from_numpy(np.sort(rng.random((e, k, n // 64, 8)).astype(
+        np.float32) * 0.05, axis=-1)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((e, c, k)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    counts = torch.tensor([1, 2, 0, 1, 1, 2, 1, 0, 1, 1, 2, 1, 0, 1, 1, 1],
+                          dtype=torch.int32, device=cuda)
+    assert int(counts.sum()) == 16                 # 8 tokens, top-2
+    y = mm_ops.msb_matmul_experts(x, packed, scales, counts)
+    for i in range(e):
+        if int(counts[i]) == 0:
+            assert (y[i] == 0).all()
+        else:
+            alone = mm_ops.msb_matmul(x[i].contiguous(), packed[i], scales[i])
+            assert torch.equal(y[i], alone), f"expert {i}"
+    want = mm_ref.msb_matmul_experts_ref(x, packed, scales, counts)
+    torch.testing.assert_close(
+        y.float(), want.float(), rtol=0,
+        atol=1e-2 * want.float().abs().max().item())
 
 
 WINDOW_LENS = [0, 1, 17, 100, 300, 517, 1029, 2048]

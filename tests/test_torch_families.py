@@ -10,8 +10,10 @@ kv_bits 16, 8 and 4 (logits 1e-4, as ``tests/test_torch_model.py``: the
 projections sum in another order than XLA's dot); ``ContinuousEngine``
 greedy tokens identical to ``repro.serve.ContinuousEngine``'s at kv_bits
 16, 8 and 4; ``ServeEngine`` greedy tokens identical to
-``repro.serve.ServeEngine``'s and ``score`` within 1e-5. The stacks still
-to port name ROADMAP item 10.
+``repro.serve.ServeEngine``'s and ``score`` within 1e-5. The stacks ROADMAP
+item 10 brought last (jamba, xlstm, whisper, internvl) declare the
+reference's params and are refused by the paged path alone; their parity
+tests are ``tests/test_torch_{ssm,xlstm,encdec,state_serve}.py``.
 
 The paged-path test calls the reference engine's own jitted dispatches at
 the engine's shapes, so the reference compiles each once per arch and
@@ -59,9 +61,18 @@ def test_window_plan_and_supports_paged_match_reference(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_stacks_name_roadmap_item_10(arch):
-    model = TModel(t_config(arch))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        model.init(torch.Generator(), device="cpu")
+    """The stacks ROADMAP item 10 brought (per-sequence state, frontends)
+    declare the reference's params at full width, and the only refusal
+    left is the paged path's, as in the reference (nothing is allocated:
+    the full configs are far too large for a test)."""
+    jc, tc = j_config(arch), t_config(arch)
+    want = {path: shape for path, (shape, _ax, _k) in
+            jtr.param_defs(jc).items()}
+    assert {path: shape for path, (shape, _k) in
+            ttr.param_defs(tc).items()} == want
+    model = TModel(tc)
+    with pytest.raises(ValueError, match="not a paged-servable arch"):
+        model.init_paged_pools(4, 4, device="cpu")
 
 
 @pytest.mark.parametrize("arch", fam.ARCHS)

@@ -128,8 +128,8 @@ def test_paged_window_runs():
     """The paged path takes a sliding window (gemma2): keys at or below
     ``q_pos - window`` are hidden. Two keys alike, V 1 and 3: the query at
     position 1 averages them without a window and sees only its own key
-    with window 1. (The stacks still to port, which name ROADMAP item 10,
-    are held in ``tests/test_torch_families.py``.)"""
+    with window 1. (The paged path's refusal of the stacks with
+    per-sequence state is held in ``tests/test_torch_state_serve.py``.)"""
     from repro_torch.models.attention import paged_attention
     q = torch.ones(1, 1, 2, 16)
     k_pool = torch.ones(2, 2, 1, 16)
@@ -153,10 +153,21 @@ def test_package_version_and_plain_init_is_seeded():
 
 
 def test_cross_attention_names_its_roadmap_item():
+    """Cross-attention decode (ROADMAP item 10, now ported) attends every
+    row of the static encoder K/V it is given and returns that cache as
+    it is: with keys alike and V rows 1 and 3 the output is their mean."""
     from repro_torch.models.layers import attention_layer
     model = _tiny()
+    cfg = model.cfg
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     lp = {k: v[0] for k, v in params["dec"]["s0"]["attn"].items()}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        attention_layer(lp, torch.zeros(1, 1, 64), model.cfg,
-                        cache={"k": None, "v": None}, cross=True)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    cache = {"k": torch.ones(1, 2, kv, hd),
+             "v": torch.stack([torch.ones(kv, hd), torch.full((kv, hd), 3.0)
+                               ])[None]}
+    out, new = attention_layer(lp, torch.zeros(1, 1, cfg.d_model), cfg,
+                               cache=cache, cross=True)
+    assert new is cache
+    from repro_torch.models.layers import dense
+    want = dense(torch.full((1, 1, cfg.n_heads * hd), 2.0), lp["wo"])
+    assert torch.allclose(out, want)
