@@ -36,7 +36,14 @@ one line each (details indented), any failure exits non-zero:
    window 4096, softcap 50, S=4608) and whisper's (head_dim 64, not
    causal: the encoder over 1500 frames, and the cross-attention of 64
    queries onto them) shapes; pad rows exactly 0, cross-segment
-   isolation bit for bit
+   isolation bit for bit; at every shape D with its log-sum-exp output:
+   the output bitwise as without it, lse against the plain version's.
+   Then gradients through ``models.attention.flash_attention`` (D under
+   its autograd Function, the plain-torch backward) against autograd
+   through the plain version at internlm2's train shape (B=2, S=4096),
+   gemma2's windowed d=256 prefill and whisper's encoder and
+   cross-attention; D+lse, the backward and SDPA forward+backward timed
+   at the train shape
 7. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
    the card, pack, ContinuousEngine at decode_horizon 8 and 1 over kv16
    pools, each engine's dispatch set captured as CUDA graphs by warmup()
@@ -93,7 +100,8 @@ one line each (details indented), any failure exits non-zero:
    new-token counts, kv16 and kv4, H=8 against H=1 reported, not held;
    then the smoke configs of gemma2, granite-moe, qwen1.5-0.5b and
    arctic-480b served on the card and on the CPU (granite-moe at kv8/kv4
-   and its own capacity with uneven counts: reported, not held)
+   and its own capacity with uneven counts: reported, not held), and
+   internlm2's without RoPE (sinusoids in the paged steps) at kv16/8/4
 14. state stacks — the stacks with per-sequence state at full width
    (random weights, seed 0, each drawn, 4b/64 DP quantized and packed
    leaf by leaf on the card, freed before the next): xlstm-125m (12
@@ -106,6 +114,20 @@ one line each (details indented), any failure exits non-zero:
    internvl 2, xlstm 0), A and the unembedding's kernel non-zero, the
    expert batch for jamba; then the four smoke configs on the card and
    on the CPU
+15. train — (a) three ``make_train_step`` steps of the internlm2,
+   gemma2, granite-moe, jamba, xlstm and whisper smoke configs on the
+   card and on the CPU from the same params and batches (loss and grad
+   norm within 1e-4 relative); (b) internlm2-1.8b at full width through
+   ``train_loop`` (random weights, seed 0; TokenStream B=4 x 4096; f32
+   params and moments; remat): finite losses, the first within 1 nat of
+   ln(vocab), exactly 48 D launches a step and none of B or C, step ms,
+   tokens/s, peak memory, a profiled step, forward+backward and AdamW
+   apart (``wq``'s gradient present and non-zero), then two steps with
+   int8 moments and their peak; (c) a smoke run saved at step 2 (async,
+   from CUDA tensors), restored onto the card and run on to step 4,
+   against two uninterrupted runs; (d) ``launch.train --smoke --steps
+   30`` ends below its first loss and ``launch.serve --ckpt-dir``
+   restores its last step
 
 Windowed B/C cases (phases 4-5) and D at d=256 and without the causal
 mask (phase 6) also hold every output row within ``ROW_REL_TOL`` of its
@@ -116,8 +138,11 @@ The second-to-last line is the kernel table as JSON (kernel A at the
 decode shape, at M=4096 and as the expert batch at granite-moe's and
 jamba's shapes; the unembedding's kernel at internlm2's k-blocked and
 gemma2's tied table, M=8; B and C without and, at kv16 and kv4, with the
-window; D at the static prefill, at gemma2's windowed d=256 prefill and
-at whisper's encoder and cross-attention); the last line
+window; D at the static prefill, at gemma2's windowed d=256 prefill,
+at whisper's encoder and cross-attention, and with its lse at
+internlm2's train shape, launched by phase 15's full-width run, the row
+also carrying the backward's and SDPA forward+backward's times); the
+last line
 is ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
 stream is timed cold (L2 flushed before every launch), as decode meets it.
 Phases 3-6 report the median of 20 launches (the mean beside it) for the
@@ -940,6 +965,28 @@ def segments(b, s):
     return segs
 
 
+def check_lse(torch, ops, name, q, k, v, sg, kw, out, lse_ref):
+    """Kernel D with its log-sum-exp output: the output bitwise the same
+    as without it, and each row's lse within 1e-5 of the largest |lse|
+    (f32) or 1e-3 absolute (bf16 inputs) of the plain version's; rows that
+    see no key (pads) equal it exactly."""
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    out2 = ops.flash_attention_fwd(q, k, v, *sg, lse=lse, **kw)
+    if not torch.equal(out2, out):
+        fail(f"flash_attention {name}: the output changed when lse was "
+             "asked for")
+    live = lse_ref > -1e30
+    if not torch.equal(lse[~live], lse_ref[~live]):
+        fail(f"flash_attention {name}: lse of rows that see no key")
+    err = (lse - lse_ref)[live].abs().max().item()
+    tol = (1e-3 if q.dtype == torch.bfloat16 else
+           1e-5 * lse_ref[live].abs().max().item())
+    if not err <= tol:
+        fail(f"flash_attention {name}: lse err {err} > {tol}")
+    log(f"  flash_attention {name} with lse: output bitwise, lse err "
+        f"{err:.3g} (tol {tol:.3g})")
+
+
 def phase_flash_attention(torch, timer, device):
     from repro_torch.kernels.flash_attention import ops, ref
     gen = torch.Generator(device=device).manual_seed(5)
@@ -989,12 +1036,14 @@ def phase_flash_attention(torch, timer, device):
         out = ops.flash_attention_fwd(q, k, v, *sg, **kw)
         plain = (ref.flash_attention_segmented_ref if seg
                  else ref.flash_attention_ref)
-        out_ref = plain(q, k, v, *sg, **kw)
+        out_ref, lse_ref = plain(q, k, v, *sg, with_lse=True, **kw)
         torch.cuda.synchronize()
         err = (out.float() - out_ref.float()).abs().max().item()
         tol = 2e-2 if dt == bf16 else 1e-5
         if not err <= tol:
             fail(f"flash_attention {name}: max err {err} > {tol}")
+        check_lse(torch, ops, name, q, k, v, sg, kw, out, lse_ref)
+        del lse_ref
         if d == 256 or not causal:   # rows over ~1500-4096 keys: hold
             # each row to its own scale
             rel = row_rel_err(torch, out, out_ref)
@@ -1047,8 +1096,119 @@ def phase_flash_attention(torch, timer, device):
     log(f"[flash_attention] {len(rows)} shapes agree with the plain version"
         " (tol 2e-2 abs bf16, 1e-5 f32; at d=256 and non-causal also every "
         "row within 1e-2 of its largest value; pad rows exactly 0; segment "
-        "isolation bitwise)")
+        "isolation bitwise; with lse: output bitwise, lse 1e-3 bf16 / 1e-5 "
+        "f32)")
     return rows
+
+
+GRAD_CASES = [  # name, B, H, KV, Sq, Skv, d, causal, window, softcap
+    ("internlm2 train B=2 S=4096", 2, 16, 8, 4096, 4096, 128, True, 0, 0.0),
+    ("gemma2 window 4096 softcap 50 B=1 S=4608", 1, 8, 4, 4608, 4608, 256,
+     True, 4096, 50.0),
+    ("whisper encoder B=2 S=1500", 2, 20, 20, 1500, 1500, 64, False, 0,
+     0.0),
+    ("whisper cross B=2 Sq=64 Skv=1500", 2, 20, 20, 64, 1500, 64, False, 0,
+     0.0),
+]
+
+
+def phase_flash_grad(torch, timer, device):
+    """Phase 6, training: gradients through ``models.attention.
+    flash_attention`` (kernel D with its lse under the autograd Function,
+    ``flash_attention_bwd`` backward) against autograd through the plain
+    version on the same bf16 inputs on the card, at internlm2's train
+    shape, gemma2's windowed softcapped d=256 prefill and whisper's
+    encoder and cross-attention: dq/dk/dv within 2e-2 of each tensor's
+    largest |value|, none missing or all zero. At the train shape: D+lse,
+    the backward alone and SDPA forward+backward timed (median of 5).
+    Returns the train shape's row."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models.attention import (flash_attention,
+                                              flash_attention_bwd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=device).manual_seed(6)
+    bf16 = torch.bfloat16
+    row = None
+    for name, b, h, kv, sq, skv, d, causal, window, softcap in GRAD_CASES:
+        def leaf(shape):
+            return torch.randn(shape, generator=gen, device=device).to(
+                bf16).requires_grad_(True)
+        q, k, v = leaf((b, sq, h, d)), leaf((b, skv, kv, d)), leaf(
+            (b, skv, kv, d))
+        dout = torch.randn((b, sq, h, d), generator=gen, device=device).to(
+            bf16)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        before = ops.flash_attention_fwd.launches
+        flash_attention(q, k, v, **kw).backward(dout)
+        if ops.flash_attention_fwd.launches != before + 1:
+            fail(f"flash grad {name}: kernel D not launched once")
+        got = [t.grad for t in (q, k, v)]
+        for t in (q, k, v):
+            t.grad = None
+        ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), **kw).transpose(
+            1, 2).backward(dout)
+        errs = []
+        for g, t, what in zip(got, (q, k, v), "qkv"):
+            if g is None or g.abs().max().item() == 0:
+                fail(f"flash grad {name}: d{what} missing or all zero")
+            want = t.grad.float()
+            rel = (g.float() - want).abs().max().item() / \
+                want.abs().max().item()
+            if not rel <= 2e-2:
+                fail(f"flash grad {name}: d{what} err / max {rel} > 2e-2")
+            errs.append(rel)
+        log(f"  flash grad {name} H={h} KV={kv} d={d}: dq/dk/dv err / max "
+            f"{errs[0]:.3g} {errs[1]:.3g} {errs[2]:.3g} (tol 2e-2)")
+        if row is None:             # the train shape
+            qh, kh, vh = (t.detach().transpose(1, 2) for t in (q, k, v))
+            lse = torch.empty((b, h, sq), device=device)
+            ms, _ = timer.stats(lambda: ops.flash_attention_fwd(
+                qh, kh, vh, lse=lse, **kw), reps=5)
+            out = ops.flash_attention_fwd(qh, kh, vh, lse=lse, **kw)
+            doh = dout.transpose(1, 2)
+            bwd_ms, _ = timer.stats(lambda: flash_attention_bwd(
+                qh, kh, vh, out, lse, doh, **kw), reps=5)
+            qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True)
+                          for t in (q, k, v))
+
+            def sdpa_fb():
+                sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True
+                     ).backward(doh)
+            lib_ms, _ = timer.stats(sdpa_fb, reps=5)
+            lib_fwd, _ = timer.stats(lambda: sdpa(
+                qh, kh, vh, is_causal=causal, enable_gqa=True), reps=5)
+            plain_ms = timer(lambda: ref.flash_attention_ref(
+                qh, kh, vh, **kw), reps=2)
+            pairs = b * visible_pairs(sq, skv, causal, window)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + \
+                4 * b * h * sq
+            b_ms, b_by = bound(nbytes, 4.0 * pairs * h * d, "bfloat16")
+            # the backward reads q, k, v, out, dout and lse once and writes
+            # dq, dk, dv: 5 products of the visible pairs (s, dp, dq, dk,
+            # dv), 2 operations each, on bf16 inputs
+            bwd_bytes = (4 * q.numel() + 4 * k.numel()) * 2 + 4 * b * h * sq
+            bb_ms, bb_by = bound(bwd_bytes, 10.0 * pairs * h * d,
+                                 "bfloat16")
+            row = dict(shape=f"{name} H={h} KV={kv} d={d} bf16 causal",
+                       name=name, max_abs_err=max(errs), ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_fwd, bound_ms=b_ms,
+                       bound_by=b_by, bwd_ms=bwd_ms,
+                       bwd_bound_ms=bb_ms, sdpa_fwd_bwd_ms=lib_ms)
+            log(f"  D+lse at the train shape: {ms:.4f} ms median of 5 | "
+                f"plain {plain_ms:.4f} | bound {b_ms:.4f} ({b_by}), "
+                f"{100 * b_ms / ms:.1f} % of it | SDPA forward "
+                f"{lib_fwd:.4f} ms | backward "
+                f"(flash_attention_bwd, plain torch f32) {bwd_ms:.4f} ms, "
+                f"bound {bb_ms:.4f} ({bb_by}) | SDPA forward+backward "
+                f"{lib_ms:.4f} ms")
+            del qh, kh, vh, lse, out, qs, ks, vs
+        del q, k, v, dout, got
+    torch.cuda.empty_cache()
+    log("[flash grad] kernel D under its autograd Function: gradients agree "
+        "with autograd through the plain version at 4 shapes (tol 2e-2 of "
+        "each tensor's largest)")
+    return row
 
 
 def next_logits(torch, model, params, tokens, device, ps=16):
@@ -2542,13 +2702,16 @@ def phase_families(torch, device):
     paths_check(torch, "granite-moe-3b-a800m", (8, 4), report=True)
     paths_check(torch, "qwen1.5-0.5b", (16, 4))
     paths_check(torch, "arctic-480b", (16,))
+    # an attention stack without RoPE: the paged steps add sinusoids
+    paths_check(torch, "internlm2-1.8b", (16, 8, 4), use_rope=False)
     log(f"  smoke configs on card and CPU in {time.perf_counter() - t0:.1f}"
         " s")
     log("[families] ok: gemma2-2b (kv16, kv4; window binding) and "
         "granite-moe-3b-a800m (kv16) served at full width, warmed, replay "
         "bitwise against eager, no capture after warm-up, H=8 tokens against"
-        " H=1; static generate and score; smoke gemma2, granite-moe, qwen "
-        "and arctic agree between card and CPU")
+        " H=1; static generate and score; smoke gemma2, granite-moe, qwen, "
+        "arctic and internlm2 without RoPE (kv16/8/4) agree between card and"
+        " CPU")
     return out
 
 
@@ -2844,8 +3007,298 @@ def phase_state_stacks(torch, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["internlm2-1.8b", "gemma2-2b", "granite-moe-3b-a800m",
+               "jamba-v0.1-52b", "xlstm-125m", "whisper-large-v3"]
+FULL_TRAIN = dict(batch=4, seq=4096, steps=5)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device)
+
+
+def smoke_batches(cfg, n, start=0, b=2, s=16):
+    """``n`` seeded batches of ``TokenStream`` (whisper: with 16 frames a
+    row) from batch ``start`` on."""
+    from repro_torch.data import TokenStream
+    stream = TokenStream(cfg.vocab_size, s, b, seed=0)
+    out = []
+    for i in range(start, start + n):
+        batch = stream.batch(i)
+        if cfg.is_encdec:
+            batch["frames"] = np.random.default_rng(i).standard_normal(
+                (b, 16, cfg.d_model)).astype(np.float32)
+        out.append(batch)
+    return out
+
+
+def smoke_state(torch, model, opt, device):
+    """The seeded smoke train state (drawn on the CPU), on ``device``."""
+    from repro_torch.train import init_state
+    return _to(init_state(model, opt, torch.Generator().manual_seed(0),
+                          "cpu"), device)
+
+
+def smoke_opt():
+    from repro_torch.train import AdamW, OptConfig
+    return AdamW(OptConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+
+
+def train_smoke_card_vs_cpu(torch, device):
+    """(a): three ``make_train_step`` steps of each smoke config in
+    ``TRAIN_ARCHS`` on the card and on the CPU from the same params and
+    batches: loss and grad norm within 1e-4 relative each step."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+    from repro_torch.train import make_train_step
+    for arch in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        model = Model(smoke_config(arch))
+        batches = smoke_batches(model.cfg, 3)
+        res = {}
+        for dev in (device, "cpu"):
+            opt = smoke_opt()
+            state, step = smoke_state(torch, model, opt, dev), \
+                make_train_step(model, opt)
+            res[str(dev)] = []
+            for batch in batches:
+                state, m = step(state, batch)
+                res[str(dev)].append((float(m["loss"]),
+                                      float(m["grad_norm"])))
+        card, cpu = res[str(device)], res["cpu"]
+        worst = max(abs(a - b) / abs(b) for rc, rp in zip(card, cpu)
+                    for a, b in zip(rc, rp))
+        log(f"  {arch} smoke, 3 steps: loss card "
+            f"{[round(r[0], 6) for r in card]} cpu "
+            f"{[round(r[0], 6) for r in cpu]}; grad norm card "
+            f"{[round(r[1], 5) for r in card]}; worst rel {worst:.3g} "
+            f"(tol 1e-4), {time.perf_counter() - t0:.1f} s")
+        if not worst <= 1e-4:
+            fail(f"train {arch}: card and CPU steps differ by {worst}")
+
+
+def train_full_width(torch, device):
+    """(b): internlm2-1.8b at full width through ``train_loop``: f32
+    params and moments, remat, TokenStream batches of ``FULL_TRAIN``.
+    Holds every loss finite, the first within 1 nat of ln(vocab), 48 D
+    launches a step (24 layers, forward and remat recompute) and none of
+    B or C; reports step ms, tokens/s and the peak memory, then one
+    profiled step, forward+backward and the optimizer apart (``wq``'s
+    gradient must be there and non-zero), and two steps with int8
+    moments and their peak."""
+    import math
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamW, OptConfig, StragglerMonitor,
+                                   init_state, make_train_step, train_loop)
+    b, s, n = FULL_TRAIN["batch"], FULL_TRAIN["seq"], FULL_TRAIN["steps"]
+    cfg = get_config("internlm2-1.8b")
+    model = Model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamW(OptConfig(lr=3e-4, warmup_steps=2, total_steps=100))
+    state = init_state(model, opt, torch.Generator(
+        device=device).manual_seed(0), device)
+    stream = TokenStream(cfg.vocab_size, s, b, seed=0)
+    losses = []
+
+    def log_fn(line):
+        log(f"  {line}")
+        if line.startswith("[train] step"):
+            losses.append(float(line.split(" loss ")[1].split()[0]))
+
+    mon = StragglerMonitor()
+    zero_launch_counters()
+    t0 = time.perf_counter()
+    state, _ = train_loop(model, opt, iter(stream), steps=n, state=state,
+                          straggler_monitor=mon, log_every=1, log_fn=log_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launch_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if counts["flash_attention_fwd"] != 2 * cfg.n_layers * n:
+        fail(f"full-width train: {counts['flash_attention_fwd']} D launches "
+             f"in {n} steps, not {2 * cfg.n_layers * n}")
+    if counts["paged_attention_decode"] or \
+            counts["paged_attention_decode_quant"]:
+        fail("full-width train: a paged kernel launched")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != n:
+        fail(f"full-width train: losses {losses}")
+    if not abs(losses[0] - math.log(cfg.vocab_size)) <= 1.0:
+        fail(f"full-width train: first loss {losses[0]} not within 1 nat "
+             f"of ln({cfg.vocab_size})")
+    times = [t * 1e3 for t in mon.times]
+    step_ms = statistics.median(times[1:])
+    log(f"  internlm2-1.8b full width, B={b} x S={s} ({b * s} tokens a "
+        f"step), f32 params and moments, remat: {n} steps in {wall:.1f} s;"
+        f" step ms {[round(t, 1) for t in times]}, median after the first "
+        f"{step_ms:.1f} ms, {b * s / step_ms * 1e3:.0f} tokens/s; D "
+        f"launches {counts['flash_attention_fwd']} "
+        f"({counts['flash_attention_fwd'] // n} a step); peak "
+        f"{peak:.3f} GB")
+    step = make_train_step(model, opt)
+    batch = stream.batch(n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) * 1e3
+    busy, _ = device_breakdown(prof, pwall, 1,
+                               "full-width train step profile")
+    params = state["params"]
+    tb = {k: torch.as_tensor(v).to(device) for k, v in
+          stream.batch(n + 1).items()}
+    zero_launch_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = model.loss(params, tb)
+    loss.backward()
+    torch.cuda.synchronize()
+    fb_ms = (time.perf_counter() - t0) * 1e3
+    wq = params["dec"]["s0"]["attn"]["wq"]
+    if wq.grad is None or wq.grad.abs().max().item() == 0:
+        fail("full-width train: wq has no gradient from attention")
+    if read_launch_counters()["flash_attention_fwd"] != 2 * cfg.n_layers:
+        fail("full-width train: forward+backward did not launch D 48 times")
+    from repro_torch.train.train_loop import _grads
+    g = _grads(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.update(g, state["opt"], params)
+    torch.cuda.synchronize()
+    opt_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  one step apart: forward+backward {fb_ms:.1f} ms (wq grad max "
+        f"{wq.grad.abs().max().item():.3g}), AdamW f32 update {opt_ms:.1f} "
+        f"ms; profiled step {pwall:.1f} ms, device busy {busy:.1f} ms")
+    del g
+    for _, p in _leaves(params):
+        p.grad = None
+    del state["opt"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt8 = AdamW(OptConfig(lr=3e-4, warmup_steps=2, total_steps=100,
+                           moment_dtype="int8"))
+    state8 = {"params": params, "opt": opt8.init(params)}
+    mon8 = StragglerMonitor()
+    losses.clear()
+    state8, _ = train_loop(model, opt8, iter(stream), steps=2, state=state8,
+                           straggler_monitor=mon8, log_every=1,
+                           log_fn=log_fn)
+    peak8 = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"full-width train, int8 moments: losses {losses}")
+    log(f"  int8 moments: 2 steps {[round(t * 1e3, 1) for t in mon8.times]}"
+        f" ms, peak {peak8:.3f} GB against {peak:.3f} GB with f32 moments")
+    del state8, params, state
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, tokens_per_s=b * s / step_ms * 1e3,
+                peak_gb=peak, peak_int8_gb=peak8,
+                d_launches=counts["flash_attention_fwd"], fb_ms=fb_ms,
+                opt_ms=opt_ms)
+
+
+def train_checkpoint_round_trip(torch, device, tmp):
+    """(c): the smoke internlm2 run of 4 steps on the card, twice
+    uninterrupted (their spread: what the card's nondeterministic ops
+    leave), and once saved at step 2 (async, from CUDA tensors), restored
+    onto the card by a new ``train_loop`` and run on to step 4: every
+    leaf of params and moments within 10x the spread of the uninterrupted
+    runs, and bitwise where they are bitwise."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+    from repro_torch.train import Checkpointer, train_loop
+    model = Model(smoke_config("internlm2-1.8b"))
+
+    def run(steps, start=0, ck=None):
+        opt = smoke_opt()
+        return train_loop(model, opt, iter(smoke_batches(model.cfg, steps -
+                                                          start, start)),
+                          steps=steps,
+                          state=smoke_state(torch, model, opt, device),
+                          checkpointer=ck, checkpoint_every=2,
+                          log_every=0)[0]
+
+    a, a2 = dict(_leaves(run(4))), dict(_leaves(run(4)))
+    ck = Checkpointer(os.path.join(tmp, "ck"))
+    run(2, ck=ck)
+    if ck.steps() != [2]:
+        fail(f"checkpoint round trip: steps on disk {ck.steps()}")
+    r = dict(_leaves(run(4, start=2, ck=Checkpointer(os.path.join(tmp,
+                                                                "ck")))))
+    spread = max((a[k].float() - a2[k].float()).abs().max().item()
+                 for k in a)
+    diff = max((a[k].float() - r[k].float()).abs().max().item() for k in a)
+    differing = [k for k in a if not torch.equal(a[k], a2[k])]
+    log(f"  checkpoint round trip (smoke internlm2, saved at 2, restored on "
+        f"the card, on to 4): max |resumed - uninterrupted| {diff:.3g}; two "
+        f"uninterrupted runs differ by {spread:.3g} in {len(differing)} of "
+        f"{len(a)} leaves {differing[:6]}")
+    if not (diff <= 10 * spread if spread > 0 else diff == 0):
+        fail(f"checkpoint round trip: resumed run differs by {diff} "
+             f"(uninterrupted runs by {spread})")
+
+
+def train_launchers(torch, tmp):
+    """(d): ``launch.train --smoke --steps 30`` on the card, checkpoints
+    every 10 steps: its final loss below its first; then ``launch.serve
+    --smoke --ckpt-dir`` restores step 30 and serves."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    ck = os.path.join(tmp, "launch")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "internlm2-1.8b", "--smoke", "--steps", "30", "--ckpt-dir", ck,
+           "--checkpoint-every", "10"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=600)
+    if out.returncode != 0:
+        fail(f"launch.train: {out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    first = float(lines[0].split(" loss ")[1].split()[0])
+    final = float(lines[-1].split("final loss ")[1].split(",")[0])
+    log(f"  launch.train --smoke --steps 30: first loss {first:.4f}, final "
+        f"{final:.4f}; {lines[-1]} ({time.perf_counter() - t0:.1f} s)")
+    if not final < first:
+        fail(f"launch.train: final loss {final} not below first {first}")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", "internlm2-1.8b", "--smoke",
+                          "--ckpt-dir", ck], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=600)
+    if out.returncode != 0 or "[launch.serve] restored step 30" not in \
+            out.stdout:
+        fail(f"launch.serve --ckpt-dir: {out.stdout[-1000:]} "
+             f"{out.stderr[-2000:]}")
+    log(f"  launch.serve --ckpt-dir: {out.stdout.splitlines()[0]}; "
+        f"{len(out.stdout.splitlines()) - 2} requests served")
+
+
+def phase_train(torch, device):
+    """Phase 15: training (a)-(d). Returns (a)'s full-width numbers."""
+    import tempfile
+    t0 = time.perf_counter()
+    train_smoke_card_vs_cpu(torch, device)
+    full = train_full_width(torch, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_checkpoint_round_trip(torch, device, tmp)
+        train_launchers(torch, tmp)
+    log(f"[train] ok in {time.perf_counter() - t0:.1f} s: smoke configs "
+        "agree between card and CPU; internlm2-1.8b at full width, 48 D "
+        "launches a step, finite losses; checkpoint round trip; the "
+        "launcher's loss falls and serve restores its checkpoint")
+    return full
+
+
 def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
-                q_counts, s_counts, f_counts, st_counts):
+                q_counts, s_counts, f_counts, st_counts, grad_row, train):
     """The kernel table as the JSON line's rows: each kernel at its main
     path's representative shape (A at decode and at M=4096, and its expert
     batch at granite-moe's and jamba's decode; the unembedding's kernel at
@@ -2936,6 +3389,16 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
                         src + "flash_attention.cu", d_tpu, launches,
                         next(r for r in fa_rows
                              if r["name"].startswith(case)), fa_err))
+    # D with its lse at internlm2's train shape, launched by phase 15's
+    # full-width run; the row also carries the backward's time (plain
+    # torch, not a kernel) and SDPA's forward+backward
+    rows.append(dict(row("flash_attention_fwd_lse_train",
+                         src + "flash_attention.cu", d_tpu,
+                         train["d_launches"], grad_row,
+                         grad_row["max_abs_err"]),
+                     bwd_ms=grad_row["bwd_ms"],
+                     bwd_bound_ms=grad_row["bwd_bound_ms"],
+                     sdpa_fwd_bwd_ms=grad_row["sdpa_fwd_bwd_ms"]))
     for r in rows:
         if not r["launches"] > 0:
             fail(f"{r['name']}: no launch on its path")
@@ -2960,6 +3423,7 @@ def main():
     pa_rows = phase_paged_attention(torch, timer, device)
     paq_rows = phase_paged_attention_quant(torch, timer, device)
     fa_rows = phase_flash_attention(torch, timer, device)
+    grad_row = phase_flash_grad(torch, timer, device)
     del timer
     counts, ctx = phase_serve(torch, device)
     q_counts = phase_serve_quant(torch, device, ctx)
@@ -2970,8 +3434,10 @@ def main():
     phase_quantizer(torch, device)
     f_counts = phase_families(torch, device)
     st_counts = phase_state_stacks(torch, device)
+    train = phase_train(torch, device)
     kernels = kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows,
-                          counts, q_counts, s_counts, f_counts, st_counts)
+                          counts, q_counts, s_counts, f_counts, st_counts,
+                          grad_row, train)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

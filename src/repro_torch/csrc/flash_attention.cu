@@ -58,7 +58,11 @@
 //   * each thread holds a 4 x 4 block of scores and a 4 x d/16 block of the
 //     output accumulator in registers; four threads per row run the
 //     softmax update of a tile with shuffle reductions.
-// The kernel is chosen by dtype alone.
+// The kernel is chosen by dtype alone. Either kernel also writes, when asked
+// (a non-null lse), each query row's log-sum-exp m + log(max(l, 1e-30)) in
+// f32 once its last tile is done: the residual the training backward
+// (models/attention.py:flash_attention_bwd) reads, as the reference's VJP
+// keeps it. A null lse leaves every other output as it was.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -93,6 +97,7 @@ struct Args {
   const int* q_segs;   // (B, Sq) or null
   const int* kv_segs;  // (B, Skv) or null
   void* out;
+  float* lse;          // (B, H, Sq) f32 or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int H, KV, Sq, Skv, d, causal, window;
   float scale, softcap;
@@ -253,6 +258,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fwd_kernel(const Args
     const int r = ty + 16 * i, qpos = q0 + r;
     if (qpos >= a.Sq) continue;
     const float l = fmaxf(ls[r], 1e-30f);
+    if (a.lse && tx == 0)
+      a.lse[((size_t)b * a.H + hq) * a.Sq + qpos] = ms[r] + logf(l);
 #pragma unroll
     for (int j = 0; j < NJ_MAX; ++j)
       if (j < nj) out[(long long)qpos * a.o_ss + tx + 16 * j] = from_f<T>(acc[i][j] / l);
@@ -283,6 +290,7 @@ constexpr int TC_BKV = 64;             // keys per tile
 constexpr int TC_K_STAGES = 2;         // K tiles in flight; V has one buffer
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Shared memory of the tensor-core kernel for padded head dim DP: Q (TC_BQ
 // rows), TC_K_STAGES K tiles and one V tile, rows of DP + 8 bf16 (70 KB at
@@ -544,6 +552,11 @@ __global__ void __launch_bounds__(TC_THREADS, DP <= 128 ? 3 : 1)
 
   bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + hq * a.o_sh;
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (a.lse && tq == 0) {   // m and l are the same in the four lanes of a quad
+    float* lse = a.lse + ((size_t)b * a.H + hq) * a.Sq;
+    if (row0 < a.Sq) lse[row0] = (m0 == NEG_INF ? NEG_INF : m0 * LN2) + logf(d0);
+    if (row1 < a.Sq) lse[row1] = (m1 == NEG_INF ? NEG_INF : m1 * LN2) + logf(d1);
+  }
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int col = n * 8 + 2 * tq;
@@ -583,13 +596,16 @@ int launch_bf16(const Args& a, int B, cudaStream_t stream) {
 // Plain C entry point (bound with ctypes). The caller has checked shapes,
 // types and strides (last dim contiguous; for bf16 every pointer and row
 // stride 16-byte aligned) and allocated out (B, H, Sq, d) with q's strides.
-// q_segs / kv_segs are both null or both (B, Sq) / (B, Skv) int32. Returns a
+// q_segs / kv_segs are both null or both (B, Sq) / (B, Skv) int32. lse is null
+// or a contiguous (B, H, Sq) f32 output for each query row's log-sum-exp of
+// its scores, m + log(max(l, 1e-30)) in natural units (the reference's
+// residual for the backward; -2e38 for a row that sees no key). Returns a
 // CUDA error code (0 = ok); cudaErrorInvalidValue for a head_dim that is not
 // a multiple of 16 in [16, 256] or H not a multiple of KV. bf16 runs on the
 // tensor cores, f32 on the SIMT kernel.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* q_segs,
-    const void* kv_segs, void* out, int B, int H, int KV, int Sq, int Skv, int d,
+    const void* kv_segs, void* out, void* lse, int B, int H, int KV, int Sq, int Skv, int d,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int causal, int window, float scale,
@@ -599,7 +615,8 @@ extern "C" int flash_attention_fwd(
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const Args a{q,    k,    v,    static_cast<const int*>(q_segs),
                static_cast<const int*>(kv_segs),
-               out,  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+               out,  static_cast<float*>(lse),
+               q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                o_sb, o_sh, o_ss, H, KV, Sq, Skv, d, causal, window, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_bf16(a, B, s) : launch<float>(a, B, s);

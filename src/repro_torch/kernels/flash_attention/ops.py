@@ -5,6 +5,12 @@ a CPU tensor takes the plain version (``ref.py``), a CUDA tensor launches
 the hand-written kernel (``csrc/flash_attention.cu``: the tensor-core
 kernel for bf16, the SIMT kernel for f32, chosen by dtype alone) or
 raises. Its ``.launches`` counts the kernel's launches.
+
+The kernel is forward-only and writes through raw pointers, so its output
+has no autograd history: ``_launch`` refuses q, k or v that require grad
+while grad mode is on. Training reaches it through the autograd Function
+of ``models/attention.py``, whose forward runs with grad mode off and asks
+for the per-row log-sum-exp (``lse``) its backward reads.
 """
 from __future__ import annotations
 
@@ -21,14 +27,26 @@ def _lib():
     if fn.argtypes is None:
         vp, ci, cf, cl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_longlong)
-        fn.argtypes = [vp] * 6 + [ci] * 6 + [cl] * 12 + [ci, ci, cf, cf, ci,
+        fn.argtypes = [vp] * 7 + [ci] * 6 + [cl] * 12 + [ci, ci, cf, cf, ci,
                                                           vp]
         fn.restype = ci
     return fn
 
 
-def _launch(q, k, v, q_segs, kv_segs, causal, window, softcap, scale):
+def refuse_grad(q, k, v):
+    """Raise when grad mode is on and q, k or v requires grad: the raw
+    launch would give them no gradient, silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_fwd: the kernel has no backward; q, k and v "
+            "that require grad go through repro_torch.models.attention."
+            "flash_attention (an autograd Function)")
+
+
+def _launch(q, k, v, q_segs, kv_segs, causal, window, softcap, scale,
+            lse=None):
     what = "flash_attention_fwd"
+    refuse_grad(q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{what}: q must be (B, H, Sq, d) and k, v one "
                          "(B, KV, Skv, d) shape")
@@ -62,6 +80,12 @@ def _launch(q, k, v, q_segs, kv_segs, causal, window, softcap, scale):
                 raise ValueError(f"{what}: {name} must be contiguous int32 "
                                  f"({b}, {n})")
         ts += [q_segs, kv_segs]
+    if lse is not None:
+        if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq) or \
+                not lse.is_contiguous():
+            raise ValueError(f"{what}: lse must be contiguous f32 "
+                             f"({b}, {h}, {sq})")
+        ts.append(lse)
     if any(t.device != q.device for t in ts):
         raise ValueError(f"{what}: all tensors must be on one device")
     out = torch.empty_like(q)       # q's strides: (B, S, H, d) views stay so
@@ -72,7 +96,8 @@ def _launch(q, k, v, q_segs, kv_segs, causal, window, softcap, scale):
             else (None, None))
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), *segs,
-                 out.data_ptr(), b, h, kv, sq, skv, d, *strides,
+                 out.data_ptr(), None if lse is None else lse.data_ptr(),
+                 b, h, kv, sq, skv, d, *strides,
                  int(bool(causal)), int(window), scale, float(softcap),
                  int(q.dtype == torch.bfloat16),
                  torch.cuda.current_stream(q.device).cuda_stream)
@@ -82,24 +107,30 @@ def _launch(q, k, v, q_segs, kv_segs, causal, window, softcap, scale):
 
 
 def flash_attention_fwd(q, k, v, q_segs=None, kv_segs=None, *, causal=True,
-                        window=0, softcap=0.0, scale=None):
+                        window=0, softcap=0.0, scale=None, lse=None):
     """Forward attention in head-major layout. q: (B, H, Sq, d); k/v: (B,
     KV, Skv, d), any Sq and Skv, any strides with a contiguous last dim;
     ``q_segs``/``kv_segs``: optional (B, Sq)/(B, Skv) int32 segment ids —
     pass both or neither; a key of another segment gets weight exactly 0,
-    and a row whose segment is -1 (a pad) outputs exactly 0. Returns (B, H,
-    Sq, d) in q's type."""
+    and a row whose segment is -1 (a pad) outputs exactly 0. ``lse``: an
+    optional contiguous f32 (B, H, Sq) tensor that receives each row's
+    log-sum-exp ``m + log(max(l, 1e-30))`` of its (scaled, softcapped)
+    scores. Returns (B, H, Sq, d) in q's type."""
     if (q_segs is None) != (kv_segs is None):
         raise ValueError("pass both q_segs and kv_segs, or neither")
     if q.is_cuda:
         return _launch(q, k, v, q_segs, kv_segs, causal, window, softcap,
-                       scale)
+                       scale, lse)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              with_lse=lse is not None)
     if q_segs is not None:
-        return flash_attention_segmented_ref(
-            q, k, v, q_segs, kv_segs, causal=causal, window=window,
-            softcap=softcap, scale=scale)
-    return flash_attention_ref(q, k, v, causal=causal, window=window,
-                               softcap=softcap, scale=scale)
+        res = flash_attention_segmented_ref(q, k, v, q_segs, kv_segs, **kw)
+    else:
+        res = flash_attention_ref(q, k, v, **kw)
+    if lse is None:
+        return res
+    lse.copy_(res[1])
+    return res[0]
 
 
 flash_attention_fwd.launches = 0

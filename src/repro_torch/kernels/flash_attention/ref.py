@@ -46,10 +46,17 @@ def _mask(qpos, kpos, causal, window):
     return m
 
 
+def _lse(m, l, shape):
+    """Each row's log-sum-exp (B, H, Sq) f32 from its max and sum, with
+    the sum clamped at 1e-30 as the reference's ``l_safe``."""
+    return (m + torch.log(torch.clamp(l, min=1e-30))).reshape(shape)
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        scale=None):
+                        scale=None, with_lse=False):
     """q: (B, H, Sq, d); k/v: (B, KV, Skv, d). Returns (B, H, Sq, d) in q's
-    type. Any Sq and Skv: the last key tile is masked, not padded."""
+    type, and with ``with_lse`` also each row's log-sum-exp (B, H, Sq) f32.
+    Any Sq and Skv: the last key tile is masked, not padded."""
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else d ** -0.5)
@@ -76,11 +83,13 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
         acc = acc * corr[..., None] + pv
         m_i = m_new
     out = acc / torch.clamp(l_i, min=1e-30)[..., None]
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    out = out.reshape(b, h, sq, d).to(q.dtype)
+    return (out, _lse(m_i, l_i, (b, h, sq))) if with_lse else out
 
 
 def flash_attention_segmented_ref(q, k, v, q_segs, kv_segs, *, causal=True,
-                                  window=0, softcap=0.0, scale=None):
+                                  window=0, softcap=0.0, scale=None,
+                                  with_lse=False):
     """Masked full softmax with segment ids. q: (B, H, Sq, d); k/v: (B, KV,
     Skv, d); q_segs/kv_segs: (B, Sq)/(B, Skv) int32 (-1 = pad). A key is
     visible when it is in the query's segment, the query is not a pad, and
@@ -101,4 +110,5 @@ def flash_attention_segmented_ref(q, k, v, q_segs, kv_segs, *, causal=True,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkrqc,bkcd->bkrqd", p, v.to(torch.float32))
     out = out / torch.clamp(l, min=1e-30)
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    out = out.reshape(b, h, sq, d).to(q.dtype)
+    return (out, _lse(m[..., 0], l[..., 0], (b, h, sq))) if with_lse else out

@@ -1,13 +1,16 @@
-"""Serving launcher: init -> MSB-quantize-on-load -> static serve.
+"""Serving launcher: init (or restore) -> MSB-quantize-on-load -> static
+serve.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
-        [--smoke] [--device cpu] [--bits 4] [--requests 4 --tokens 16]
+        [--smoke] [--device cpu] [--bits 4] [--ckpt-dir DIR] \
+        [--requests 4 --tokens 16]
 
-Port of ``repro.launch.serve``: random params from a seed, 4-bit block-64
-exact-DP quantization (unless ``--no-quant``), ``ServeEngine`` (packed
-execution) generating with temperature 0.8 from random prompts. Runs on the
-card unless ``--device cpu``. ``--ckpt-dir`` (restoring a checkpoint) needs
-the Checkpointer, which is ROADMAP item 12.
+Port of ``repro.launch.serve``: random params from a seed, or with
+``--ckpt-dir`` the ``params`` of the latest checkpoint there (the
+reference's format: one written by ``launch/train.py`` of either package),
+then 4-bit block-64 exact-DP quantization (unless ``--no-quant``), and
+``ServeEngine`` (packed execution) generating with temperature 0.8 from
+random prompts. Runs on the card unless ``--device cpu``.
 """
 import argparse
 
@@ -19,6 +22,7 @@ from ..core import QuantPolicy, param_bits, quantize_params
 from ..device import resolve_device
 from ..models import Model
 from ..serve import ServeEngine
+from ..train import Checkpointer
 
 
 def main(argv=None):
@@ -34,14 +38,17 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: the Checkpointer is ROADMAP item 12 (training)")
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    if args.ckpt_dir:
+        restored = Checkpointer(args.ckpt_dir).restore_latest(
+            like={"params": params})
+        if restored is not None:
+            params = restored[0]["params"]
+            print(f"[launch.serve] restored step {restored[1]}")
     if not args.no_quant:
         bits_before = param_bits(params)
         params, report = quantize_params(params, QuantPolicy(

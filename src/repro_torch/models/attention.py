@@ -51,17 +51,121 @@ from ..kernels.paged_attention.ref import quant_gather
 _NEG_INF = -2.0e38
 
 
+def _visible(q0, q1, k0, k1, causal, window, device):
+    """(q1 - q0, k1 - k0) bool: the keys each query may see (positions
+    from 0 on both sides), or None when the causal or window mask hides
+    the whole chunk pair."""
+    if causal and k0 > q1 - 1:
+        return None
+    if window > 0 and k1 - 1 <= q0 - window:
+        return None
+    qpos = torch.arange(q0, q1, device=device)[:, None]
+    kpos = torch.arange(k0, k1, device=device)[None, :]
+    m = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos <= qpos
+    if window > 0:
+        m &= kpos > qpos - window
+    return m
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
+                        softcap=0.0, scale=None, chunk=512):
+    """Gradients (dq, dk, dv) of attention, in head-major layout: q, out,
+    dout (B, H, Sq, d), k/v (B, KV, Skv, d), lse (B, H, Sq) f32 the
+    forward's per-row log-sum-exp. Port of the reference's ``_flash_bwd``
+    (``repro.models.attention``): the FlashAttention-2 recompute over
+    ``chunk`` x ``chunk`` query/key pairs, in f32, with ``delta = sum(dout
+    * out)``, GQA without a repeated K/V copy, the causal and window masks,
+    the softcap's ``1 - tanh^2`` factor, and any Sq and Skv (ragged edges
+    are masked where the reference pads, which adds exact zeros there).
+    Chunk pairs the mask hides wholly are skipped, and masked weights are
+    exactly 0. Plain torch on every device: the reference's backward is
+    jnp, not a Pallas kernel. Returns grads in the inputs' types."""
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    rep = h // kv
+    scale = float(scale if scale is not None else d ** -0.5)
+    f32 = torch.float32
+    qg = q.reshape(b, kv, rep, sq, d)
+    dog = dout.reshape(b, kv, rep, sq, d).to(f32)
+    delta = torch.sum(dog * out.reshape(b, kv, rep, sq, d).to(f32), dim=-1)
+    lseg = lse.reshape(b, kv, rep, sq)
+    dq = torch.zeros((b, kv, rep, sq, d), dtype=f32, device=q.device)
+    dk = torch.zeros((b, kv, skv, d), dtype=f32, device=q.device)
+    dv = torch.zeros((b, kv, skv, d), dtype=f32, device=q.device)
+    for q0 in range(0, sq, chunk):
+        q1 = min(q0 + chunk, sq)
+        qc = qg[:, :, :, q0:q1].to(f32)
+        doc = dog[:, :, :, q0:q1]
+        lsec = lseg[:, :, :, q0:q1, None]
+        deltac = delta[:, :, :, q0:q1, None]
+        for k0 in range(0, skv, chunk):
+            k1 = min(k0 + chunk, skv)
+            m = _visible(q0, q1, k0, k1, causal, window, q.device)
+            if m is None:
+                continue
+            kc = k[:, :, k0:k1].to(f32)
+            vc = v[:, :, k0:k1].to(f32)
+            s_raw = torch.einsum("bkrqd,bkcd->bkrqc", qc, kc) * scale
+            s = (softcap * torch.tanh(s_raw / softcap) if softcap > 0
+                 else s_raw)
+            p = torch.where(m, torch.exp(s - lsec), 0.0)
+            dp = torch.einsum("bkrqd,bkcd->bkrqc", doc, vc)
+            ds = p * (dp - deltac)
+            if softcap > 0:
+                ds = ds * (1.0 - torch.tanh(s_raw / softcap) ** 2)
+            dq[:, :, :, q0:q1] += scale * torch.einsum(
+                "bkrqc,bkcd->bkrqd", ds, kc)
+            dk[:, :, k0:k1] += scale * torch.einsum(
+                "bkrqc,bkrqd->bkcd", ds, qc)
+            dv[:, :, k0:k1] += torch.einsum("bkrqc,bkrqd->bkcd", p, doc)
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Kernel D (or its plain version on a CPU tensor) with the per-row
+    log-sum-exp saved, and ``flash_attention_bwd`` as its backward: the
+    reference's ``jax.custom_vjp`` pair ``_flash_fwd`` / ``_flash_bwd``.
+    Head-major (B, H, S, d) inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None):
     """Attention over a whole sequence. q: (B, Sq, H, d), k/v: (B, Skv, KV,
     d) -> (B, Sq, H, d), any Sq and Skv. Kernel D on a CUDA tensor (head-
     major strided views, no padding or transposed copy), its plain version
-    on a CPU tensor. The reference's ``q_offset`` (context parallelism,
-    ROADMAP item 11) is not taken, and neither are its chunk sizes: the
-    kernel tiles by 64 and masks the ragged edge itself."""
-    out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal,
-                              window=window, softcap=softcap, scale=scale)
+    on a CPU tensor. Where grad mode is on and q, k or v requires grad, it
+    runs under the autograd Function ``_Flash`` on either device (forward
+    with the log-sum-exp, backward ``flash_attention_bwd``); otherwise
+    (serving) it calls the forward alone, without the log-sum-exp. The
+    reference's ``q_offset`` (context parallelism, ROADMAP item 11) is not
+    taken, and neither are its chunk sizes: the kernel tiles by 64 and
+    masks the ragged edge itself."""
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = _Flash.apply(qh, kh, vh, causal, int(window), float(softcap),
+                           scale)
+    else:
+        out = flash_attention_fwd(qh, kh, vh, causal=causal, window=window,
+                                  softcap=softcap, scale=scale)
     return out.transpose(1, 2)
 
 

@@ -6,11 +6,13 @@ bias fused into it), ``attention_layer``'s static branches (whole-sequence
 flash attention for prefill and the loss, causal or not, self- or
 cross-attention; ring-buffer decode; cross-attention decode over the
 static encoder K/V) and its paged branches over kv16 and quantized
-(kv_bits 8|4) pools, and the forward of the chunked cross-entropy.
+(kv_bits 8|4) pools, and the chunked cross-entropy (rematerialized per
+chunk under autograd).
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.quantize import PackedQTensor, QTensor
 from ..kernels.msb_matmul.ops import packed_matmul
@@ -108,9 +110,10 @@ def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
                                  causal and xattn_kv is None,
                                  xattn_kv is None and cfg.use_rope)
     q_pos = paged["q_pos"]
-    safe_pos = torch.clamp(q_pos, min=0)
-    q = rope(q, safe_pos, cfg.rope_theta)
-    k = rope(k, safe_pos, cfg.rope_theta)
+    if cfg.use_rope:
+        safe_pos = torch.clamp(q_pos, min=0)
+        q = rope(q, safe_pos, cfg.rope_theta)
+        k = rope(k, safe_pos, cfg.rope_theta)
     seg_ids = paged.get("seg_ids")
     t = q.shape[1]
     kw = dict(window=window, softcap=softcap, scale=scale,
@@ -180,34 +183,60 @@ def mlp_layer(p, x):
     return dense(gate * up, p["wo"])
 
 
+def grad_on(*tensors):
+    """Whether autograd records through these tensors (grad mode on and
+    one of them requires grad): where remat pays."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors if isinstance(t, torch.Tensor))
+
+
+def remat(fn, *args, on=True):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``on``: its
+    activations are recomputed in the backward instead of kept, as the
+    reference's ``jax.checkpoint`` does; the numbers do not change."""
+    if not on:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _chunk_xent(hc, w, lc, mc, softcap, keep, z_loss):
+    logits = hc.to(torch.float32) @ w.t()
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    if keep is not None:
+        logits = torch.where(keep, logits,
+                             torch.tensor(-1e30, device=logits.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    return torch.sum((lse - gold) * mc + z_loss * lse ** 2 * mc)
+
+
 def chunked_softmax_xent(hidden, unembed_vd, labels, mask, chunk=512,
                          softcap=0.0, z_loss=1e-4, vocab_real=None):
-    """Mean cross-entropy (plus the z-loss) over masked positions, forward
-    only, one chunk of positions at a time so the (B, S, V) logits never
-    exist whole. hidden (B, S, D), labels/mask (B, S), unembed_vd
-    (V_padded, D); padded vocab rows are masked to -1e30."""
+    """Mean cross-entropy (plus the z-loss) over masked positions, one
+    chunk of positions at a time so the (B, S, V) logits never exist
+    whole. Differentiable: under autograd each chunk is rematerialized
+    (the reference's ``@jax.checkpoint`` ``chunk_loss``), so the backward
+    holds one chunk's f32 logits at a time. hidden (B, S, D), labels/mask
+    (B, S), unembed_vd (V_padded, D); padded vocab rows are masked to
+    -1e30."""
     s = hidden.shape[1]
     vp = unembed_vd.shape[0]
     c = min(chunk, s)
     while s % c:
         c -= 1
     w = unembed_vd.to(torch.float32)
+    on = grad_on(hidden, w)
     keep = None
     if vocab_real is not None and vocab_real < vp:
         keep = torch.arange(vp, device=hidden.device) < vocab_real
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, c):
-        logits = hidden[:, i:i + c].to(torch.float32) @ w.t()
-        if softcap > 0:
-            logits = softcap * torch.tanh(logits / softcap)
-        if keep is not None:
-            logits = torch.where(keep, logits,
-                                 torch.tensor(-1e30, device=logits.device))
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, i:i + c, None].to(torch.int64))[..., 0]
         mc = mask[:, i:i + c].to(torch.float32)
-        tot = tot + torch.sum((lse - gold) * mc + z_loss * lse ** 2 * mc)
+        tot = tot + remat(_chunk_xent, hidden[:, i:i + c], w,
+                          labels[:, i:i + c].to(torch.int64), mc, softcap,
+                          keep, z_loss, on=on)
         cnt = cnt + torch.sum(mc)
     return tot / torch.clamp(cnt, min=1.0)

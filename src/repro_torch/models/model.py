@@ -1,17 +1,20 @@
-"""Top-level Model API: the loss forward, static prefill and ring decode,
-and paged serving.
+"""Top-level Model API: the loss (and its gradients), static prefill and
+ring decode, and paged serving.
 
 Port of ``repro.models.model`` for all ten architectures: embedding and
 logits; the frontends (internvl's patch embeddings before the tokens,
 whisper's audio frames through its encoder); sinusoidal positions where
-there is no RoPE (jamba; whisper's two stacks); ``loss`` (forward only,
-with the router's load-balancing loss), ``prefill`` and ``decode_step``
+there is no RoPE (jamba; whisper's two stacks); ``loss`` (with the
+router's load-balancing loss; differentiable for training), ``prefill``
+and ``decode_step``
 over a cache (``cache_defs``/``init_cache``: attention rings, mamba and
 xLSTM state, whisper's static cross-attention K/V) for the static
 engine; paged K/V pools (kv16, or MSB-quantized at kv_bits 8|4), one
 paged step (decode or chunked prefill), packed ragged prefill, and the
 decode horizon with on-device greedy sampling for the continuous engine,
-for the stacks the reference serves paged (``supports_paged``).
+for the stacks the reference serves paged (``supports_paged``; a stack
+without RoPE gets the reference's sinusoidal positions there, computed
+on the device from ``q_pos`` so a captured graph holds them).
 """
 from __future__ import annotations
 
@@ -153,9 +156,12 @@ class Model:
         adds "patch_embeds" (B, P, D) before the tokens (S' = P + S),
         whisper "frames" (B, S_enc, D) for its encoder}, plus
         ``router_aux_weight`` times the router's load-balancing loss summed
-        over MoE layers. Forward only: training (gradients, ROADMAP item
-        12) is not ported. Returns (loss, {"ce", "router_aux"});
-        ``router_aux`` is 0 without MoE."""
+        over MoE layers. Returns (loss, {"ce", "router_aux"});
+        ``router_aux`` is 0 without MoE. Differentiable: with params that
+        require grad, ``loss.backward()`` gives every leaf its gradient
+        (kernel D under its autograd Function, the stack and each CE chunk
+        rematerialized; a tied table gets the sum of its embedding and
+        unembedding uses), as ``jax.grad`` of the reference's ``loss``."""
         cfg = self.cfg
         enc_out = self._encoder(params, batch) if cfg.is_encdec else None
         x = self._assemble_inputs(params, batch)
@@ -331,6 +337,9 @@ class Model:
         row) address the hot rows and are required when kv_bits < 16."""
         cfg = self.cfg
         x = self._embed(params, torch.clamp(tokens, min=0))
+        if not cfg.use_rope:
+            x = x + _sinusoid(torch.clamp(q_pos, min=0),
+                              cfg.d_model).to(cfg.dtype)
         paged = _quant_paged({"block_tables": block_tables, "q_pos": q_pos,
                               "kv_lens": kv_lens}, kv_bits, slots)
         x, layer_pools, _ = forward_stack(params["dec"], x, cfg,
@@ -355,6 +364,9 @@ class Model:
         in place."""
         cfg = self.cfg
         x = self._embed(params, torch.clamp(tokens, min=0)[None])
+        if not cfg.use_rope:
+            x = x + _sinusoid(torch.clamp(q_pos, min=0)[None],
+                              cfg.d_model).to(cfg.dtype)
         paged = _quant_paged({"block_tables": block_tables,
                               "q_pos": q_pos[None], "kv_lens": kv_lens,
                               "seg_ids": seg_ids[None]}, kv_bits, slots,

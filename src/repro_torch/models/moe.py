@@ -20,6 +20,12 @@ under ``lax.cond(count > 0)``; an expert with no routed token reads no
 weight and gives exactly 0, decided on the device from ``counts``.
 Tensor/expert parallelism (the reference's ``_moe_tp`` and the EP
 ``shard_map`` path) is ROADMAP item 11.
+
+Gradients run through routing as the reference's: the gates and the
+load-balancing loss (through the router's softmax) carry them; top-k
+indices, positions and the dispatch slots do not. The dispatch writes
+into a fresh buffer (``index_put``, whose backward gathers), and dense
+experts rematerialize their capacity chunks under autograd.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from ..core.quantize import PackedQTensor, QTensor
 from ..kernels.msb_matmul.ops import packed_matmul_experts
+from .layers import grad_on, remat
 
 
 def _capacity(tokens, k, e_total, cf):
@@ -90,12 +97,27 @@ def _silu_gate(g, u, dtype):
     return torch.nn.functional.silu(g.to(torch.float32)).to(dtype) * u
 
 
-def _expert_ffn(xe, wg, wi, wo):
-    """Dense expert weights: xe (E, C, D); wg/wi (E, D, F), wo (E, F, D)."""
-    g = torch.einsum("ecd,edf->ecf", xe, wg.to(xe.dtype))
-    u = torch.einsum("ecd,edf->ecf", xe, wi.to(xe.dtype))
-    return torch.einsum("ecf,efd->ecd", _silu_gate(g, u, xe.dtype),
-                        wo.to(xe.dtype))
+def _expert_chunk(xc, wg, wi, wo):
+    g = torch.einsum("ecd,edf->ecf", xc, wg.to(xc.dtype))
+    u = torch.einsum("ecd,edf->ecf", xc, wi.to(xc.dtype))
+    return torch.einsum("ecf,efd->ecd", _silu_gate(g, u, xc.dtype),
+                        wo.to(xc.dtype))
+
+
+def _expert_ffn(xe, wg, wi, wo, chunk=2048):
+    """Dense expert weights: xe (E, C, D); wg/wi (E, D, F), wo (E, F, D).
+    Under autograd, chunks of ``chunk`` capacity slots (shrunk until it
+    divides C) are each rematerialized, so the (E, C, F) hidden
+    activations are never kept whole: the reference's checkpointed
+    capacity chunks."""
+    if not grad_on(xe, wg, wi, wo):
+        return _expert_chunk(xe, wg, wi, wo)
+    c = xe.shape[1]
+    ck = min(chunk, c)
+    while c % ck:
+        ck -= 1
+    return torch.cat([remat(_expert_chunk, xe[:, i:i + ck], wg, wi, wo)
+                      for i in range(0, c, ck)], dim=1)
 
 
 def _expert_ffn_quantized(xe, wg, wi, wo, counts):

@@ -4,6 +4,8 @@ Port of ``repro.models.ssm``. Prefill and the loss run the chunked
 sequential scan (``ck`` steps of the (B, ck, C, N) discretized tensors at
 a time, ``ck`` shrunk until it divides S, as the reference chooses it);
 decode carries {conv, ssm} state and runs the single-step recurrence.
+Under autograd each scan chunk is rematerialized, as the reference's
+checkpointed chunk body.
 The recurrence is plain PyTorch on every device: in the reference it is a
 ``lax.scan`` over jnp ops, not a Pallas kernel (ROADMAP §2 notes a fused
 selective-scan kernel as possible work). Projections go through ``dense``
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import dense
+from .layers import dense, grad_on, remat
 
 
 def _causal_conv1d(x, w, state=None):
@@ -55,13 +57,27 @@ def _ssm_scan(delta_a, delta_bx, h0=None):
 
 def _ssm_scan_seq(delta_a, delta_bx, h0):
     """The sequential recurrence over one chunk's steps: (B, ck, C, N)
-    inputs, h0 (B, C, N). Returns (h at every step, h at the last)."""
-    hs = torch.empty_like(delta_bx)
+    inputs, h0 (B, C, N). Returns (h at every step, h at the last); no
+    in-place write, so autograd runs through it."""
+    hs = []
     h = h0
     for t in range(delta_a.shape[1]):
         h = delta_a[:, t] * h + delta_bx[:, t]
-        hs[:, t] = h
-    return hs, h
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def _scan_chunk(h, dtc, xic, bc, cc, a, dtype):
+    """One chunk of the selective scan from state ``h``: the discretized
+    (B, ck, C, N) tensors, the recurrence and the chunk's output in
+    ``dtype``. Returns (h at the chunk's end, y (B, ck, C))."""
+    dtf = dtc.to(torch.float32)
+    delta_a = torch.exp(dtf[..., None] * a[None, None])
+    delta_bx = (dtf * xic.to(torch.float32))[..., None] \
+        * bc.to(torch.float32)[:, :, None, :]
+    hs, h = _ssm_scan_seq(delta_a, delta_bx, h)
+    yc = torch.einsum("bscn,bsn->bsc", hs, cc.to(torch.float32))
+    return h, yc.to(dtype)
 
 
 def _chunk(s, chunk):
@@ -98,23 +114,20 @@ def mamba_layer(p, x, cfg, cache=None):
     else:
         # one chunk of the discretized (B, ck, C, N) tensors at a time;
         # dt, the chunk outputs and the inputs pass through cfg.dtype, as
-        # the reference streams them
+        # the reference streams them; under autograd each chunk is
+        # rematerialized, as the reference's checkpointed chunk body
         h_last = (cache["ssm"] if cache is not None else
                   torch.zeros((b, xi.shape[-1], n), dtype=f32,
                               device=x.device))
         ck = _chunk(s, cfg.mamba_chunk)
         dt_c = dt.to(cfg.dtype)
+        on = grad_on(dt_c, xi, bmat, cmat, a)
         ys = []
         for i in range(0, s, ck):
-            dtf = dt_c[:, i:i + ck].to(f32)
-            delta_a = torch.exp(dtf[..., None] * a[None, None])
-            delta_bx = (dtf * xi[:, i:i + ck].to(f32))[..., None] \
-                * bmat[:, i:i + ck].to(f32)[:, :, None, :]
-            hs, h_last = _ssm_scan_seq(delta_a, delta_bx, h_last)
-            yc = torch.einsum("bscn,bsn->bsc", hs,
-                              cmat[:, i:i + ck].to(f32))
-            ys.append(yc.to(cfg.dtype))
-            del delta_a, delta_bx, hs
+            h_last, yc = remat(_scan_chunk, h_last, dt_c[:, i:i + ck],
+                               xi[:, i:i + ck], bmat[:, i:i + ck],
+                               cmat[:, i:i + ck], a, cfg.dtype, on=on)
+            ys.append(yc)
         y = torch.cat(ys, dim=1).to(f32)
 
     y = y + p["d_skip"].to(f32)[None, None] * xi.to(f32)

@@ -21,7 +21,7 @@ import torch
 from ..core.quantize import map_tensors
 from ..device import resolve_device
 from . import ssm, xlstm
-from .layers import attention_layer, mlp_layer, rms_norm
+from .layers import attention_layer, grad_on, mlp_layer, remat, rms_norm
 from .moe import _capacity, moe_layer
 
 
@@ -65,17 +65,10 @@ def supports_paged(cfg):
 
 def _require_attention_stack(cfg):
     """The paged path (pools and paged steps) refuses what the reference
-    refuses: a stack with per-sequence state or a frontend. It also
-    refuses an attention stack without RoPE (no arch in ``archs.py``):
-    the reference's paged steps add sinusoidal positions there, the
-    port's apply RoPE only."""
+    refuses: a stack with per-sequence state or a frontend."""
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: not a paged-servable arch (ssm/"
                          "xlstm/enc-dec caches are not paged)")
-    if not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's paged steps apply RoPE; a paged stack "
-            "without it (sinusoidal positions) is not ported")
 
 
 def _attn_defs(cfg, prefix, cross=False):
@@ -323,7 +316,7 @@ def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
     without MoE). ``enc_out`` (B, S_enc, D): the encoder's output, which
     the decoder's cross-attention reads in prefill and the loss.
 
-    * loss: ``positions`` only; returns (x, None, aux).
+    * loss: ``positions`` only (``_loss_stack``); returns (x, None, aux).
     * prefill: ``collect_cache=True``; returns each slot's cache stacked
       over periods: attention's roped {"k", "v"} (n_periods, B, S, KV, d),
       mamba's {"conv", "ssm"} and sLSTM / mLSTM state after the last
@@ -337,12 +330,22 @@ def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
       layer writes its slice of the stacked pools in place.
 
     Each layer's window is a Python int from ``_window_array``: constant
-    per layer, so a captured CUDA graph holds it as it holds a shape."""
+    per layer, so a captured CUDA graph holds it as it holds a shape.
+
+    The loss runs ``_loss_stack``; under autograd (grad mode on and the
+    params or ``x`` requiring grad) with ``cfg.remat``, each period is
+    rematerialized there, and with more than one block a period each
+    block in it too: the reference's nested ``nothing_saveable``
+    checkpoints. Serving paths never remat."""
     if paged is not None:
         _require_attention_stack(cfg)
     plan = layer_plan(cfg, stack)
     wins = _window_array(cfg, stack)
     cross = cfg.is_encdec and stack == "dec"
+    if cache is None and not collect_cache:
+        return _loss_stack(params_stack, x, cfg, plan, wins, cross, stack,
+                           positions, enc_out, cfg.remat and grad_on(
+                               x, enc_out, *_leaf_tensors(params_stack)))
     mean_pads = paged is not None and _pads_reach_tokens(
         cfg, plan, x.shape[0] * x.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -369,3 +372,42 @@ def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
     if collect_cache:
         cache = {name: _stack_caches(cs) for name, cs in collected.items()}
     return x, cache, aux
+
+
+def _leaf_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaf_tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _loss_stack(params_stack, x, cfg, plan, wins, cross, stack, positions,
+                enc_out, on):
+    """The loss forward of ``forward_stack``, with each period (and, for a
+    period of several blocks, each block) under ``remat`` when ``on``.
+    Returns (x, None, aux)."""
+    nested = on and len(plan) > 1
+
+    def block(x_, period, slot):
+        mixer, ffn = plan[slot]
+        lp = map_tensors(lambda t: t[period], params_stack[f"s{slot}"])
+        y, _, a = _block(x_, lp, cfg, mixer, ffn, window=wins[period][slot],
+                         positions=positions, cur_pos=None, cache=None,
+                         enc_out=enc_out, cross=cross, decode_positions=None,
+                         paged=None)
+        return y, (torch.zeros((), dtype=torch.float32, device=y.device)
+                   if a is None else a)
+
+    def period_fn(x_, period):
+        aux_p = torch.zeros((), dtype=torch.float32, device=x_.device)
+        for slot in range(len(plan)):
+            x_, a = remat(block, x_, period, slot, on=nested)
+            aux_p = aux_p + a
+        return x_, aux_p
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for period in range(n_periods(cfg, stack)):
+        x, a = remat(period_fn, x, period, on=on)
+        aux = aux + a
+    return x, None, aux

@@ -4,7 +4,7 @@ Port of ``repro.models.xlstm``: both blocks are their exact stabilized
 recurrences, a step per position. The reference runs them as a
 ``lax.scan`` of checkpointed chunk scans (``_chunked_time_scan``); the
 chunking bounds its saved residuals and changes no number, so its port is
-a plain loop over time. The recurrences are plain PyTorch on every
+a plain loop over time, chunked and rematerialized under autograd only. The recurrences are plain PyTorch on every
 device: in the reference they are jnp ops, not Pallas kernels (ROADMAP §2
 notes an mLSTM kernel as possible work). The state is small: no KV cache,
 O(H * dh^2) a layer.
@@ -17,19 +17,37 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import dense
+from .layers import dense, grad_on, remat
 
 _M0 = -1e30                   # the stabilizer's initial value
 
 
-def _time_scan(step, state, xs):
-    """``step(state, inputs_t) -> (state, y_t)`` over the leading (time)
-    axis of each of ``xs``. Returns (state, ys stacked on dim 0)."""
+def _scan_steps(step, state, xs):
     ys = []
     for t in range(xs[0].shape[0]):
         state, y = step(state, tuple(x[t] for x in xs))
         ys.append(y)
     return state, torch.stack(ys)
+
+
+def _time_scan(step, state, xs, chunk=256):
+    """``step(state, inputs_t) -> (state, y_t)`` over the leading (time)
+    axis of each of ``xs``. Returns (state, ys stacked on dim 0). Under
+    autograd the time axis runs in chunks of ``chunk`` steps (shrunk until
+    it divides S), each rematerialized, so the backward keeps per-chunk
+    states only: the reference's ``_chunked_time_scan``."""
+    s = xs[0].shape[0]
+    if not grad_on(*xs, *state):
+        return _scan_steps(step, state, xs)
+    ck = min(chunk, s)
+    while s % ck:
+        ck -= 1
+    ys = []
+    for t0 in range(0, s, ck):
+        state, y = remat(lambda st, *xc: _scan_steps(step, st, xc), state,
+                         *(x[t0:t0 + ck] for x in xs))
+        ys.append(y)
+    return state, torch.cat(ys)
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,15 @@
-"""Training utilities of the port (so far the fault-tolerance helpers the
-serving supervisor and server use)."""
+"""Training of the port on one device (port of ``repro.train``): AdamW
+with f32 or int8 moments, the train step and loop, checkpoints in the
+reference's format, error-feedback gradient compression, and the
+fault-tolerance helpers the loop and the serving supervisor use."""
+from .optim import (AdamW, OptConfig, clip_by_global_norm, global_norm,
+                    lr_schedule)
+from .train_loop import init_state, make_train_step, state_axes, train_loop
+from .checkpoint import Checkpointer
+from .fault import PreemptionHandler, StragglerMonitor
+from . import compression
+
+__all__ = ["AdamW", "Checkpointer", "OptConfig", "PreemptionHandler",
+           "StragglerMonitor", "clip_by_global_norm", "compression",
+           "global_norm", "init_state", "lr_schedule", "make_train_step",
+           "state_axes", "train_loop"]

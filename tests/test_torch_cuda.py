@@ -1098,3 +1098,75 @@ def test_family_engines_warm_and_match_the_cpu(cuda, arch, bits):
         eng.close()
     for rid in outs["cpu"]:
         np.testing.assert_array_equal(outs["cuda"][rid], outs["cpu"][rid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernel_lse(cuda, case, dtype):
+    """Kernel D's per-row log-sum-exp against its plain version's (1e-5
+    f32, 1e-3 absolute from bf16 inputs), and the output bitwise the same
+    with and without it."""
+    causal, window, softcap, h, kv, sq, skv, d = FLASH_CASES[case]
+    rng = np.random.default_rng(23)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+        for shape in ((2, h, sq, d), (2, kv, skv, d), (2, kv, skv, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    lse = torch.empty((2, h, sq), device=cuda)
+    out = fa_ops.flash_attention_fwd(q, k, v, lse=lse, **kw)
+    assert torch.equal(out, fa_ops.flash_attention_fwd(q, k, v, **kw))
+    _, lse_ref = fa_ref.flash_attention_ref(q, k, v, with_lse=True, **kw)
+    tol = 1e-5 * lse_ref.abs().max().item() if dtype == torch.float32 \
+        else 1e-3
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_grads_on_the_card(cuda, case, dtype):
+    """Gradients through ``models.attention.flash_attention`` (kernel D
+    under its autograd Function) against autograd through the plain
+    version on the same inputs: dq/dk/dv within 1e-4 (f32) or 2e-2 (bf16)
+    of each tensor's largest |value|, and none missing or all zero."""
+    from repro_torch.models.attention import flash_attention
+    causal, window, softcap, h, kv, sq, skv, d = FLASH_CASES[case]
+    rng = np.random.default_rng(24)
+
+    def leaf(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=cuda, dtype=dtype).requires_grad_(True)
+
+    q, k, v = leaf((2, sq, h, d)), leaf((2, skv, kv, d)), leaf((2, skv, kv,
+                                                                d))
+    dout = torch.randn(2, sq, h, d, device=cuda, dtype=dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa_ops.flash_attention_fwd.launches
+    flash_attention(q, k, v, **kw).backward(dout)
+    assert fa_ops.flash_attention_fwd.launches == before + 1
+    got = [t.grad for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    fa_ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), **kw).transpose(
+        1, 2).backward(dout)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, t in zip(got, (q, k, v)):
+        assert g is not None and g.abs().max().item() > 0
+        want = t.grad.float()
+        err = (g.float() - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_flash_attention_raw_launch_refuses_grad(cuda):
+    """The raw launch would drop the gradient: it refuses q, k or v that
+    require grad while grad mode is on, and runs under ``no_grad``."""
+    q = torch.randn(1, 2, 8, 16, device=cuda, requires_grad=True)
+    k = torch.randn(1, 1, 8, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_ops.flash_attention_fwd(q, k, k)
+    with torch.no_grad():
+        out = fa_ops.flash_attention_fwd(q, k, k)
+    assert out.grad_fn is None

@@ -19,6 +19,7 @@ from repro_torch.kernels.msb_matmul import ops as mm_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import Model
 from repro_torch.serve import ContinuousEngine, ServeEngine
+from repro_torch.train import AdamW, OptConfig, init_state
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -53,7 +54,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 def test_port_imports_with_jax_blocked():
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = "
             "None\nimport repro_torch.serve, repro_torch.convert, "
-            "repro_torch.core, repro_torch.kernels._build\nprint('ok')")
+            "repro_torch.core, repro_torch.kernels._build, "
+            "repro_torch.train, repro_torch.data, "
+            "repro_torch.launch.train\nprint('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
@@ -76,6 +79,8 @@ ENTRY_POINTS = {
     "ContinuousEngine": lambda: ContinuousEngine(_tiny(), {}),
     "Model.init_cache": lambda: _tiny().init_cache(1, 4),
     "ServeEngine": lambda: ServeEngine(_tiny(), {}, max_seq=8),
+    "init_state": lambda: init_state(_tiny(), AdamW(OptConfig()),
+                                     torch.Generator()),
 }
 
 

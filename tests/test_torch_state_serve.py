@@ -16,7 +16,6 @@ against the JAX package on fp32 smoke configs:
   and internvl where the reference's fails (no frames / patch
   embeddings)."""
 import contextlib
-import dataclasses
 import io
 
 import jax
@@ -153,18 +152,6 @@ def test_paged_path_refuses_state_stacks(arch):
                        "decoder-only attention stack"):
         ContinuousEngine(tm, {}, device="cpu")
     with pytest.raises(ValueError, match="not a paged-servable arch"):
-        tm.init_paged_pools(4, 4, device="cpu")
-
-
-def test_paged_path_refuses_attention_stack_without_rope():
-    """A decoder-only attention stack without RoPE passes the reference's
-    ``supports_paged`` (no arch of ``archs.py`` is one), but the port's
-    paged steps would give it no position signal where the reference's
-    add sinusoids: its pools refuse it."""
-    tm = TModel(dataclasses.replace(t_smoke("internlm2-1.8b"),
-                                    use_rope=False))
-    assert tm.supports_paged()
-    with pytest.raises(NotImplementedError, match="without it"):
         tm.init_paged_pools(4, 4, device="cpu")
 
 

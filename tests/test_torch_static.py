@@ -221,15 +221,19 @@ def test_param_bits_matches_reference(setup):
         assert param_bits(from_reference(tree, "cpu")) == j_param_bits(tree)
 
 
-def test_launch_serve_smoke_on_cpu():
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           "--requests", "2", "--tokens", "4"])
-    lines = buf.getvalue().splitlines()
-    assert lines[0].startswith("[launch.serve] MSB-4b quantized")
-    assert [ln.split(":")[0] for ln in lines[1:]] == [
-        "[launch.serve] request 0", "[launch.serve] request 1"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           "--ckpt-dir", "ckpt"])
+def test_launch_serve_smoke_on_cpu(tmp_path):
+    """The launcher serves random params, and with ``--ckpt-dir`` naming a
+    directory that holds no checkpoint it serves the same ones, as the
+    reference's does (restoring a step: ``tests/test_torch_train.py``)."""
+    outs = []
+    for extra in ([], ["--ckpt-dir", str(tmp_path / "ckpt")]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                               "--requests", "2", "--tokens", "4"] + extra)
+        lines = buf.getvalue().splitlines()
+        assert lines[0].startswith("[launch.serve] MSB-4b quantized")
+        assert [ln.split(":")[0] for ln in lines[1:]] == [
+            "[launch.serve] request 0", "[launch.serve] request 1"]
+        outs.append(lines)
+    assert outs[0] == outs[1]
