@@ -17,8 +17,12 @@ one line each (details indented), any failure exits non-zero:
    4096; jamba's dt_proj (K=256) at M = 8 and 2048; its expert batch at
    granite-moe's shapes (48 experts, C = 8 and 112, counts with zeros)
    and jamba's (16 experts, 4096 x 14336 both ways, C = 8), every expert
-   bit-identical to msb_matmul on it alone; the unembedding's kernel
-   (``msb_unembed``) at internlm2's and jamba's k-blocked tables and
+   bit-identical to msb_matmul on it alone; internlm2's projections as
+   one rank of a tp = 2 mesh holds them (k/v N 512, attention wo K 1024,
+   gate/up N 4096, the MLP's wo K 4096) at M = 1, 8 and 512, rows at 1, 8
+   and 17 bitwise those at 512; the unembedding's kernel
+   (``msb_unembed``) at internlm2's (whole, and one rank's half at
+   tp = 2) and jamba's k-blocked tables and
    gemma2's and qwen1.5-0.5b's tied tables at M = 1,
    8 and 64, with its plain version, ``torch.matmul`` on the
    pre-dequantized f32 table and its bound; rows at M = 1 and 8
@@ -26,10 +30,12 @@ one line each (details indented), any failure exits non-zero:
 4. paged_attention_decode (split-KV) vs its plain version on full-width
    bf16 pools and at a 512-token packed-prefill wave, and with gemma2's
    sliding window (d=256, KV=4, softcap 50, rows to 8192 keys, windows
-   4096 and 4100); every row bit-identical alone and in the batch
-5. paged_attention_decode_quant (split-KV) vs its plain version on
-   full-width 8- and 4-bit quantized pools, with and without the window;
+   4096 and 4100), and at one tp = 2 rank's 8 heads over 4 KV heads;
    every row bit-identical alone and in the batch
+5. paged_attention_decode_quant (split-KV) vs its plain version on
+   full-width 8- and 4-bit quantized pools, with and without the window,
+   and at kv4 on one tp = 2 rank's heads; every row bit-identical alone
+   and in the batch
 6. flash_attention_fwd vs its plain version at the static path's prefill
    shape and at long, ragged, windowed + softcapped, segmented (bf16: the
    tensor-core kernel), f32 (the SIMT kernel), gemma2's (head_dim 256,
@@ -72,24 +78,26 @@ one line each (details indented), any failure exits non-zero:
    ended on a page boundary or at the prompt's end in both runs; after the
    hang, up to near ties), /metrics shows no capture after warm-up but the
    re-warm's, clean shutdown with a page audit
-12. quantizer — full-width internlm2-1.8b (random bf16 weights, seed 0)
-   quantized on the card by MSB 4b/64 with dp, kmeans, wdp, dp + refine
+12. quantizer — full-width internlm2-1.8b cut to ``QUANT_LAYERS`` of its
+   24 layers (random bf16 weights, seed 0) quantized on the card by MSB
+   4b/64 with dp, kmeans, wdp, dp + refine
    and dp + double quantization (each packed: kernel A in ``score``), MSB
    6-bit per-tensor with wdp and kmeans (served unpacked), and the RTN,
    NF4, HQQ 4b/64 and RTN 6-bit per-tensor baselines (dense trees); per
    method: quantize seconds and peak memory, relative reconstruction
    error, bits per weight, ``ServeEngine.score`` NLL on (8, 513) tokens
    and its gap to the unquantized model, the next-token logit gap, and
-   the launch counters of that ``score`` (kernel D 24 times; kernel A on
-   packed trees only). The error order must hold (DP at or below kmeans,
+   the launch counters of that ``score`` (kernel D once a layer; kernel A
+   on packed trees only). The error order must hold (DP at or below kmeans,
    DP+DQ, RTN, NF4 and HQQ; wdp and refine equal to DP within 1e-6;
    per-tensor wdp below per-tensor RTN). The card's solvers are held
    against their CPU run on 4096 blocks of layer 0's ``wq`` (dp, kmeans,
    wdp) and on the whole matrix per tensor; the paper's numpy solvers run
    on 256 of those blocks on the host (none may beat DP); GPTQ runs once
    on one full-width matrix
-13. families — gemma2-2b and granite-moe-3b-a800m at full width (random
-   weights, seed 0; 4b/64 DP on the card, packed), each freed before the
+13. families — gemma2-2b and granite-moe-3b-a800m at full width, cut to
+   ``FAMILY_LAYERS`` layers (random weights, seed 0; 4b/64 DP on the
+   card, packed), each freed before the
    next: gemma2 through ContinuousEngine at kv16 and kv4 (one request of
    4500 tokens, past its 4096-token window) and ServeEngine on 2 x 4608
    tokens (kernel D with the window) then score; granite-moe at kv16
@@ -128,6 +136,19 @@ one line each (details indented), any failure exits non-zero:
    against two uninterrupted runs; (d) ``launch.train --smoke --steps
    30`` ends below its first loss and ``launch.serve --ckpt-dir``
    restores its last step
+16. tp — run after phase 11, on phase 7's packed weights: a
+   tensor-parallel mesh of two ranks on the one card
+   (``make_tp_mesh(2, devices=["cuda:0", "cuda:0"])``: a worker process,
+   gloo collectives staged through the host, every dispatch eager);
+   internlm2-1.8b through ContinuousEngine at kv16 and kv4, H=8 and H=1
+   (warm-up reports 0 graphs), tokens against phases 7-8's tp = 1 runs
+   (identical, or first divergence at a top-2 gap < 1e-2), each rank's A,
+   unembedding and B (kv16) or C (kv4) launched; ServeEngine generate and
+   score of phase 9's inputs with exactly 24 D launches a prefill on each
+   rank, tokens against phase 9's, NLL within 1e-3 relative;
+   granite-moe-3b-a800m cut to 4 layers, its heads and 48 experts
+   sharded (24 a rank), each rank's expert batch launched, tokens
+   against its tp = 1 run; eager step times and each rank's peak memory
 
 Windowed B/C cases (phases 4-5) and D at d=256 and without the causal
 mask (phase 6) also hold every output row within ``ROW_REL_TOL`` of its
@@ -141,8 +162,9 @@ gemma2's tied table, M=8; B and C without and, at kv16 and kv4, with the
 window; D at the static prefill, at gemma2's windowed d=256 prefill,
 at whisper's encoder and cross-attention, and with its lse at
 internlm2's train shape, launched by phase 15's full-width run, the row
-also carrying the backward's and SDPA forward+backward's times); the
-last line
+also carrying the backward's and SDPA forward+backward's times; and the
+tp = 2 rows: A at internlm2's five shard shapes, the unembedding on a
+rank's half of the table, B and C kv4 at a rank's heads); the last line
 is ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
 stream is timed cold (L2 flushed before every launch), as decode meets it.
 Phases 3-6 report the median of 20 launches (the mean beside it) for the
@@ -316,6 +338,10 @@ def phase_msb_matmul(torch, timer, device):
               ((768, 3072), (768, 768))]
     cases += [(k, n, False, bf16, (2, 2176)) for k, n in
               ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192))]
+    # internlm2-1.8b's projections as one rank of a tp = 2 mesh holds them
+    # (phase 16): k/v N 512, attention wo K 1024, gate/up N 4096, the MLP's
+    # wo K 4096 (q's 2048 x 1024 is above), decode, packed-prefill M
+    cases += [(k, n, False, bf16, TP2_M) for k, n in TP2_SHAPES[1:]]
     biased = {(2048, 1024, 8), (1024, 1024, 8)}
     rows, worst = [], 0.0
     for k, n, kb, xdt, ms_ in cases:
@@ -335,12 +361,14 @@ def phase_msb_matmul(torch, timer, device):
                 fail(f"msb_matmul M={m} K={k} N={n} kblocked={kb}: max err "
                      f"{err} > {tol}")
             worst = max(worst, err / max(scale, 1e-30))
-            if m == 4096:
+            if m == 4096 or (ms_ == TP2_M and m == 512):
                 for mm in (1, 8, 17, 512):
+                    if mm >= m:
+                        continue
                     alone = ops.msb_matmul(x[:mm].contiguous(), packed, scales)
                     if not torch.equal(alone, y[:mm]):
                         fail(f"msb_matmul K={k} N={n}: rows at M={mm} differ "
-                             "from the same rows at M=4096")
+                             f"from the same rows at M={m}")
             ms, ms_mean = timer.stats(lambda: ops.msb_matmul(
                 x, packed, scales, bias, kblocked=kb))
             plain = timer(lambda: ref.msb_matmul_ref(x, packed, scales, bias,
@@ -365,16 +393,24 @@ def phase_msb_matmul(torch, timer, device):
     rows += msb_matmul_experts_cases(torch, timer, device, gen)
     log(f"[msb_matmul] {len(rows)} shapes agree with the plain version "
         f"(worst err/max|ref| {worst:.3g}); rows at M = 1, 8, 17, 512 "
-        "bit-identical to the same rows at M=4096; every expert of the "
-        "expert batch bit-identical to msb_matmul on it alone")
+        "bit-identical to the same rows at M=4096 (at the tp = 2 shard "
+        "shapes rows at M = 1, 8, 17 to those at M=512); every expert of "
+        "the expert batch bit-identical to msb_matmul on it alone")
     return rows
 
+
+# internlm2-1.8b's projections at tp = 2, (K, N) of one rank's slice: q,
+# k/v, attention wo, gate/up, the MLP's wo; and the M they are checked at
+TP2_SHAPES = [(2048, 1024), (2048, 512), (1024, 2048), (2048, 4096),
+              (4096, 2048)]
+TP2_M = (1, 8, 512)
 
 # the unembedding's tables: (name, V, D, k-blocked, table dtype) —
 # internlm2-1.8b's, jamba-v0.1-52b's and internvl2-76b's untied tables,
 # gemma2-2b's, qwen1.5-0.5b's, xlstm-125m's and whisper-large-v3's tied
-# ones
+# ones, and one rank's half of internlm2's at tp = 2 (92672 / 2 columns)
 UNEMBED_TABLES = [("internlm2", 92672, 2048, True, "float32"),
+                  ("internlm2_tp2", 46336, 2048, True, "float32"),
                   ("jamba", 65536, 4096, True, "float32"),
                   ("internvl", 128256, 8192, True, "float32"),
                   ("gemma2", 256000, 2304, False, "bfloat16"),
@@ -564,11 +600,15 @@ def phase_paged_attention(torch, timer, device):
     wave kv16 prefill launches. Kernel and SDPA: medians of 20."""
     from repro_torch.kernels.paged_attention import ops, ref
     gen = torch.Generator(device=device).manual_seed(2)
-    h, kv, d, ps = 16, 8, 128, 16
+    d, ps = 128, 16
+    decode = [0, 1, 17, 100, 513, 1000, 1999, 2048]
     rows = []
-    for lens in ([2048], [0, 1, 17, 100, 513, 1000, 1999, 2048]):
+    # (heads, KV heads, lens): the decode shape, and one rank's heads at
+    # tp = 2 (phase 16)
+    for h, kv, lens in ((16, 8, [2048]), (16, 8, decode), (8, 4, decode)):
         b = len(lens)
-        q, k_pool, v_pool, bt, kv_lens = kv16_pools(torch, gen, lens, device)
+        q, k_pool, v_pool, bt, kv_lens = kv16_pools(torch, gen, lens, device,
+                                                    h=h, kv=kv)
         for softcap in (0.0, 30.0):
             out = ops.paged_attention_decode(q, k_pool, v_pool, bt, kv_lens,
                                              softcap=softcap)
@@ -614,7 +654,7 @@ def phase_paged_attention(torch, timer, device):
         row = dict(shape=f"B={b} H={h} KV={kv} d={d} ps={ps} bf16 "
                    f"kv_lens={lens}", max_abs_err=err, ms=ms,
                    plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                   bound_by=b_by)
+                   bound_by=b_by, tp2=kv == 4)
         rows.append(row)
         log(f"  paged_attention {row['shape']}: err {err:.3g} kernel "
             f"{ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | plain "
@@ -797,13 +837,15 @@ def rand_quant_pools(torch, gen, bits, n_pages, n_hot, ps, kv, d, device):
 def phase_paged_attention_quant(torch, timer, device):
     from repro_torch.kernels.paged_attention import ops, ref
     gen = torch.Generator(device=device).manual_seed(3)
-    h, kv, d, ps = 16, 8, 128, 16
+    d, ps = 128, 16
     lens = [0, 1, 17, 100, 513, 1000, 1999, 2048]
     b = len(lens)
     max_pages = 2048 // ps
     n_pages = 1 + b * max_pages
     rows = []
-    for bits in (8, 4):
+    # (bits, heads, KV heads): the decode shape at kv8 and kv4, and one
+    # rank's heads at tp = 2 (phase 16) at kv4
+    for bits, h, kv in ((8, 16, 8), (4, 16, 8), (4, 8, 4)):
         (kc, ks, vc, vs, kh, vh), spec = rand_quant_pools(
             torch, gen, bits, n_pages, b + 1, ps, kv, d, device)
         perm = torch.randperm(n_pages - 1, generator=gen, device=device) + 1
@@ -875,15 +917,16 @@ def phase_paged_attention_quant(torch, timer, device):
         row = dict(bits=bits, shape=f"kv{bits} B={b} H={h} KV={kv} d={d} "
                    f"ps={ps} bf16 hot kv_lens={lens}", max_abs_err=err,
                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                   bound_by=b_by)
+                   bound_by=b_by, tp2=kv == 4)
         rows.append(row)
         log(f"  paged_attention_quant {row['shape']}: err {err:.3g} kernel "
             f"{ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | plain "
             f"{plain:.4f} | library (SDPA, pre-dequantized pre-gathered) "
             f"{lib:.4f} median (mean {lib_mean:.4f}) | bound {b_ms:.4f} "
             f"({b_by}), {100 * b_ms / ms:.1f} % of it reached")
-        packed_prefill_case(torch, timer, device, gen, ops, ref, bits,
-                            (kc, ks, vc, vs, kh, vh), bt, ps)
+        if kv == 8:
+            packed_prefill_case(torch, timer, device, gen, ops, ref, bits,
+                                (kc, ks, vc, vs, kh, vh), bt, ps)
         del args, kc, ks, vc, vs, kh, vh
     for bits in (8, 4):
         rows += window_cases(torch, timer, device, gen, bits)
@@ -1211,18 +1254,25 @@ def phase_flash_grad(torch, timer, device):
     return row
 
 
-def next_logits(torch, model, params, tokens, device, ps=16):
+def next_logits(torch, model, params, tokens, device, ps=16, kv_bits=16,
+                parallel=None):
     """Last-position logits of one plain prefill of ``tokens`` on fresh
-    pools (for the near-tie gap of a divergence)."""
+    pools at ``kv_bits`` (for the near-tie gap of a divergence); with
+    ``parallel`` on one rank's shard of a mesh."""
     n = len(tokens)
     pages = -(-n // ps)
-    pools = model.init_paged_pools(pages + 1, ps, device=device)
+    pools = model.init_paged_pools(pages + 1, ps, kv_bits=kv_bits,
+                                   max_seqs=1, device=device,
+                                   parallel=parallel)
     bt = torch.arange(1, pages + 1, dtype=torch.int32, device=device)[None]
     tok = torch.tensor(np.asarray(tokens)[None], dtype=torch.int32,
                        device=device)
     q_pos = torch.arange(n, dtype=torch.int32, device=device)[None]
     kv = torch.tensor([n], dtype=torch.int32, device=device)
-    logits, _ = model.paged_step(params, pools, tok, q_pos, kv, bt)
+    slots = torch.zeros(1, dtype=torch.int32, device=device)
+    logits, _ = model.paged_step(params, pools, tok, q_pos, kv, bt,
+                                 kv_bits=kv_bits, slots=slots,
+                                 parallel=parallel)
     return logits[0].float().cpu()
 
 
@@ -1231,21 +1281,25 @@ def top2_gap(logits):
     return float(top[0] - top[1])
 
 
-def compare_tokens(torch, name, a, b, prompts, model, params, device):
+def compare_tokens(torch, name, a, b, prompts, model, params, device,
+                   kv_bits=16, hold=True):
     """Fail unless outputs agree, or diverge only at a near tie (top-2
-    logit gap < 1e-2 at the first divergent step)."""
+    logit gap < 1e-2 at the first divergent step, on pools of
+    ``kv_bits``). ``hold=False`` reports the divergences and passes."""
     for rid in sorted(a):
         if np.array_equal(a[rid], b[rid]):
             continue
         i = int(np.argmax(a[rid] != b[rid]))
         ctx = np.concatenate([prompts[rid], a[rid][:i]])
-        gap = top2_gap(next_logits(torch, model, params, ctx, device))
+        gap = top2_gap(next_logits(torch, model, params, ctx, device,
+                                   kv_bits=kv_bits))
         log(f"  {name}: request {rid} diverges at step {i} "
             f"({a[rid][i]} vs {b[rid][i]}), top-2 logit gap {gap:.3g}")
-        if not gap < 1e-2:
+        if hold and not gap < 1e-2:
             fail(f"{name}: request {rid} diverges at step {i} with top-2 "
                  f"gap {gap} >= 1e-2")
-    log(f"  {name}: tokens identical or near-tie only")
+    if hold:
+        log(f"  {name}: tokens identical or near-tie only")
 
 
 def record_chunks(engine, prompts):
@@ -1646,6 +1700,7 @@ def phase_serve_static(torch, device, ctx):
         f"launches {score_counts}")
     if not (np.isfinite(nll) and score_counts["flash_attention_fwd"] > 0):
         fail(f"serve static: score {nll}, launches {score_counts}")
+    ctx["static"] = dict(prompts=prompts, toks=toks, scored=scored, nll=nll)
     cont = ContinuousEngine(model, packed, decode_horizon=8, **ctx[
         "engine_kw"])
     for row in prompts:
@@ -2107,6 +2162,253 @@ def phase_front_door(torch, ctx):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: tensor-parallel serving, two ranks on one card
+# ---------------------------------------------------------------------------
+
+def rank_launches(ctx, zero=False):
+    """On a mesh rank: its process's launch counters, then zeroed when
+    ``zero`` (``TPMesh.gather`` runs it on every rank)."""
+    counts = read_launch_counters()
+    if zero:
+        zero_launch_counters()
+    return counts
+
+
+def rank_peak(ctx, reset=False):
+    """On a mesh rank: the peak device memory its process allocated (GB),
+    then the peak reset when ``reset``."""
+    import torch
+    if ctx.device.type != "cuda":
+        return 0.0
+    peak = torch.cuda.max_memory_allocated(ctx.device) / 1e9
+    if reset:
+        torch.cuda.reset_peak_memory_stats(ctx.device)
+    return peak
+
+
+def rank_next_logits(ctx, key, tokens, kv_bits):
+    """On a mesh rank: ``next_logits`` on its shard of the engine installed
+    under ``key``, over fresh rank-local pools."""
+    import torch
+    st = ctx.states[key]
+    return next_logits(torch, st.model, st.params, tokens, ctx.device,
+                       kv_bits=kv_bits, parallel=ctx.tp)
+
+
+# the largest |logit| difference of a tp = 2 prefill from tp = 1's, as a
+# share of tp = 1's largest |logit|, that phase 16 accepts: the bf16 sum
+# of the ranks' partial products rounds twice where one device rounds
+# once, and a 4-bit KV page amplifies that (a smoke config in bf16 on the
+# CPU: ~1.6e-2 at kv16, ~6.2e-2 at kv4; these bounds are 3x and 2.5x that)
+TP_LOGIT_TOL = {16: 5e-2, 4: 1.5e-1}
+
+
+def tp_logit_gaps(torch, device, mesh, eng, model, packed, prompts, bits):
+    """Each prompt's next-token logits through the tp = 2 engine's ranks
+    against one device's: the largest |difference| over finite logits, as
+    a share of the largest |logit|. Held to ``TP_LOGIT_TOL``."""
+    rel = []
+    for p in prompts:
+        a = mesh.run(rank_next_logits, eng.graphs.key, p, bits)
+        b = next_logits(torch, model, packed, p, device, kv_bits=bits)
+        fin = torch.isfinite(b)
+        rel.append(float((a[fin] - b[fin]).abs().max() / b[fin].abs().max()))
+    log(f"  tp=2 kv{bits}: next-token logits of each prompt against tp=1: "
+        f"largest |difference| / largest |logit| "
+        f"{[f'{r:.3g}' for r in rel]} (bound {TP_LOGIT_TOL[bits]})")
+    if not max(rel) <= TP_LOGIT_TOL[bits]:
+        fail(f"tp=2 kv{bits}: next-token logits differ from tp=1's by "
+             f"{max(rel)} of their largest")
+
+
+def rank_experts(ctx, key):
+    """On a mesh rank: the experts its shard of an engine's first MoE layer
+    holds (the expert dim of ``wg``'s packed codes)."""
+    return int(ctx.states[key].params["dec"]["s0"]["moe"]["wg"]
+               .packed.shape[-3])
+
+
+def tp_counts_ok(name, per_rank, kernels, fa=None):
+    """Each rank launched every kernel of ``kernels``, and kernel D exactly
+    ``fa`` times where given."""
+    for r, counts in enumerate(per_rank):
+        if not all(counts[k] > 0 for k in kernels) or (
+                fa is not None and counts["flash_attention_fwd"] != fa):
+            fail(f"{name}: rank {r} launches {counts}, want {kernels} > 0"
+                 + (f" and flash_attention_fwd {fa}" if fa is not None
+                    else ""))
+    log(f"  {name} launches by rank: {per_rank}")
+
+
+def tp_continuous(torch, device, mesh, model, packed, prompts, engine_kw,
+                  max_new, bits, horizon, kernels, warm):
+    """One tp = 2 ``ContinuousEngine`` run of ``prompts`` (the first alone
+    until its prompt is cached), warmed first (eagerly: no graph); the
+    ranks' counters zeroed just before and read after it, their peaks
+    reset before; ``warm``: warmed first (eagerly, no graph); at H=8 the
+    first prompts' next-token logits are held against one device's
+    (``tp_logit_gaps``). Returns (outputs, per-rank launches)."""
+    from repro_torch.serve import ContinuousEngine
+    name = f"tp=2 kv{bits} H={horizon}"
+    eng = ContinuousEngine(model, packed, decode_horizon=horizon,
+                           kv_bits=bits, mesh=mesh, **engine_kw)
+    rep = eng.warmup() if warm else None
+    if warm and (rep["graphs"] != 0 or not rep["eager"]
+                 or rep["entries"] != len(rep["shapes"])):
+        fail(f"{name}: warmup report {rep}")
+    mesh.gather(rank_launches, True)
+    mesh.gather(rank_peak, True)
+    t0 = time.perf_counter()
+    out, t_pre, t_dec = run_engine(eng, prompts, True, max_new)
+    wall = time.perf_counter() - t0
+    counts = mesh.gather(rank_launches)
+    peaks = mesh.gather(rank_peak)
+    if sorted(out) != list(range(len(prompts))) or any(
+            len(t) != max_new for t in out.values()):
+        fail(f"{name}: not every request returned {max_new} tokens")
+    steps = eng.n_decode_steps
+    if horizon == 8:
+        tp_logit_gaps(torch, device, mesh, eng, model, packed, prompts[:4],
+                      bits)
+    eng.close()
+    eng.cache.check_invariants(expect_idle=True)
+    warmed = (f"warm-up {rep['entries']} entries in {rep['seconds']:.2f} s,"
+              f" 0 graphs ({rep['eager']}); " if warm else "")
+    log(f"  {name}: {warmed}{wall:.2f} s wall, prefill "
+        f"{t_pre:.3f} s, decode {t_dec:.3f} s in {steps} eager dispatches "
+        f"= {1e3 * t_dec / max(steps, 1):.2f} ms a dispatch "
+        f"({1e3 * t_dec / max(steps * horizon, 1):.2f} ms a decode step); "
+        f"peak device memory by rank {[f'{p:.3f}' for p in peaks]} GB")
+    tp_counts_ok(name, counts, kernels)
+    return out, counts
+
+
+TP_NEW = 16        # phase 16's new tokens a request: the first 16 of
+                   # phases 7-8's 32 (eager dispatches on a shared card)
+
+
+def phase_tp(torch, device, ctx):
+    """Phase 16: tensor-parallel serving over two ranks on one card
+    (``make_tp_mesh(2, devices=["cuda:0", "cuda:0"])``; gloo collectives
+    staged through the host, every dispatch eager), on phase 7's packed
+    internlm2-1.8b at full width: ContinuousEngine at kv16 and kv4, H=8
+    and H=1, ``TP_NEW`` tokens a request against the first of the tp = 1
+    runs of phases 7-8 (identical, or first divergence at a top-2 gap
+    < 1e-2 of a prefill at the same kv_bits), each rank's A, unembedding
+    and B (kv16) or C (kv4) launched; ServeEngine generate and score of
+    phase 9's inputs, exactly 24 D launches a prefill on each rank, tokens
+    against phase 9's and the NLL within 1e-3 relative; granite-moe-3b-
+    a800m cut to 4 layers at kv16 H=8 against its tp = 1 run, each rank's
+    expert batch launched over its 24 of 48 experts. Times are eager
+    checks, not speed figures. Returns the per-rank launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+    t_phase = time.perf_counter()
+    model, packed, prompts = ctx["model"], ctx["packed"], ctx["prompts"]
+    engine_kw = ctx["engine_kw"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = make_tp_mesh(2, devices=[device, device])
+    log(f"[tp] mesh of 2 ranks on {device} up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    try:
+        a_path = ("msb_matmul", "msb_unembed")
+        for bits, kernel in ((16, "paged_attention_decode"),
+                             (4, "paged_attention_decode_quant")):
+            res = {}
+            for horizon in (8, 1):
+                res[horizon], counts = tp_continuous(
+                    torch, device, mesh, model, packed, prompts, engine_kw,
+                    TP_NEW, bits, horizon, a_path + (kernel,),
+                    warm=bits == 16 and horizon == 8)
+                if horizon == 8:
+                    out[bits] = counts
+                ref = {rid: t[:TP_NEW]
+                       for rid, t in ctx["direct"][bits].items()}
+                same = sum(np.array_equal(res[horizon][r], ref[r])
+                           for r in ref)
+                log(f"  tp=2 kv{bits} H={horizon}: {same} of {len(ref)} "
+                    f"requests' first {TP_NEW} tokens identical to tp=1's")
+                # kv16: the near-tie rule. kv4: reported; the 4-bit pages
+                # move tp = 2's logits past near ties (TP_LOGIT_TOL)
+                compare_tokens(torch, f"tp=2 kv{bits} H={horizon} vs tp=1 "
+                               "H=8", res[horizon], ref, prompts, model,
+                               packed, device, kv_bits=bits,
+                               hold=bits == 16)
+            if bits == 4:
+                for rid in res[8]:
+                    if not np.array_equal(res[8][rid], res[1][rid]):
+                        fail(f"tp=2 kv4: request {rid} differs between H=8 "
+                             f"and H=1: {res[8][rid]} vs {res[1][rid]}")
+                log("  tp=2 kv4 H=8 vs H=1: tokens identical")
+        st = ctx["static"]
+        eng = ServeEngine(model, packed, max_seq=1024, mesh=mesh)
+        log(f"  tp_report: {eng.tp_report}")
+        mesh.gather(rank_launches, True)
+        t0 = time.perf_counter()
+        toks = eng.generate(st["prompts"], TP_NEW)
+        t_gen = time.perf_counter() - t0
+        out["static"] = mesh.gather(rank_launches, True)
+        tp_counts_ok("tp=2 static generate", out["static"], a_path, fa=24)
+        t0 = time.perf_counter()
+        nll = eng.score(st["scored"])
+        t_score = time.perf_counter() - t0
+        tp_counts_ok("tp=2 score", mesh.gather(rank_launches, True),
+                     ("msb_matmul",), fa=24)
+        eng.close()
+        rel = abs(nll - st["nll"]) / abs(st["nll"])
+        log(f"  tp=2 ServeEngine B={st['prompts'].shape[0]} P="
+            f"{st['prompts'].shape[1]}: generate {toks.shape[1]} tokens "
+            f"{t_gen:.3f} s eager; score {t_score:.3f} s, NLL {nll:.6f} "
+            f"against tp=1 {st['nll']:.6f} (relative {rel:.3g})")
+        if not rel < 1e-3:
+            fail(f"tp=2 score {nll} vs tp=1 {st['nll']}: relative {rel}")
+        compare_tokens(torch, "tp=2 static vs tp=1 static",
+                       {i: toks[i] for i in range(len(toks))},
+                       {i: st["toks"][i, :TP_NEW] for i in range(len(toks))},
+                       list(st["prompts"]), model, packed, device)
+        cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                                  n_layers=4)
+        mmodel, mpacked = build_leafwise(torch, cfg, device)
+        mprompts = serve_prompts(cfg)
+        base = ContinuousEngine(mmodel, mpacked, decode_horizon=8,
+                                device=device, **engine_kw)
+        ref, _, _ = run_engine(base, mprompts, True, 33)
+        base.close()
+        del base
+        eng = ContinuousEngine(mmodel, mpacked, decode_horizon=8, mesh=mesh,
+                               **engine_kw)
+        experts = mesh.gather(rank_experts, eng.graphs.key)
+        mesh.gather(rank_launches, True)
+        res, _, t_dec = run_engine(eng, mprompts, True, 33)
+        out["moe"] = mesh.gather(rank_launches)
+        eng.close()
+        log(f"  tp=2 granite-moe (4 of 32 layers): tp_report "
+            f"{eng.tp_report}; resident experts by rank {experts} of "
+            f"{cfg.n_experts_padded}; decode {t_dec:.3f} s eager")
+        if experts != [cfg.n_experts_padded // 2] * 2:
+            fail(f"tp=2 granite-moe: resident experts {experts}")
+        tp_counts_ok("tp=2 granite-moe kv16 H=8", out["moe"],
+                     a_path + ("msb_matmul_experts",
+                               "paged_attention_decode"))
+        compare_tokens(torch, "tp=2 granite-moe vs tp=1", res, ref,
+                       mprompts, mmodel, mpacked, device)
+        del mmodel, mpacked
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    log(f"[tp] ok in {time.perf_counter() - t_phase:.1f} s: internlm2-1.8b "
+        "at tp = 2 (kv16, kv4; H=8, H=1; static generate and score) and "
+        "granite-moe's experts sharded; tokens against tp = 1 (kv4: "
+        "logits within bound, H=8 = H=1), every rank's kernels launched, "
+        "no process left")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the paper's quantizer at full width
 # ---------------------------------------------------------------------------
 
@@ -2368,13 +2670,16 @@ def quantizer_solver_checks(torch, params, device):
 
 def phase_quantizer(torch, device):
     """12. quantizer — the paper's granularities and solvers on full-width
-    internlm2-1.8b (random bf16 weights, seed 0), each quantized model
-    scored through ``ServeEngine`` against the unquantized one."""
+    internlm2-1.8b cut to ``QUANT_LAYERS`` of its 24 layers (random bf16
+    weights, seed 0), each quantized model scored through
+    ``ServeEngine`` against the unquantized one."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.core import QuantPolicy
     t_phase = time.perf_counter()
-    cfg = get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"),
+                              n_layers=QUANT_LAYERS)
     model = Model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0),
                         device=device)
@@ -2385,7 +2690,7 @@ def phase_quantizer(torch, device):
         0, cfg.vocab_size, (8, 513)).astype(np.int32)
     nll_ref, _, counts, ref_logits = score_tree(torch, model, params, scored,
                                                 None, device)
-    log(f"[quantizer] {cfg.name} full width ({cfg.n_layers} layers, d "
+    log(f"[quantizer] {cfg.name} full width ({cfg.n_layers} of 24 layers, d "
         f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}, "
         f"{cfg.dtype}); {len(paths)} leaves, {n_w / 1e9:.3f} G weights "
         f"quantized; unquantized score of {scored.shape}: NLL {nll_ref:.6f}, "
@@ -2443,6 +2748,11 @@ def phase_quantizer(torch, device):
 # the continuous engine of phase 13: phase 7's, its block tables wide
 # enough for a request past gemma2's 4096-token window
 FAMILY_ENGINE = dict(SERVE_ENGINE, max_seq=4736)
+# phase 13's depth (gemma2 26, granite-moe 32 layers) and phase 12's
+# (internlm2 24), cut to keep the smoke within its time limit on a busy
+# host: widths, windows (on even layers) and the expert count stay
+FAMILY_LAYERS = 8
+QUANT_LAYERS = 8
 LONG_PROMPT = 4500           # one of phase 13's gemma2 requests
 STATIC_PROMPT = 4608         # gemma2's static prefill: D with the window
 
@@ -2629,15 +2939,17 @@ def serve_family(torch, device, model, packed, prompts, bits_list,
 
 def phase_families(torch, device):
     """Phase 13: the model families the paged engine serves, at full
-    width with random weights (seed 0), each quantized (4b/64 DP) and
-    packed on the card and freed before the next:
-    * gemma2-2b (26 layers, head_dim 256, window 4096 on its 13 even
+    width with random weights (seed 0), cut in depth to ``FAMILY_LAYERS``
+    layers, each quantized (4b/64 DP) and packed on the card and freed
+    before the next:
+    * gemma2-2b (of 26 layers, head_dim 256, window 4096 on its even
       layers, softcaps 50 and 30, post-norm, tied 256000-row table):
       ContinuousEngine at kv16 and kv4 with phase 7's prompts but the last
       4500 tokens long, so the window binds in B, C and the packed
       prefill; decode-step profiles at kv16 and kv4; ServeEngine on 2
       prompts of 4608 tokens (D with the window), then score;
-    * granite-moe-3b-a800m (32 layers, 40 experts padded to 48, top-8):
+    * granite-moe-3b-a800m (of 32 layers, 40 experts padded to 48,
+      top-8):
       ContinuousEngine at kv16 (the expert batch of kernel A on every MoE
       layer), then at kv16 and kv4 with uneven new-token counts at its own
       capacity (``report_horizons``: H=8 against H=1 reported, not held),
@@ -2646,11 +2958,13 @@ def phase_families(torch, device):
     qwen1.5-0.5b (qkv bias) and arctic-480b (MoE beside a dense MLP)
     served on the card and on the CPU from the same weights. Returns the
     launch counts the kernel line reads."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.serve import ContinuousEngine
     out = {}
     t0 = time.perf_counter()
-    model, packed = build_leafwise(torch, get_config("gemma2-2b"), device)
+    model, packed = build_leafwise(torch, dataclasses.replace(
+        get_config("gemma2-2b"), n_layers=FAMILY_LAYERS), device)
     prompts = serve_prompts(model.cfg, last=LONG_PROMPT)
     out["gemma2"] = serve_family(torch, device, model, packed, prompts,
                                  (16, 4), ("msb_matmul", "msb_unembed"))
@@ -2668,8 +2982,8 @@ def phase_families(torch, device):
     torch.cuda.empty_cache()
     log(f"  gemma2-2b done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    model, packed = build_leafwise(torch, get_config("granite-moe-3b-a800m"),
-                                   device)
+    model, packed = build_leafwise(torch, dataclasses.replace(
+        get_config("granite-moe-3b-a800m"), n_layers=FAMILY_LAYERS), device)
     prompts = serve_prompts(model.cfg)
     # 33 new tokens: 32 decoded, whole horizons of 8, so no row finishes
     # mid-horizon. A finished row's no-op iterations write the scratch
@@ -3298,7 +3612,8 @@ def phase_train(torch, device):
 
 
 def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
-                q_counts, s_counts, f_counts, st_counts, grad_row, train):
+                q_counts, s_counts, f_counts, st_counts, grad_row, train,
+                tp_counts):
     """The kernel table as the JSON line's rows: each kernel at its main
     path's representative shape (A at decode and at M=4096, and its expert
     batch at granite-moe's and jamba's decode; the unembedding's kernel at
@@ -3311,7 +3626,11 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
     before it). Whisper's rows split its prefill's D launches by shape:
     the encoder's are those of the encoder run alone; the rest are the
     decoder's, whose every layer launches D once causal and once across,
-    so the cross row has half of them."""
+    so the cross row has half of them. The tp = 2 rows (phase 16) are A at
+    each of internlm2's shard shapes at M=8, the unembedding's kernel on
+    one rank's half of its table, B and C (kv4) at one rank's 8 heads over
+    4 KV heads; their launches are both ranks' in the kv16 (kv4 for C)
+    H=8 run."""
     src = "src/repro_torch/csrc/"
     mm_src, pa_src = src + "msb_matmul.cu", src + "paged_attention.cu"
     a_tpu = "src/repro/kernels/msb_matmul/msb_matmul.py:117"
@@ -3336,7 +3655,8 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
     def un_row(table):
         return next(r for r in un_rows if (r["table"], r["m"]) == (table, 8))
 
-    plain_pa = [r for r in pa_rows if not r.get("window")]
+    plain_pa = [r for r in pa_rows
+                if not r.get("window") and not r.get("tp2")]
     pa_w = next(r for r in pa_rows if r.get("window"))
     pa_err = max(r["max_abs_err"] for r in pa_rows)
     gem, moe = f_counts["gemma2"], f_counts["moe"]
@@ -3363,6 +3683,8 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
             gem[16]["paged_attention_decode"], pa_w, pa_err),
     ]
     for r in paq_rows:
+        if r.get("tp2"):
+            continue
         if r.get("window"):
             if r["bits"] == 4:
                 rows.append(row("paged_attention_decode_quant_kv4_window",
@@ -3399,6 +3721,25 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
                      bwd_ms=grad_row["bwd_ms"],
                      bwd_bound_ms=grad_row["bwd_bound_ms"],
                      sdpa_fwd_bwd_ms=grad_row["sdpa_fwd_bwd_ms"]))
+    # tensor parallelism: both ranks' launches in phase 16's H=8 runs
+    def tp_launches(bits, name):
+        return sum(c[name] for c in tp_counts[bits])
+
+    for (k, n), leaf in zip(TP2_SHAPES, ("wq", "wk_wv", "attn_wo", "wg_wi",
+                                          "mlp_wo")):
+        rows.append(row(f"msb_matmul_tp2_{leaf}", mm_src, a_tpu,
+                        tp_launches(16, "msb_matmul"), mm_row(8, k, n),
+                        mm_err))
+    rows.append(row("msb_unembed_kblocked_tp2", mm_src, a_tpu,
+                    tp_launches(16, "msb_unembed"), un_row("internlm2_tp2"),
+                    un_err))
+    rows.append(row("paged_attention_decode_tp2", pa_src, b_tpu,
+                    tp_launches(16, "paged_attention_decode"),
+                    next(r for r in pa_rows if r.get("tp2")), pa_err))
+    paq_tp = next(r for r in paq_rows if r.get("tp2"))
+    rows.append(row("paged_attention_decode_quant_kv4_tp2", pa_src, c_tpu,
+                    tp_launches(4, "paged_attention_decode_quant"), paq_tp,
+                    paq_tp["max_abs_err"]))
     for r in rows:
         if not r["launches"] > 0:
             fail(f"{r['name']}: no launch on its path")
@@ -3430,6 +3771,7 @@ def main():
     s_counts = phase_serve_static(torch, device, ctx)
     phase_paths(torch)
     phase_front_door(torch, ctx)
+    tp_counts = phase_tp(torch, device, ctx)
     del ctx
     phase_quantizer(torch, device)
     f_counts = phase_families(torch, device)
@@ -3437,7 +3779,7 @@ def main():
     train = phase_train(torch, device)
     kernels = kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows,
                           counts, q_counts, s_counts, f_counts, st_counts,
-                          grad_row, train)
+                          grad_row, train, tp_counts)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,8 @@ from .quantize import (DQScales, KVQuantSpec, PackedQTensor, QTensor,
                        packed_gather, quantize_blockwise, quantize_pertensor,
                        storage_bits_per_weight, unpack_codes_int4)
 from .policy import (QuantPolicy, dequantize_params, pack_params, param_bits,
-                     quantize_params)
+                     quantize_params, tp_localize, tp_partition_params,
+                     tp_shard)
 from . import baselines, reference
 
 __all__ = [
@@ -23,6 +24,7 @@ __all__ = [
     "pack_params", "pack_qtensor", "packed_dequantize", "packed_gather",
     "param_bits", "prefix_sums", "quantize_blockwise", "quantize_params",
     "quantize_pertensor", "reconstruction_mse", "reference", "solve_blocks",
-    "solve_flat", "storage_bits_per_weight", "unpack_codes_int4",
+    "solve_flat", "storage_bits_per_weight", "tp_localize",
+    "tp_partition_params", "tp_shard", "unpack_codes_int4",
     "windowed_dp_boundaries", "xnor_closed_form",
 ]

@@ -481,6 +481,74 @@ def kv_dequantize_pages(codes, scales, bits, dtype):
 
 
 # ---------------------------------------------------------------------------
+# Tensor-parallel padding (DESIGN.md Sec. 10)
+#
+# Sharding a quantized matmul dim across ranks needs every rank's slice to
+# hold whole 64-element MSB blocks (N) or whole rows (K). When the stored
+# width does not divide, the storage is widened with exact-zero columns or
+# rows (zero scales for packed codes, code 0 for int8 codes), which add
+# nothing to any matmul: the padded tree computes the same function as the
+# original on every path, sharded or not.
+# ---------------------------------------------------------------------------
+
+def _pad_axis(a, axis, to):
+    cur = a.shape[axis]
+    if cur == to:
+        return a
+    shape = list(a.shape)
+    shape[axis] = to
+    out = a.new_zeros(shape)
+    out.narrow(axis, 0, cur).copy_(a)
+    return out
+
+
+def tp_pad_packed_n(pq: PackedQTensor, n_to: int) -> PackedQTensor:
+    """Widen a PackedQTensor's stored N to ``n_to`` with zero-scale columns;
+    ``n`` is rebound to ``n_to``. The padded columns dequantize to exact 0
+    (extra all-zero features: harmless for an MLP hidden dim, masked for a
+    vocab dim), and a K-padded row-parallel partner lines up with them."""
+    if n_to % pq.block:
+        raise ValueError(f"n_to={n_to} must be a multiple of {pq.block}")
+    if pq.n_pad > n_to:
+        raise ValueError(f"cannot shrink storage {pq.n_pad} -> {n_to}")
+    packed = _pad_axis(pq.packed, pq.packed.dim() - 1, n_to // 2)
+    sd = pq.scales.dim()
+    scales = _pad_axis(pq.scales, sd - 2,
+                       n_to if pq.kblocked else n_to // PACK_BLOCK)
+    return dataclasses.replace(pq, packed=packed, scales=scales, n=n_to)
+
+
+def tp_pad_packed_k(pq: PackedQTensor, k_to: int) -> PackedQTensor:
+    """Widen a PackedQTensor's K (row) dim to ``k_to`` with zero-scale
+    rows."""
+    if pq.kblocked:
+        raise ValueError("K-padding needs the natural n-blocked layout")
+    if pq.packed.shape[-2] > k_to:
+        raise ValueError(f"cannot shrink K {pq.packed.shape[-2]} -> {k_to}")
+    return dataclasses.replace(
+        pq, packed=_pad_axis(pq.packed, pq.packed.dim() - 2, k_to),
+        scales=_pad_axis(pq.scales, pq.scales.dim() - 3, k_to))
+
+
+def tp_pad_q_n(q: QTensor, n_to: int) -> QTensor:
+    """Widen a block-wise QTensor's last (output) dim with zero-code
+    columns."""
+    if n_to % q.block:
+        raise ValueError(f"n_to={n_to} must be a multiple of block {q.block}")
+    return dataclasses.replace(
+        q, codes=_pad_axis(q.codes, q.codes.dim() - 1, n_to),
+        scales=_pad_axis(q.scales, q.scales.dim() - 2, n_to // q.block))
+
+
+def tp_pad_q_k(q: QTensor, k_to: int) -> QTensor:
+    """Widen a block-wise QTensor's second-to-last (row) dim with zero
+    rows."""
+    return dataclasses.replace(
+        q, codes=_pad_axis(q.codes, q.codes.dim() - 2, k_to),
+        scales=_pad_axis(q.scales, q.scales.dim() - 3, k_to))
+
+
+# ---------------------------------------------------------------------------
 # Double quantization (paper Appendix G)
 # ---------------------------------------------------------------------------
 

@@ -194,23 +194,38 @@ def msb_matmul_experts(x, packed, scales, counts, *, kblocked=False):
 msb_matmul_experts.launches = 0
 
 
-def packed_matmul(x, pq: PackedQTensor, bias=None):
+def packed_matmul(x, pq: PackedQTensor, bias=None, psum=None):
     """y = x @ dequant(pq) (+ bias). x: (..., K); returns (..., pq.n) in
     x's type. ``pq`` must be 2-D storage (a layer slice of stacked params).
-    The bias is fused into the kernel; N-padding is sliced off here."""
+    N-padding is sliced off here.
+
+    Tensor parallelism: a rank's slice of an N- (column-) sharded weight
+    needs nothing (its ``n`` rebound by ``core.policy.tp_localize``); the
+    output is the rank's slice of features. For a K- (row-) sharded weight
+    the rank's product is partial: ``psum`` (a ``parallel.TPShard``) sums
+    it over the ranks. The bias is fused into the kernel only without
+    ``psum``; with it the order is the reference's: the kernel, in x's
+    type, the sum, then the bias."""
     if pq.packed.dim() != 2:
         raise ValueError(f"packed_matmul wants 2-D storage, got "
                          f"{tuple(pq.packed.shape)}; slice stacked params "
                          "first")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if bias is not None:
-        bias = bias.reshape(-1).to(torch.float32)
-        if bias.shape[0] != pq.n_pad:
-            bias = torch.nn.functional.pad(bias, (0, pq.n_pad - bias.shape[0]))
-        bias = bias.contiguous()
-    y = msb_matmul(x2, pq.packed, pq.scales, bias, kblocked=pq.kblocked)
-    return y[:, :pq.n].reshape(*lead, pq.n)
+    fused = None
+    if bias is not None and psum is None:
+        fused = bias.reshape(-1).to(torch.float32)
+        if fused.shape[0] != pq.n_pad:
+            fused = torch.nn.functional.pad(fused,
+                                            (0, pq.n_pad - fused.shape[0]))
+        fused = fused.contiguous()
+    y = msb_matmul(x2, pq.packed, pq.scales, fused, kblocked=pq.kblocked)
+    y = y[:, :pq.n].reshape(*lead, pq.n)
+    if psum is not None:
+        y = psum.psum(y)
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+    return y
 
 
 def packed_matmul_experts(x, pq: PackedQTensor, counts):

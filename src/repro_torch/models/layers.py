@@ -8,6 +8,14 @@ cross-attention; ring-buffer decode; cross-attention decode over the
 static encoder K/V) and its paged branches over kv16 and quantized
 (kv_bits 8|4) pools, and the chunked cross-entropy (rematerialized per
 chunk under autograd).
+
+Under a ``parallel.TPShard`` (one rank of a tensor-parallel mesh,
+DESIGN.md Sec. 10) the functions run on the rank's shard: a row-parallel
+(K-sharded) projection sums its partial products over the ranks
+(``dense``), column-sharded QKV projections give the rank's heads, a
+head-sharded paged pool over replicated projections takes the rank's
+slice of the computed heads, and the heads are gathered before a
+replicated output projection.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import torch.utils.checkpoint
 
 from ..core.quantize import PackedQTensor, QTensor
 from ..kernels.msb_matmul.ops import packed_matmul
+from ..parallel.sharding import TPShard
 from .attention import (decode_attention, flash_attention,
                         paged_attention, paged_attention_packed,
                         paged_attention_quant, paged_attention_quant_packed,
@@ -44,23 +53,65 @@ def rope(x, positions, theta=10000.0):
                      dim=-1).to(x.dtype)
 
 
-def dense(x, w, b=None):
+def dense(x, w, b=None, tp=None):
     """y = x @ w (+ b), dispatching on the weight representation: packed
     weights run the msb_matmul kernel (bias fused), QTensors dequantize,
-    plain tensors multiply as they are."""
+    plain tensors multiply as they are. ``tp`` (a ``TPShard``): a K- (row-)
+    sharded quantized weight gives partial products, summed over the ranks
+    before the bias is added; an N- (column-) sharded one needs nothing,
+    the caller works on the rank's slice of features."""
+    psum = tp if tp is not None and getattr(w, "shard", None) == "k" \
+        else None
     if isinstance(w, PackedQTensor):
-        return packed_matmul(x, w, bias=b)
+        return packed_matmul(x, w, bias=b, psum=psum)
     if isinstance(w, QTensor):
         w = w.dequantize()
     y = torch.matmul(x, w.to(x.dtype))
+    if psum is not None:
+        y = psum.psum(y)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
 
 
+def tp_of(parallel):
+    """The ``TPShard`` of a ``parallel=`` argument with more than one rank,
+    else None. Anything else than a ``TPShard`` or None (the reference's
+    GSPMD ``ParallelContext``) is ROADMAP §1 item 11."""
+    if parallel is None:
+        return None
+    if not isinstance(parallel, TPShard):
+        raise NotImplementedError(
+            "parallel=: GSPMD parallelism (ParallelContext, expert-parallel "
+            "all_to_all) is ROADMAP item 11; serving takes mesh=")
+    return parallel if parallel.size > 1 else None
+
+
+def heads_split(cfg, tp):
+    """Whether a rank's paged pools hold ``n_kv_heads / tp.size`` heads:
+    both head counts divide the mesh (the reference's ``heads_ok``). With
+    replicated attention projections every rank then attends its slice of
+    the computed heads."""
+    return (tp is not None and cfg.n_heads % tp.size == 0
+            and cfg.n_kv_heads % tp.size == 0)
+
+
+def _attn_out_proj(out, wo, tp, full_h):
+    """Output projection (B, T, h_local, d) -> (B, T, D). A row-sharded
+    ``wo`` takes the rank's heads and ``dense`` sums the partial products;
+    a replicated ``wo`` after head-sliced attention first gathers the heads
+    (rank-major, the global head order)."""
+    b, t = out.shape[:2]
+    if (tp is not None and out.shape[2] != full_h
+            and getattr(wo, "shard", None) != "k"):
+        out = tp.all_gather(out, dim=2)
+    return dense(out.reshape(b, t, -1), wo, tp=tp)
+
+
 def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
                     cur_pos=None, xattn_kv=None, causal=True, cross=False,
-                    decode_positions=None, paged=None, mean_pads=False):
+                    decode_positions=None, paged=None, mean_pads=False,
+                    parallel=None):
     """Self- or cross-attention. Returns (out, new_cache). RoPE on q and k
     where ``cfg.use_rope`` (not jamba, whisper), never in cross-attention.
 
@@ -86,10 +137,17 @@ def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
     row. ``window`` > 0 (a Python int; gemma2's local layers) hides keys at
     or below ``q_pos - window`` on every path. ``mean_pads`` (paged): pads
     take the reference's mean of V over their row, for dispatches where a
-    pad can move a real token (``transformer._pads_reach_tokens``)."""
+    pad can move a real token (``transformer._pads_reach_tokens``).
+    ``parallel`` (a ``TPShard``): column-sharded QKV projections give this
+    rank's heads (the static caches then hold them too); replicated ones
+    over a head-sharded paged pool (``heads_split``) are sliced to them;
+    see the module docstring."""
+    tp = tp_of(parallel)
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     b = x.shape[0]
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, -1, h, hd)
+    w_sharded = tp is not None and getattr(p["wq"], "shard", None) == "n"
+    h_l, kv_l = (h // tp.size, kv // tp.size) if w_sharded else (h, kv)
+    q = dense(x, p["wq"], p.get("bq"), tp=tp).reshape(b, -1, h_l, hd)
     softcap = cfg.attn_softcap
     scale = hd ** -0.5 if cfg.query_scale == 0 else cfg.query_scale
     if cross and cache is not None:
@@ -100,15 +158,22 @@ def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
                                torch.full((b,), s - 1, dtype=torch.int32,
                                           device=x.device),
                                softcap=softcap, scale=scale)
-        return dense(out.reshape(b, 1, -1), p["wo"]), cache
+        return _attn_out_proj(out, p["wo"], tp, h), cache
     kv_src = x if xattn_kv is None else xattn_kv
-    k = dense(kv_src, p["wk"], p.get("bk")).reshape(b, -1, kv, hd)
-    v = dense(kv_src, p["wv"], p.get("bv")).reshape(b, -1, kv, hd)
+    k = dense(kv_src, p["wk"], p.get("bk"), tp=tp).reshape(b, -1, kv_l, hd)
+    v = dense(kv_src, p["wv"], p.get("bv"), tp=tp).reshape(b, -1, kv_l, hd)
     if paged is None:
         return _static_attention(p, q, k, v, cfg, positions, cache, cur_pos,
                                  decode_positions, window, softcap, scale,
                                  causal and xattn_kv is None,
-                                 xattn_kv is None and cfg.use_rope)
+                                 xattn_kv is None and cfg.use_rope, tp)
+    if not w_sharded and heads_split(cfg, tp):
+        # replicated projections over a head-sharded pool: every rank
+        # computed all heads and keeps its contiguous slice
+        r, h_l, kv_l = tp.rank, h // tp.size, kv // tp.size
+        q = q[:, :, r * h_l:(r + 1) * h_l].contiguous()
+        k = k[:, :, r * kv_l:(r + 1) * kv_l].contiguous()
+        v = v[:, :, r * kv_l:(r + 1) * kv_l].contiguous()
     q_pos = paged["q_pos"]
     if cfg.use_rope:
         safe_pos = torch.clamp(q_pos, min=0)
@@ -134,7 +199,7 @@ def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
             out = paged_attention_quant(
                 q, cache, paged["block_tables"], q_pos, paged["kv_lens"],
                 paged["slots"], kv_bits, **kw)
-        return dense(out.reshape(b, t, -1), p["wo"]), cache
+        return _attn_out_proj(out, p["wo"], tp, h), cache
     if seg_ids is not None:
         k_pool, v_pool = paged_write_packed(
             cache["k"], cache["v"], k, v, paged["block_tables"], seg_ids,
@@ -147,13 +212,13 @@ def attention_layer(p, x, cfg, positions=None, *, window=0, cache=None,
                                      paged["block_tables"], q_pos)
         out = paged_attention(q, k_pool, v_pool, paged["block_tables"],
                               q_pos, paged["kv_lens"], **kw)
-    return dense(out.reshape(b, t, -1), p["wo"]), {"k": k_pool, "v": v_pool}
+    return (_attn_out_proj(out, p["wo"], tp, h),
+            {"k": k_pool, "v": v_pool})
 
 
 def _static_attention(p, q, k, v, cfg, positions, cache, cur_pos,
                       decode_positions, window, softcap, scale, causal,
-                      use_rope):
-    b, t = q.shape[:2]
+                      use_rope, tp):
     if cache is None:
         if use_rope:
             q = rope(q, positions, cfg.rope_theta)
@@ -172,15 +237,17 @@ def _static_attention(p, q, k, v, cfg, positions, cache, cur_pos,
                                cur_pos, window=window, softcap=softcap,
                                scale=scale)
         new_cache = cache
-    return dense(out.reshape(b, t, -1), p["wo"]), new_cache
+    return _attn_out_proj(out, p["wo"], tp, cfg.n_heads), new_cache
 
 
-def mlp_layer(p, x):
-    """SwiGLU MLP."""
+def mlp_layer(p, x, tp=None):
+    """SwiGLU MLP. Under a ``TPShard``, wg/wi are column-sharded (the
+    rank's slice of the hidden width, padded to whole MSB blocks a rank)
+    and wo row-sharded (``dense`` sums the partial products)."""
     gate = torch.nn.functional.silu(
-        dense(x, p["wg"]).to(torch.float32)).to(x.dtype)
-    up = dense(x, p["wi"])
-    return dense(gate * up, p["wo"])
+        dense(x, p["wg"], tp=tp).to(torch.float32)).to(x.dtype)
+    up = dense(x, p["wi"], tp=tp)
+    return dense(gate * up, p["wo"], tp=tp)
 
 
 def grad_on(*tensors):
@@ -200,8 +267,10 @@ def remat(fn, *args, on=True):
         fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
-def _chunk_xent(hc, w, lc, mc, softcap, keep, z_loss):
+def _chunk_xent(hc, w, lc, mc, softcap, keep, z_loss, tp):
     logits = hc.to(torch.float32) @ w.t()
+    if tp is not None:
+        logits = tp.all_gather(logits, dim=-1)
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     if keep is not None:
@@ -213,16 +282,18 @@ def _chunk_xent(hc, w, lc, mc, softcap, keep, z_loss):
 
 
 def chunked_softmax_xent(hidden, unembed_vd, labels, mask, chunk=512,
-                         softcap=0.0, z_loss=1e-4, vocab_real=None):
+                         softcap=0.0, z_loss=1e-4, vocab_real=None, tp=None):
     """Mean cross-entropy (plus the z-loss) over masked positions, one
     chunk of positions at a time so the (B, S, V) logits never exist
     whole. Differentiable: under autograd each chunk is rematerialized
     (the reference's ``@jax.checkpoint`` ``chunk_loss``), so the backward
     holds one chunk's f32 logits at a time. hidden (B, S, D), labels/mask
     (B, S), unembed_vd (V_padded, D); padded vocab rows are masked to
-    -1e30."""
+    -1e30. ``tp`` (a ``TPShard``): ``unembed_vd`` is this rank's vocab
+    shard, and each chunk's logits are gathered over the ranks before the
+    softmax (not differentiable)."""
     s = hidden.shape[1]
-    vp = unembed_vd.shape[0]
+    vp = unembed_vd.shape[0] * (1 if tp is None else tp.size)
     c = min(chunk, s)
     while s % c:
         c -= 1
@@ -237,6 +308,6 @@ def chunked_softmax_xent(hidden, unembed_vd, labels, mask, chunk=512,
         mc = mask[:, i:i + c].to(torch.float32)
         tot = tot + remat(_chunk_xent, hidden[:, i:i + c], w,
                           labels[:, i:i + c].to(torch.int64), mc, softcap,
-                          keep, z_loss, on=on)
+                          keep, z_loss, tp, on=on)
         cnt = cnt + torch.sum(mc)
     return tot / torch.clamp(cnt, min=1.0)

@@ -15,6 +15,12 @@ decode horizon with on-device greedy sampling for the continuous engine,
 for the stacks the reference serves paged (``supports_paged``; a stack
 without RoPE gets the reference's sinusoidal positions there, computed
 on the device from ``q_pos`` so a captured graph holds them).
+
+``parallel`` (a ``parallel.TPShard``) runs a method on one rank's shard
+of a tensor-parallel mesh (DESIGN.md Sec. 10): ``params`` is the rank's
+tree (``core.policy.tp_shard``, ``tp_localize``), the paged pools and
+static caches hold the rank's KV heads where heads shard, and the logits
+come out whole on every rank (the vocab shards gathered).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from ..core.quantize import KVQuantSpec, PackedQTensor, QTensor, \
 from ..device import resolve_device
 from ..kernels.msb_matmul.ops import msb_unembed
 from . import ssm, xlstm
-from .layers import chunked_softmax_xent, rms_norm
+from .layers import chunked_softmax_xent, heads_split, rms_norm, tp_of
 from .transformer import (_require_attention_stack, forward_stack,
                           init_params, layer_plan, n_periods,
                           supports_paged)
@@ -100,7 +106,7 @@ class Model:
             table = table.dequantize()
         return table
 
-    def _logits(self, params, hidden):
+    def _logits(self, params, hidden, parallel=None):
         """Unembedding projection in f32 + softcap + vocab mask. A packed
         table of either layout runs the unembedding kernel
         (``msb_unembed``, hidden in f32): the untied k-blocked ``unembed``,
@@ -108,7 +114,10 @@ class Model:
         gather: gemma2, qwen, granite, granite-moe) read in place as its
         transpose, where the reference dequantizes it whole and multiplies
         outside any kernel. Unpacked and dense tables are multiplied in
-        f32."""
+        f32. Under a ``TPShard`` a vocab-sharded table (shard "n" or "v")
+        gives this rank's columns, a full-K product, so every logit is
+        made whole on one rank; the slices are gathered to the whole
+        (B, V) the samplers read, as wide as on one device."""
         cfg = self.cfg
         table = params.get("unembed", params["embed"])
         hidden = hidden.to(torch.float32)
@@ -116,6 +125,10 @@ class Model:
             logits = msb_unembed(hidden, table)
         else:
             logits = hidden @ self._unembed_vd(params).to(torch.float32).t()
+        tp = tp_of(parallel)
+        if tp is not None and getattr(table, "shard", None) in ("n", "v"):
+            # the slices, less the planner's padding: one device's width
+            logits = tp.all_gather(logits, dim=-1)[..., :cfg.vocab_padded]
         if cfg.logit_softcap > 0:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         vp = logits.shape[-1]
@@ -138,7 +151,7 @@ class Model:
             return batch["frames"].to(cfg.dtype)
         return self._embed(params, batch["tokens"])
 
-    def _encoder(self, params, batch):
+    def _encoder(self, params, batch, parallel=None):
         """Whisper's encoder over ``batch["frames"]`` (B, S_enc, D) with
         sinusoidal positions; returns its normed output (B, S_enc, D)."""
         cfg = self.cfg
@@ -146,11 +159,11 @@ class Model:
         pos = torch.arange(frames.shape[1], device=frames.device)
         x = frames + _sinusoid(pos, cfg.d_model)[None].to(cfg.dtype)
         x, _, _ = forward_stack(params["enc"], x, cfg, stack="enc",
-                                positions=pos)
+                                positions=pos, parallel=parallel)
         return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
     # -- loss forward --------------------------------------------------------
-    def loss(self, params, batch):
+    def loss(self, params, batch, parallel=None):
         """Mean next-token cross-entropy (plus the z-loss) of ``batch``
         {"tokens" (B, S), "labels" (B, S'); labels < 0 are masked; internvl
         adds "patch_embeds" (B, P, D) before the tokens (S' = P + S),
@@ -161,9 +174,13 @@ class Model:
         require grad, ``loss.backward()`` gives every leaf its gradient
         (kernel D under its autograd Function, the stack and each CE chunk
         rematerialized; a tied table gets the sum of its embedding and
-        unembedding uses), as ``jax.grad`` of the reference's ``loss``."""
+        unembedding uses), as ``jax.grad`` of the reference's ``loss``.
+        Under a ``TPShard`` (inference only) each cross-entropy chunk's
+        logits are gathered over a vocab-sharded table's slices."""
         cfg = self.cfg
-        enc_out = self._encoder(params, batch) if cfg.is_encdec else None
+        tp = tp_of(parallel)
+        enc_out = (self._encoder(params, batch, parallel) if cfg.is_encdec
+                   else None)
         x = self._assemble_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         if not cfg.use_rope and not cfg.is_encdec and _has_attn(cfg):
@@ -171,19 +188,21 @@ class Model:
         if cfg.is_encdec:
             x = x + _sinusoid(positions, cfg.d_model)[None].to(cfg.dtype)
         x, _, aux = forward_stack(params["dec"], x, cfg, positions=positions,
-                                  enc_out=enc_out)
+                                  enc_out=enc_out, parallel=parallel)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         labels = batch["labels"].to(torch.int64)
+        table = params.get("unembed", params["embed"])
+        vocab_tp = tp if getattr(table, "shard", None) in ("n", "v") else None
         ce = chunked_softmax_xent(x, self._unembed_vd(params),
                                   torch.clamp(labels, min=0),
                                   (labels >= 0).to(torch.float32),
                                   softcap=cfg.logit_softcap,
-                                  vocab_real=cfg.vocab_size)
+                                  vocab_real=cfg.vocab_size, tp=vocab_tp)
         return ce + cfg.router_aux_weight * aux, {"ce": ce,
                                                   "router_aux": aux}
 
     # -- static serving: prefill + ring-buffer decode ------------------------
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, parallel=None):
         """Forward over ``batch`` ({"tokens" (B, S)}, with "patch_embeds"
         or "frames" as ``loss`` takes them) collecting the cache. Returns
         (last-position logits (B, V) f32, cache): cache["layers"] holds
@@ -191,7 +210,8 @@ class Model:
         where the stack has attention, cache["pos"] (B, S) int32 the
         positions 0..S-1."""
         cfg = self.cfg
-        enc_out = self._encoder(params, batch) if cfg.is_encdec else None
+        enc_out = (self._encoder(params, batch, parallel) if cfg.is_encdec
+                   else None)
         x = self._assemble_inputs(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)
@@ -200,16 +220,17 @@ class Model:
         x, layer_cache, _ = forward_stack(params["dec"], x, cfg,
                                           positions=positions,
                                           enc_out=enc_out,
-                                          collect_cache=True)
+                                          collect_cache=True,
+                                          parallel=parallel)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = self._logits(params, x[:, -1])
+        logits = self._logits(params, x[:, -1], parallel)
         cache = {"layers": layer_cache}
         if _has_attn(cfg):
             cache["pos"] = positions.to(torch.int32)[None].expand(
                 b, s).contiguous()
         return logits, cache
 
-    def decode_step(self, params, cache, tokens, cur_pos):
+    def decode_step(self, params, cache, tokens, cur_pos, parallel=None):
         """One decode step. tokens (B, 1), cur_pos (B,) on the cache's
         device. Every row writes ring slot ``cur_pos[0] % S`` (as the
         reference does), and ``cache`` — K/V rings, recurrent state and
@@ -227,9 +248,9 @@ class Model:
         x, _, _ = forward_stack(params["dec"], x, cfg,
                                 positions=cur_pos[:, None],
                                 cache=cache["layers"], cur_pos=cur_pos,
-                                decode_positions=pos)
+                                decode_positions=pos, parallel=parallel)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return self._logits(params, x[:, -1]), cache
+        return self._logits(params, x[:, -1], parallel), cache
 
     def cache_defs(self, batch, seq_len):
         """(shape, dtype) per leaf of the decode cache, nested like it:
@@ -286,7 +307,7 @@ class Model:
         return supports_paged(self.cfg)
 
     def init_paged_pools(self, num_pages, page_size, kv_bits=16,
-                         max_seqs=None, device=None):
+                         max_seqs=None, device=None, parallel=None):
         """Global K/V page pools on ``device`` (``None`` = the card),
         nested like the reference's. Page 0 is the allocator's scratch
         page. The serving steps update them in place.
@@ -297,11 +318,17 @@ class Model:
         v_scales`` per page (``KVQuantSpec``) for committed pages, and
         ``k_hot/v_hot`` (n_periods, max_seqs + 1, page_size, KV, head_dim)
         in ``cfg.dtype``, one partial-page row per engine slot (row slot +
-        1) plus scratch row 0."""
+        1) plus scratch row 0. Under a ``TPShard`` whose size divides both
+        head counts (``layers.heads_split``) a rank's pools hold its
+        ``KV / size`` heads: the KV codec's groups never cross heads, so
+        every representation splits along them."""
         cfg = self.cfg
         _require_attention_stack(cfg)
         dev = resolve_device(device)
         p, kv, hd = n_periods(cfg), cfg.n_kv_heads, cfg.head_dim_
+        tp = tp_of(parallel)
+        if heads_split(cfg, tp):
+            kv //= tp.size
         if int(kv_bits) == 16:
             shape = (p, num_pages, page_size, kv, hd)
             leaves = {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
@@ -324,7 +351,7 @@ class Model:
         return {"layers": layers}
 
     def paged_step(self, params, pools, tokens, q_pos, kv_lens, block_tables,
-                   kv_bits=16, slots=None):
+                   kv_bits=16, slots=None, parallel=None):
         """One serving step over a batch with a paged KV cache.
 
         tokens (B, T) int (T=1 decode, T=chunk chunked prefill); q_pos
@@ -343,15 +370,16 @@ class Model:
         paged = _quant_paged({"block_tables": block_tables, "q_pos": q_pos,
                               "kv_lens": kv_lens}, kv_bits, slots)
         x, layer_pools, _ = forward_stack(params["dec"], x, cfg,
-                                          cache=pools["layers"], paged=paged)
+                                          cache=pools["layers"], paged=paged,
+                                          parallel=parallel)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         last = torch.clamp((q_pos >= 0).sum(dim=1) - 1, min=0)
         hidden = x[torch.arange(x.shape[0], device=x.device), last]
-        return self._logits(params, hidden), {"layers": layer_pools}
+        return self._logits(params, hidden, parallel), {"layers": layer_pools}
 
     def paged_prefill_packed(self, params, pools, tokens, seg_ids, q_pos,
                              kv_lens, block_tables, slots, last_idx, seg_off,
-                             kv_bits=16):
+                             kv_bits=16, parallel=None):
         """Packed ragged prefill: several sequences' chunks in one step.
 
         tokens/seg_ids/q_pos (T,): the concatenated segments, padded to the
@@ -372,14 +400,15 @@ class Model:
                               "seg_ids": seg_ids[None]}, kv_bits, slots,
                              seg_off)
         x, layer_pools, _ = forward_stack(params["dec"], x, cfg,
-                                          cache=pools["layers"], paged=paged)
+                                          cache=pools["layers"], paged=paged,
+                                          parallel=parallel)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         hidden = x[0][torch.clamp(last_idx.to(torch.int64), min=0)]
-        return self._logits(params, hidden), {"layers": layer_pools}
+        return self._logits(params, hidden, parallel), {"layers": layer_pools}
 
     def paged_decode_horizon(self, params, pools, tokens, start_pos,
                              block_tables, n_left, eos_ids, horizon,
-                             kv_bits=16, slots=None):
+                             kv_bits=16, slots=None, parallel=None):
         """``horizon`` decode iterations with greedy sampling on the device.
 
         Each iteration is one ``paged_step`` over a (B, 1) batch: it writes
@@ -392,7 +421,8 @@ class Model:
         tokens (B,) last sampled, not-yet-cached token; start_pos (B,) its
         position (-1 = pad row); block_tables must cover the whole lease;
         n_left/eos_ids (B,). Returns (tokens (B, H) int32, valid (B, H)
-        bool prefix masks, pools)."""
+        bool prefix masks, pools). Under a ``TPShard`` the logits, and so
+        the argmax, are the same on every rank."""
         tok = tokens.to(torch.int32)
         pos = start_pos.to(torch.int32)
         active = (start_pos >= 0) & (n_left > 0)
@@ -402,7 +432,8 @@ class Model:
             kv_lens = torch.clamp(pos, min=0) + 1
             logits, pools = self.paged_step(params, pools, tok[:, None], q_pos,
                                             kv_lens, block_tables,
-                                            kv_bits=kv_bits, slots=slots)
+                                            kv_bits=kv_bits, slots=slots,
+                                            parallel=parallel)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             hit_eos = (eos_ids >= 0) & (nxt == eos_ids)
             valid = active

@@ -1,7 +1,8 @@
-"""Mixture-of-Experts FFN on one device.
+"""Mixture-of-Experts FFN, on one device or expert-sharded over a mesh.
 
-Port of the single-device path of ``repro.models.moe`` (granite-moe;
-arctic runs it beside a dense residual MLP): top-k routing with per-expert
+Port of the single-device and tensor-parallel paths of
+``repro.models.moe`` (granite-moe; arctic runs it beside a dense residual
+MLP): top-k routing with per-expert
 positions in the reference's token order, capacity-bounded dispatch into
 an (E, C, D) buffer, the expert SwiGLU FFN, and the gated combine.
 Experts are zero-padded to ``n_experts_padded`` (granite-moe: 40 -> 48);
@@ -18,8 +19,10 @@ Packed expert weights run kernel A's expert batch
 where the reference maps ``packed_matmul`` over experts one at a time
 under ``lax.cond(count > 0)``; an expert with no routed token reads no
 weight and gives exactly 0, decided on the device from ``counts``.
-Tensor/expert parallelism (the reference's ``_moe_tp`` and the EP
-``shard_map`` path) is ROADMAP item 11.
+Under a ``TPShard`` with expert-sharded weights (``_moe_tp``) every rank
+routes all tokens and runs its resident experts; the reference's
+expert-parallel all_to_all path (a ``ParallelContext``) is ROADMAP item
+11.
 
 Gradients run through routing as the reference's: the gates and the
 load-balancing loss (through the router's softmax) carry them; top-k
@@ -33,7 +36,7 @@ import torch
 
 from ..core.quantize import PackedQTensor, QTensor
 from ..kernels.msb_matmul.ops import packed_matmul_experts
-from .layers import grad_on, remat
+from .layers import grad_on, remat, tp_of
 
 
 def _capacity(tokens, k, e_total, cf):
@@ -139,13 +142,46 @@ def _expert_ffn_quantized(xe, wg, wi, wo, counts):
     return torch.where((counts > 0)[:, None, None], y, torch.zeros_like(y))
 
 
+def _moe_tp(p, x, cfg, tp):
+    """Expert-sharded MoE on one rank (the reference's ``_moe_tp``). Every
+    rank routes the whole (replicated) token stream with the replicated
+    router, so gates, expert choices and positions are those of one
+    device; it then dispatches only the choices bound for its
+    ``E / tp.size`` resident experts, runs them through the expert batch,
+    combines with the other choices masked out, and the ranks' disjoint
+    partial sums are added (``psum``)."""
+    b, s, d = x.shape
+    k = cfg.n_experts_active
+    e_total = cfg.n_experts_padded
+    e_loc = e_total // tp.size
+    capacity = _capacity(b * s, k, e_total, cfg.capacity_factor)
+    x2d = x.reshape(-1, d)
+    gates, eidx, pos, keep, aux = _route(x2d, p["router"], e_total,
+                                         cfg.n_experts, k, capacity)
+    lo = tp.rank * e_loc
+    local = (eidx >= lo) & (eidx < lo + e_loc)
+    keep_l = keep & local
+    eidx_l = torch.where(local, eidx - lo, torch.zeros_like(eidx))
+    buf, flat_slot = _dispatch(x2d, gates, eidx_l, pos, keep_l, e_loc,
+                               capacity)
+    xe = buf[:-1].reshape(e_loc, capacity, d)
+    counts = torch.zeros(e_loc, dtype=torch.int32, device=x.device)
+    counts.index_add_(0, eidx_l.reshape(-1),
+                      keep_l.reshape(-1).to(torch.int32))
+    ye = _expert_ffn_quantized(xe, p["wg"], p["wi"], p["wo"], counts)
+    y = _combine(ye.reshape(-1, d), flat_slot, gates, keep_l, b * s, k, d)
+    return tp.psum(y).reshape(b, s, d), aux
+
+
 def moe_layer(p, x, cfg, parallel=None):
-    """x (B, S, D) -> (y (B, S, D), aux), the reference's single-device
-    path. ``p``: router (D, E) and experts wg/wi (E, D, F), wo (E, F, D),
-    dense, ``QTensor`` or ``PackedQTensor``."""
-    if parallel is not None:
-        raise NotImplementedError(
-            "expert/tensor-parallel MoE: ROADMAP item 11")
+    """x (B, S, D) -> (y (B, S, D), aux). ``p``: router (D, E) and experts
+    wg/wi (E, D, F), wo (E, F, D), dense, ``QTensor`` or ``PackedQTensor``.
+    ``parallel``: None (one device), or a ``TPShard``: expert-sharded
+    weights take ``_moe_tp``, any other layer the one-device path, which
+    is then exact on every rank."""
+    tp = tp_of(parallel)
+    if tp is not None and getattr(p.get("wg"), "shard", None) == "e":
+        return _moe_tp(p, x, cfg, tp)
     b, s, d = x.shape
     k = cfg.n_experts_active
     e_total = cfg.n_experts_padded

@@ -10,6 +10,8 @@ frontend is the model's, ``models/model.py``). Per-layer params are
 stacked along a leading ``L`` dim (one subtree per period slot, as in the
 reference); the reference's ``lax.scan`` over that dim is a Python loop
 over layer slices here, and each layer's window is a Python int.
+``parallel`` (a ``parallel.TPShard``) reaches every block: the stacks
+then run on one rank's shard of a tensor-parallel mesh.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch
 from ..core.quantize import map_tensors
 from ..device import resolve_device
 from . import ssm, xlstm
-from .layers import attention_layer, grad_on, mlp_layer, remat, rms_norm
+from .layers import (attention_layer, grad_on, mlp_layer, remat, rms_norm,
+                     tp_of)
 from .moe import _capacity, moe_layer
 
 
@@ -223,7 +226,8 @@ def _pads_reach_tokens(cfg, plan, tokens):
 
 
 def _block(x, lp, cfg, mixer, ffn, *, window, positions, cur_pos, cache,
-           enc_out, cross, decode_positions, paged, mean_pads=False):
+           enc_out, cross, decode_positions, paged, mean_pads=False,
+           parallel=None):
     """One (mixer + FFN) residual block, pre-norm and (gemma2) post-norm
     after the mixer and after the FFN. ``mixer`` is "attn" (causal),
     "enc_attn" (whisper's encoder, not causal), "mamba", "slstm" or
@@ -231,7 +235,9 @@ def _block(x, lp, cfg, mixer, ffn, *, window, positions, cur_pos, cache,
     (prefill and the loss) or onto the static ``xattn`` cache (decode);
     ``ffn`` is "dense", "moe", "moe+dense" (the two summed, arctic) or
     "none" (xlstm). ``mean_pads``: paged pads take the reference's
-    attention output (``_pads_reach_tokens``). Returns (x, new_cache, aux):
+    attention output (``_pads_reach_tokens``). ``parallel``: a
+    ``TPShard`` or None, handed to attention, the MLP and the MoE FFN
+    (the mamba and xLSTM mixers replicate). Returns (x, new_cache, aux):
     new_cache keyed "attn" or the mixer's name (and "xattn"), aux the
     router's load-balancing loss, None without an MoE FFN."""
     aux = None
@@ -243,7 +249,7 @@ def _block(x, lp, cfg, mixer, ffn, *, window, positions, cur_pos, cache,
             lp["attn"], h, cfg, positions, window=window, cache=mix_cache,
             cur_pos=cur_pos, causal=mixer == "attn",
             decode_positions=decode_positions, paged=paged,
-            mean_pads=mean_pads)
+            mean_pads=mean_pads, parallel=parallel)
     elif mixer == "mamba":
         y, nc = ssm.mamba_layer(lp["mamba"], h, cfg, mix_cache)
     elif mixer == "slstm":
@@ -260,14 +266,14 @@ def _block(x, lp, cfg, mixer, ffn, *, window, positions, cur_pos, cache,
             lp["xattn"], h, cfg, positions,
             cache=None if cache is None else cache["xattn"],
             cur_pos=cur_pos, xattn_kv=enc_out, causal=False,
-            cross=cache is not None)
+            cross=cache is not None, parallel=parallel)
         x = x + y
     if ffn == "none":
         return x, new_cache, aux
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-    y = None if ffn == "moe" else mlp_layer(lp["mlp"], h)
+    y = None if ffn == "moe" else mlp_layer(lp["mlp"], h, tp_of(parallel))
     if ffn != "dense":
-        ym, aux = moe_layer(lp["moe"], h, cfg)
+        ym, aux = moe_layer(lp["moe"], h, cfg, parallel)
         y = ym if y is None else y + ym
     if cfg.post_norm:
         y = rms_norm(y, lp["norm2b"], cfg.norm_eps)
@@ -309,7 +315,7 @@ def _window_array(cfg, stack="dec"):
 
 def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
                   cache=None, cur_pos=None, enc_out=None, collect_cache=False,
-                  decode_positions=None, paged=None):
+                  decode_positions=None, paged=None, parallel=None):
     """Run a layer stack, ``stack`` "dec" or "enc" (whisper's encoder; the
     reference's scan is a loop over layer slices). Returns (x, cache,
     aux): ``aux`` the router losses summed over layers (f32 scalar, 0
@@ -345,7 +351,8 @@ def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
     if cache is None and not collect_cache:
         return _loss_stack(params_stack, x, cfg, plan, wins, cross, stack,
                            positions, enc_out, cfg.remat and grad_on(
-                               x, enc_out, *_leaf_tensors(params_stack)))
+                               x, enc_out, *_leaf_tensors(params_stack)),
+                           parallel)
     mean_pads = paged is not None and _pads_reach_tokens(
         cfg, plan, x.shape[0] * x.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -362,7 +369,7 @@ def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
                               cache=layer_cache, enc_out=enc_out,
                               cross=cross,
                               decode_positions=decode_positions, paged=paged,
-                              mean_pads=mean_pads)
+                              mean_pads=mean_pads, parallel=parallel)
             if a is not None:
                 aux = aux + a
             if collect_cache:
@@ -383,7 +390,7 @@ def _leaf_tensors(tree):
 
 
 def _loss_stack(params_stack, x, cfg, plan, wins, cross, stack, positions,
-                enc_out, on):
+                enc_out, on, parallel=None):
     """The loss forward of ``forward_stack``, with each period (and, for a
     period of several blocks, each block) under ``remat`` when ``on``.
     Returns (x, None, aux)."""
@@ -395,7 +402,7 @@ def _loss_stack(params_stack, x, cfg, plan, wins, cross, stack, positions,
         y, _, a = _block(x_, lp, cfg, mixer, ffn, window=wins[period][slot],
                          positions=positions, cur_pos=None, cache=None,
                          enc_out=enc_out, cross=cross, decode_positions=None,
-                         paged=None)
+                         paged=None, parallel=parallel)
         return y, (torch.zeros((), dtype=torch.float32, device=y.device)
                    if a is None else a)
 

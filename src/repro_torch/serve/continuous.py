@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over a paged KV cache.
 
-Port of ``repro.serve.continuous.ContinuousEngine`` (``execution="packed"``,
-one device). Step-driven API: ``submit()`` enqueues requests,
+Port of ``repro.serve.continuous.ContinuousEngine``. Step-driven API:
+``submit()`` enqueues requests,
 each ``step()`` runs one scheduler-chosen unit of work (a packed prefill
 wave, a prefill chunk, or a decode batch), ``collect()`` drains finished
 outputs. The scheduler, allocator and prefix registry are the reference's,
@@ -30,8 +30,17 @@ Greedy outputs are identical across horizons, prefill packing on/off and
 prefix caching on/off.
 
 ``execution="simulated"`` keeps the ``QTensor`` leaves and dequantizes them
-per call (``serve/engine.py``). Not in this slice: ``mesh=``/``parallel=``
-(tensor parallelism, ROADMAP item 11) raise ``NotImplementedError``.
+per call (``serve/engine.py``).
+
+``mesh=`` (a mesh of ``launch.mesh.make_tp_mesh``) serves tensor-parallel
+(DESIGN.md Sec. 10): the weights are partitioned once
+(``core.policy.tp_partition_params``), each rank holds its slices and
+its own pools (KV/tp heads where the head counts divide the mesh), and
+every dispatch runs on every rank with collectives inside the model code
+(``serve/graphs.py:TPDispatch``, eagerly). The scheduler, allocator and
+sampling stay on this process, rank 0: greedy tokens are those of one
+device. ``parallel=`` (the reference's GSPMD ``ParallelContext``) raises
+``NotImplementedError`` (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -42,7 +51,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..device import resolve_device
-from .graphs import DispatchGraphs, jit_trace_count  # noqa: F401 (re-export)
+from .graphs import (DispatchGraphs, TPDispatch,  # noqa: F401 (re-export)
+                     jit_trace_count, tp_install_paged, tp_pool_copy)
 from .paged_cache import PagedKVCache
 from .scheduler import DECODE, FINISHED, Request, Scheduler, Sequence
 
@@ -70,17 +80,25 @@ class ContinuousEngine:
     device: object = None             # None = the card
 
     def __post_init__(self):
-        from .engine import resolve_execution
-        if self.mesh is not None or self.parallel is not None:
-            raise NotImplementedError(
-                "mesh=/parallel=: tensor-parallel serving is ROADMAP item 11")
+        from .engine import check_mesh, resolve_execution, shard_params
+        check_mesh(self.mesh, self.parallel)
         if not self.model.supports_paged():
             raise ValueError(
                 f"{self.model.cfg.name}: paged serving needs a decoder-only "
                 "attention stack (ssm/xlstm/enc-dec caches are not paged)")
+        if self.mesh is not None and self.device is None:
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         self.execution, self.params = resolve_execution(
             self.execution, self.params, self.device)
+        self.tp_report = {}
+        shards = None
+        if self.mesh is not None:
+            # tensor parallelism (DESIGN.md Sec. 10): partition once; this
+            # process keeps rank 0's slices
+            shards, self.tp_report = shard_params(
+                self.model, self.params, self.mesh, self.device)
+            self.params = shards[0]
         self.decode_horizon = int(self.decode_horizon)
         if self.decode_horizon < 1:
             raise ValueError(f"decode_horizon must be >= 1, "
@@ -99,7 +117,8 @@ class ContinuousEngine:
             self.model, num_pages=self.num_pages, page_size=self.page_size,
             max_seqs=self.max_batch, max_pages_per_seq=mpps,
             prefix_cache=self.prefix_cache, faults=self.faults,
-            kv_bits=self.kv_bits, device=self.device)
+            kv_bits=self.kv_bits, device=self.device,
+            parallel=None if self.mesh is None else self.mesh.shard)
         # packed ragged prefill: the bucket ladder is the set of packed
         # token lengths, three powers-of-two steps from prefill_chunk
         # unless prefill_buckets= says otherwise
@@ -118,7 +137,10 @@ class ContinuousEngine:
                                    decode_horizon=self.decode_horizon,
                                    max_waiting=self.max_waiting,
                                    prefill_buckets=self.prefill_buckets)
-        self.graphs = DispatchGraphs(self)
+        if self.mesh is None:
+            self.graphs = DispatchGraphs(self)
+        else:
+            self._init_tensor_parallel(shards)
         self._next_id = 0
         self._seqs: Dict[int, Sequence] = {}
         self._finished: Dict[int, np.ndarray] = {}
@@ -139,6 +161,24 @@ class ContinuousEngine:
         # recently crashed) step dispatched
         self.last_step_rids: Tuple[int, ...] = ()
         self.last_step_kind: str = ""
+
+    def _init_tensor_parallel(self, shards):
+        """Install every rank's slices and pools on the mesh (rank 0's are
+        this engine's own) and dispatch through ``TPDispatch``; the fork's
+        pool copy runs on every rank (``PagedKVCache.remote``)."""
+        mesh = self.mesh
+        key = mesh.new_key()
+        pool_kw = dict(num_pages=self.num_pages, page_size=self.page_size,
+                       kv_bits=self.kv_bits, max_seqs=self.max_batch)
+        per_rank = [(shards[0], self.cache.pools)] + [
+            (shard, None) for shard in shards[1:]]
+        mesh.install(key, tp_install_paged, per_rank, self.model,
+                     self.kv_bits, self.decode_horizon, pool_kw)
+        self.params = mesh.ctx.states[key].params
+        self.graphs = TPDispatch(mesh, key)
+        self.cache.remote = (
+            lambda kind, src, dst: mesh.run(tp_pool_copy, key, kind, src,
+                                            dst))
 
     # -- API ----------------------------------------------------------------
     def submit(self, prompt, max_new_tokens, eos_id=None,

@@ -12,6 +12,13 @@ through the loss forward. It serves every decoder-only stack, those with
 per-sequence state too (jamba's mamba layers, xlstm), which paging does
 not. Production traffic goes through ``ContinuousEngine``; both give the
 same greedy tokens in either mode.
+
+Both engines take ``mesh=`` (``launch.mesh.make_tp_mesh``) for tensor
+parallelism (DESIGN.md Sec. 10): ``shard_params`` partitions the weights
+once and cuts each rank's slices; here every rank runs the whole
+``generate`` (prefill, ring decode and sampling, with collectives inside
+the model code) or ``score`` on its shard in one call to the mesh, and
+rank 0's result comes back.
 """
 from __future__ import annotations
 
@@ -23,6 +30,39 @@ import torch
 
 from ..core.quantize import map_tensors
 from ..device import resolve_device
+from ..parallel.spmd import TPMesh
+
+
+def check_mesh(mesh, parallel):
+    """The engines' refusals: ``parallel=`` (the reference's GSPMD
+    ``ParallelContext``) is ROADMAP item 11; a ``mesh=`` that
+    ``make_tp_mesh`` did not make is a TypeError."""
+    if parallel is not None:
+        raise NotImplementedError(
+            "parallel=: GSPMD parallelism (ParallelContext) is ROADMAP item "
+            "11; tensor-parallel serving takes mesh=")
+    if mesh is not None and not isinstance(mesh, TPMesh):
+        raise TypeError(f"mesh= takes a mesh of launch.mesh.make_tp_mesh, "
+                        f"got {type(mesh).__name__}")
+
+
+def shard_params(model, params, mesh, device):
+    """Partition ``params`` (on ``device``, rank 0's) for ``mesh``
+    (``core.policy.tp_partition_params``) and cut every rank's slices
+    (``tp_shard``): rank 0's stay on ``device``, the others' move to the
+    CPU, to be sent to their ranks. Returns (every rank's slices, the
+    planner's report)."""
+    from ..core.policy import tp_partition_params, tp_shard
+    if mesh.device != device:
+        raise ValueError(f"the engine's device {device} is not rank 0's "
+                         f"{mesh.device}")
+    tree, specs, report = tp_partition_params(params, mesh.size,
+                                              cfg=model.cfg)
+    shards = [tp_shard(tree, specs, 0, mesh.size)]
+    for r in range(1, mesh.size):
+        shards.append(map_tensors(lambda t: t.cpu(),
+                                  tp_shard(tree, specs, r, mesh.size)))
+    return shards, report
 
 
 def resolve_execution(execution, params, device):
@@ -56,7 +96,11 @@ class ServeEngine:
     ``params`` may mix dense tensors and MSB ``QTensor`` leaves; they are
     packed once at load (``execution="packed"``) or dequantized per call
     (``"simulated"``), and the caller's tree is not modified. ``mesh=``
-    and ``parallel=`` (tensor parallelism) are ROADMAP item 11.
+    runs every call on the mesh's ranks (module docstring): the static
+    caches hold a rank's heads when attention's weights shard, tokens are
+    those of one device and ``score`` is within float rounding of it;
+    ``tp_report`` is the planner's. ``close()`` frees the ranks' state.
+    ``parallel=`` is ROADMAP item 11.
     """
     model: object
     params: object
@@ -67,12 +111,34 @@ class ServeEngine:
     mesh: object = None
 
     def __post_init__(self):
-        if self.mesh is not None or self.parallel is not None:
-            raise NotImplementedError(
-                "mesh=/parallel=: tensor-parallel serving is ROADMAP item 11")
+        check_mesh(self.mesh, self.parallel)
+        if self.mesh is not None and self.device is None:
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         self.execution, self.params = resolve_execution(
             self.execution, self.params, self.device)
+        self.tp_report = {}
+        self._key, self._closed = None, False
+        if self.mesh is not None:
+            shards, self.tp_report = shard_params(
+                self.model, self.params, self.mesh, self.device)
+            self._key = self.mesh.new_key()
+            self.mesh.install(self._key, _tp_install_static,
+                              [(shard,) for shard in shards], self.model,
+                              self.max_seq)
+            self.params = self.mesh.ctx.states[self._key]["params"]
+
+    def close(self):
+        """Free the ranks' state of a mesh engine; later calls on it
+        raise. A no-op without a mesh."""
+        if self._key is not None and not self._closed:
+            self._closed = True
+            self.mesh.drop(self._key)
+
+    def _mesh_key(self):
+        if self._closed:
+            raise RuntimeError("call on a closed engine")
+        return self._key
 
     def _grow_cache(self, cache, prompt_len):
         """Move prefill caches (length P) into ``max_seq`` ring buffers.
@@ -83,24 +149,7 @@ class ServeEngine:
         leaf, this allocates the rings once (zeros) and copies the prefill
         K/V into their first P rows; the position table, where the cache
         has one, is -1 (empty) past P."""
-        s = self.max_seq
-
-        def grow(node, path=()):
-            if isinstance(node, dict):
-                return {k: grow(v, path + (k,)) for k, v in node.items()}
-            if path[-2:] not in (("attn", "k"), ("attn", "v")):
-                return node
-            ring = node.new_zeros(node.shape[:2] + (s,) + node.shape[3:])
-            ring[:, :, :prompt_len] = node
-            return ring
-
-        new = {"layers": grow(cache["layers"])}
-        if "pos" in cache:
-            pos = torch.full((cache["pos"].shape[0], s), -1,
-                             dtype=torch.int32, device=cache["pos"].device)
-            pos[:, :prompt_len] = cache["pos"]
-            new["pos"] = pos
-        return new
+        return grow_cache(cache, prompt_len, self.max_seq)
 
     def generate(self, prompts, n_tokens, temperature=0.0, generator=None):
         """prompts: (B, P) int. Returns (B, n_tokens) int32 numpy tokens.
@@ -109,39 +158,108 @@ class ServeEngine:
         greedy argmax, or with ``temperature > 0`` a categorical sample
         (Gumbel-max with noise from ``generator``, a ``torch.Generator`` on
         the engine's device; default seed 0) — in the reference's order:
-        sample, decode, advance. Nothing is read back until the loop ends."""
-        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
-                                  device=self.device)
-        b, p = prompts.shape
-        assert p + n_tokens <= self.max_seq
-        logits, cache = self.model.prefill(self.params, {"tokens": prompts})
-        cache = self._grow_cache(cache, p)
-        if temperature > 0 and generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        cur = torch.full((b,), p, dtype=torch.int32, device=self.device)
-        out = []
-        for _ in range(int(n_tokens)):
-            if temperature > 0:
-                u = torch.rand(logits.shape, generator=generator,
-                               device=self.device)
-                gumbel = -torch.log(-torch.log(u))
-                tok = torch.argmax(logits / temperature + gumbel, dim=-1)
-            else:
-                tok = torch.argmax(logits, dim=-1)
-            tok = tok.to(torch.int32)
-            out.append(tok)
-            logits, cache = self.model.decode_step(self.params, cache,
-                                                   tok[:, None], cur)
-            cur = cur + 1
-        if not out:
-            return np.zeros((b, 0), np.int32)
-        return torch.stack(out, dim=1).cpu().numpy()
+        sample, decode, advance. Nothing is read back until the loop ends.
+        On a mesh every rank runs the loop, the workers from ``generator``'s
+        state, so every rank draws the same noise."""
+        prompts = np.asarray(prompts)
+        if self.mesh is None:
+            return _generate(self.model, self.params, prompts, n_tokens,
+                             temperature, generator, self.max_seq,
+                             self.device)
+        state = None if generator is None else generator.get_state()
+        workers = [(None,)] * (self.mesh.size - 1)
+        return self.mesh.run(_tp_generate, self._mesh_key(), prompts,
+                             int(n_tokens), temperature, state,
+                             per_rank=[(generator,)] + workers)
 
     def score(self, tokens):
         """Mean next-token NLL (with the z-loss, as the reference's loss) of
-        ``tokens`` (B, S) under the model."""
-        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32,
-                                 device=self.device)
-        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
-        loss, _ = self.model.loss(self.params, batch)
-        return float(loss)
+        ``tokens`` (B, S) under the model; on a mesh, ``Model.loss`` on
+        every rank with each chunk's logits gathered over the vocab
+        shards."""
+        tokens = np.asarray(tokens)
+        if self.mesh is None:
+            return _score(self.model, self.params, tokens, self.device)
+        return self.mesh.run(_tp_score, self._mesh_key(), tokens)
+
+
+def grow_cache(cache, prompt_len, max_seq):
+    """``ServeEngine._grow_cache`` of a cache: rings of ``max_seq`` rows."""
+    s = max_seq
+
+    def grow(node, path=()):
+        if isinstance(node, dict):
+            return {k: grow(v, path + (k,)) for k, v in node.items()}
+        if path[-2:] not in (("attn", "k"), ("attn", "v")):
+            return node
+        ring = node.new_zeros(node.shape[:2] + (s,) + node.shape[3:])
+        ring[:, :, :prompt_len] = node
+        return ring
+
+    new = {"layers": grow(cache["layers"])}
+    if "pos" in cache:
+        pos = torch.full((cache["pos"].shape[0], s), -1,
+                         dtype=torch.int32, device=cache["pos"].device)
+        pos[:, :prompt_len] = cache["pos"]
+        new["pos"] = pos
+    return new
+
+
+def _generate(model, params, prompts, n_tokens, temperature, generator,
+              max_seq, device, parallel=None):
+    """``ServeEngine.generate`` on ``params`` (a rank's on a mesh)."""
+    prompts = torch.as_tensor(prompts, dtype=torch.int32, device=device)
+    b, p = prompts.shape
+    assert p + n_tokens <= max_seq
+    logits, cache = model.prefill(params, {"tokens": prompts}, parallel)
+    cache = grow_cache(cache, p, max_seq)
+    if temperature > 0 and generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    cur = torch.full((b,), p, dtype=torch.int32, device=device)
+    out = []
+    for _ in range(int(n_tokens)):
+        if temperature > 0:
+            u = torch.rand(logits.shape, generator=generator, device=device)
+            gumbel = -torch.log(-torch.log(u))
+            tok = torch.argmax(logits / temperature + gumbel, dim=-1)
+        else:
+            tok = torch.argmax(logits, dim=-1)
+        tok = tok.to(torch.int32)
+        out.append(tok)
+        logits, cache = model.decode_step(params, cache, tok[:, None], cur,
+                                          parallel)
+        cur = cur + 1
+    if not out:
+        return np.zeros((b, 0), np.int32)
+    return torch.stack(out, dim=1).cpu().numpy()
+
+
+def _score(model, params, tokens, device, parallel=None):
+    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=device)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    loss, _ = model.loss(params, batch, parallel)
+    return float(loss)
+
+
+# -- the functions a ServeEngine's mesh ranks run ---------------------------
+
+def _tp_install_static(ctx, model, max_seq, params):
+    from ..core.policy import tp_localize
+    params = tp_localize(map_tensors(lambda t: t.to(ctx.device), params))
+    return {"model": model, "params": params, "max_seq": max_seq}
+
+
+def _tp_generate(ctx, key, prompts, n_tokens, temperature, state,
+                 generator):
+    st = ctx.states[key]
+    if generator is None and state is not None:
+        generator = torch.Generator(device=ctx.device)
+        generator.set_state(state)
+    return _generate(st["model"], st["params"], prompts, n_tokens,
+                     temperature, generator, st["max_seq"], ctx.device,
+                     ctx.tp)
+
+
+def _tp_score(ctx, key, tokens):
+    st = ctx.states[key]
+    return _score(st["model"], st["params"], tokens, ctx.device, ctx.tp)

@@ -33,6 +33,11 @@ So a capture takes back what it counted, and every replay adds it.
 
 On the CPU there is no graph: a dispatch runs eagerly from the host arrays,
 and the first dispatch of each key counts as its capture.
+
+On a tensor-parallel mesh (``TPDispatch``) there is no graph either: the
+model code's gloo collectives go through the host and cannot be captured.
+Each dispatch runs eagerly on every rank (``parallel/spmd.py``), and the
+first dispatch of a key counts as its capture, as on the CPU.
 """
 from __future__ import annotations
 
@@ -101,6 +106,31 @@ def pad_inputs(kind, size, max_batch):
                          for name, shape in shapes.items()}
 
 
+def dispatch_forward(model, params, kv_bits, horizon, kind, x, bt, pools,
+                     parallel=None):
+    """One dispatch of ``kind`` through ``model``: inputs ``x`` (tensors,
+    names as ``input_shapes``), block-table rows ``bt``, ``pools`` written
+    in place; ``parallel`` a rank's ``TPShard`` on a mesh. Returns
+    (outputs, the pools the model returned)."""
+    slots = x["slots"] if kv_bits < 16 else None
+    if kind == "prefill_packed":
+        logits, pools = model.paged_prefill_packed(
+            params, pools, x["tokens"], x["seg_ids"], x["q_pos"],
+            x["kv_lens"], bt, x["slots"], x["last_idx"], x["seg_off"],
+            kv_bits=kv_bits, parallel=parallel)
+        return (logits,), pools
+    if kind == "decode_horizon":
+        tok, valid, pools = model.paged_decode_horizon(
+            params, pools, x["tokens"], x["start_pos"], bt, x["n_left"],
+            x["eos"], horizon, kv_bits=kv_bits, slots=slots,
+            parallel=parallel)
+        return (tok, valid), pools
+    logits, pools = model.paged_step(params, pools, x["tokens"], x["q_pos"],
+                                     x["kv_lens"], bt, kv_bits=kv_bits,
+                                     slots=slots, parallel=parallel)
+    return (logits,), pools
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -164,6 +194,9 @@ class DispatchGraphs:
         self._entries: Dict[Tuple[str, int], object] = {}
         self._closed = False
         self._pool = None               # the graphs' memory pool, on first use
+        # why dispatches run eagerly, or None where they are graphs
+        self.eager_reason = (None if self.device.type == "cuda"
+                             else "no CUDA graphs on the CPU")
         self.capture_seconds = 0.0      # Python time of the captured forwards
         self.instantiate_seconds = 0.0  # capture_end: graph instantiation
 
@@ -173,23 +206,8 @@ class DispatchGraphs:
         ``pools``, written in place. What a graph captures (on the cache's
         pools); tests replay a graph against it on a copy of the pools.
         Returns (outputs, the pools the model returned)."""
-        model, params, kv_bits = self.model, self.params, self.kv_bits
-        slots = x["slots"] if kv_bits < 16 else None
-        if kind == "prefill_packed":
-            logits, pools = model.paged_prefill_packed(
-                params, pools, x["tokens"], x["seg_ids"], x["q_pos"],
-                x["kv_lens"], bt, x["slots"], x["last_idx"], x["seg_off"],
-                kv_bits=kv_bits)
-            return (logits,), pools
-        if kind == "decode_horizon":
-            tok, valid, pools = model.paged_decode_horizon(
-                params, pools, x["tokens"], x["start_pos"], bt, x["n_left"],
-                x["eos"], self.horizon, kv_bits=kv_bits, slots=slots)
-            return (tok, valid), pools
-        logits, pools = model.paged_step(params, pools, x["tokens"],
-                                         x["q_pos"], x["kv_lens"], bt,
-                                         kv_bits=kv_bits, slots=slots)
-        return (logits,), pools
+        return dispatch_forward(self.model, self.params, self.kv_bits,
+                                self.horizon, kind, x, bt, pools)
 
     def _check_pools(self, pools):
         """The model writes the pools in place: the tree it returns must
@@ -270,6 +288,11 @@ class DispatchGraphs:
         """Keys dispatched (on the card: captured) so far."""
         return list(self._entries)
 
+    @property
+    def n_graphs(self):
+        """CUDA graphs the set holds."""
+        return sum(e is not None for e in self._entries.values())
+
     def graph_launches(self, kind, size):
         """{wrapper name: launches one replay of the key counts}."""
         entry = self._entries[(kind, size)]
@@ -290,3 +313,98 @@ class DispatchGraphs:
         self._closed = True
         self._entries.clear()
         self._pool = None
+
+
+class TPDispatch:
+    """The dispatch set of a ``ContinuousEngine`` on a tensor-parallel mesh:
+    the interface of ``DispatchGraphs``, each dispatch run eagerly on every
+    rank. ``run`` sends the key, the host inputs and the block-table rows
+    to the workers (``TPMesh.run``) and runs the same forward on rank 0
+    over the engine's own pools; the outputs are rank 0's."""
+
+    eager_reason = ("a mesh's gloo collectives cannot be captured in a "
+                    "CUDA graph")
+    n_graphs = 0
+    capture_seconds = 0.0
+    instantiate_seconds = 0.0
+
+    def __init__(self, mesh, key):
+        self.mesh, self.key = mesh, key
+        self._keys = []
+        self._closed = False
+
+    def run(self, kind, size, inputs, bt):
+        """Dispatch key (kind, size) on host int32 ``inputs`` and
+        block-table rows ``bt`` on every rank. Returns rank 0's outputs."""
+        self.check_open()
+        rows = np.ascontiguousarray(bt.cpu().numpy(), np.int32)
+        outputs = self.mesh.run(_tp_dispatch, self.key, kind, inputs, rows)
+        self.check_open()              # closed during the forward
+        if (kind, size) not in self._keys:
+            self._keys.append((kind, size))
+            _note_capture()
+        return outputs
+
+    def check_open(self):
+        """Raise if ``close`` was called."""
+        if self._closed:
+            raise RuntimeError("dispatch on a closed engine")
+
+    @property
+    def keys(self):
+        """Keys dispatched so far."""
+        return list(self._keys)
+
+    def pool_bytes(self):
+        return None
+
+    def close(self):
+        """Free the engine's state on every rank; every later ``run``
+        raises."""
+        if not self._closed:
+            self._closed = True
+            self.mesh.drop(self.key)
+
+
+class TPPagedRank:
+    """One rank's state of a ``ContinuousEngine`` on a mesh: the model, the
+    rank's localized weights, its pools, the pools' precision and the
+    decode horizon."""
+
+    def __init__(self, model, params, pools, kv_bits, horizon):
+        self.model, self.params, self.pools = model, params, pools
+        self.kv_bits, self.horizon = kv_bits, horizon
+
+
+def tp_install_paged(ctx, model, kv_bits, horizon, pool_kw, params, pools):
+    """Install function of a ``ContinuousEngine`` (``TPMesh.install``):
+    ``params`` the rank's slices (moved to its device, then localized);
+    ``pools`` rank 0's own, or None on a worker, which allocates its
+    rank's pools from ``pool_kw``."""
+    from ..core.policy import tp_localize
+    from ..core.quantize import map_tensors
+    params = tp_localize(map_tensors(lambda t: t.to(ctx.device), params))
+    if pools is None:
+        pools = model.init_paged_pools(device=ctx.device, parallel=ctx.tp,
+                                       **pool_kw)
+    return TPPagedRank(model, params, pools, kv_bits, horizon)
+
+
+def _tp_dispatch(ctx, key, kind, inputs, rows):
+    st = ctx.states[key]
+    dev = ctx.device
+    x = {name: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+         for name, a in inputs.items()}
+    bt = torch.from_numpy(rows).to(dev)
+    outputs, _ = dispatch_forward(st.model, st.params, st.kv_bits,
+                                  st.horizon, kind, x, bt, st.pools,
+                                  parallel=ctx.tp)
+    return outputs
+
+
+def tp_pool_copy(ctx, key, kind, src, dst):
+    """A fork's pool copy (``paged_cache.copy_pool_page``) on the workers'
+    pools; rank 0's cache made its own."""
+    if ctx.tp.rank > 0:
+        from .paged_cache import copy_pool_page
+        copy_pool_page(ctx.states[key].pools, kind, src, dst)

@@ -3,7 +3,10 @@
 Port of ``repro.serve.paged_cache`` (kv16 and kv_bits 8|4 pools): the
 host-side allocator is the reference's, copied; the device work it does —
 the fork's page (or hot-row) copy and the block-table upload — is torch on
-the engine's device.
+the engine's device. On a tensor-parallel mesh the pools are rank 0's
+(``parallel=``: KV/tp heads a rank where heads split, the reference's
+``heads_ok``), and ``remote`` repeats the fork's copy on the other ranks'
+pools; the allocator itself, like every host decision, runs once.
 
 The data plane (the pools themselves) is a tree of device tensors written,
 in place, by the serving step (models.Model.paged_step); this class is the *control*
@@ -72,6 +75,18 @@ class PrefixMatch:
     n_unreferenced: int
 
 
+def copy_pool_page(pools, kind, src, dst):
+    """In place: ``kind`` "page" copies page ``src`` to ``dst`` in every
+    kv16 pool leaf (n_periods, num_pages, page_size, KV, hd); "hot" copies
+    hot row ``src`` to ``dst`` in every ``*_hot`` leaf (n_periods, max_seqs
+    + 1, page_size, KV, hd) of quantized pools, whose code and scale pools
+    are page-indexed and stay untouched."""
+    for slot in pools["layers"].values():
+        for name, leaf in slot["attn"].items():
+            if kind == "page" or name.endswith("_hot"):
+                leaf[:, dst] = leaf[:, src]
+
+
 class PagedKVCache:
     """Host-side page allocator + device page pools.
 
@@ -87,12 +102,15 @@ class PagedKVCache:
     ``pools`` is a tree of device tensors owned by the serving step; this
     class never reads it, and writes it only in fork's page copy.
     ``device`` (``None`` = the card) is where the pools and the uploaded
-    block-table rows live.
+    block-table rows live. ``parallel`` (a ``TPShard``) sizes the pools to
+    one rank's; ``remote``, when set, is called as ``remote(kind, src,
+    dst)`` after each fork copy (``copy_pool_page``'s kinds) so the other
+    ranks copy too.
     """
 
     def __init__(self, model, *, num_pages, page_size, max_seqs,
                  max_pages_per_seq=None, prefix_cache=False, faults=None,
-                 kv_bits=16, device=None):
+                 kv_bits=16, device=None, parallel=None):
         if num_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is reserved scratch)")
         if kv_bits not in (16, 8, 4):
@@ -109,7 +127,9 @@ class PagedKVCache:
         self.kv_bits = int(kv_bits)
         self.pools = model.init_paged_pools(num_pages, page_size,
                                             kv_bits=self.kv_bits,
-                                            max_seqs=max_seqs, device=device)
+                                            max_seqs=max_seqs, device=device,
+                                            parallel=parallel)
+        self.remote = None
         self.device = next(iter(self.pools["layers"]["s0"]["attn"].values())
                            ).device
         # quantization frontier: full pages of each slot whose content is
@@ -425,20 +445,14 @@ class PagedKVCache:
         return dst
 
     def _copy_page(self, src, dst):
-        """Copy page ``src`` to ``dst`` in every kv16 pool leaf, in place.
-        Leaves are (n_periods, num_pages, page_size, KV, hd)."""
-        for slot in self.pools["layers"].values():
-            for leaf in slot["attn"].values():
-                leaf[:, dst] = leaf[:, src]
+        copy_pool_page(self.pools, "page", src, dst)
+        if self.remote is not None:
+            self.remote("page", src, dst)
 
     def _copy_hot(self, src_row, dst_row):
-        """Copy hot row ``src_row`` to ``dst_row`` in place. Hot leaves are
-        (n_periods, max_seqs + 1, page_size, KV, hd); the code and scale
-        pools are page-indexed, not slot-indexed, and stay untouched."""
-        for slot in self.pools["layers"].values():
-            for name, leaf in slot["attn"].items():
-                if name.endswith("_hot"):
-                    leaf[:, dst_row] = leaf[:, src_row]
+        copy_pool_page(self.pools, "hot", src_row, dst_row)
+        if self.remote is not None:
+            self.remote("hot", src_row, dst_row)
 
     # -- packed-batch views -------------------------------------------------
     def table_rows(self, slots):

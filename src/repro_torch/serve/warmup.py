@@ -12,7 +12,8 @@ dispatch shapes, fully determined by its config (DESIGN.md Sec. 16):
 ``enumerate_traces`` lists that set; ``warm_engine`` runs one **all-pad
 dummy dispatch** per entry through the engine's dispatch set
 (``serve/graphs.py``), which on the card captures the entry as a CUDA graph
-(the port of the reference's jit compile) and replays it. Dummy inputs
+(the port of the reference's jit compile) and replays it; on a
+tensor-parallel mesh it runs the entry once on every rank, eagerly. Dummy inputs
 carry ``q_pos = -1`` / ``seg_ids = -1`` / ``slots = -1`` / ``kv_lens = 0``
 with the scratch block table, so every KV write lands on the reserved
 scratch page (and hot row 0 of the quantized pools) and the dispatch is
@@ -70,8 +71,11 @@ def warm_engine(engine) -> Dict[str, object]:
     ``seconds`` (wall time), ``entries`` (shapes warmed), ``traces`` (probe
     delta: captures; 0 when every entry was already captured), ``shapes``
     (the enumerated list), and, of the dispatch set, ``capture_seconds`` and
-    ``instantiate_seconds`` (summed over the engine's captures so far) and
-    ``graph_bytes`` (its graph pool; ``None`` on the CPU)."""
+    ``instantiate_seconds`` (summed over the engine's captures so far),
+    ``graph_bytes`` (its graph pool; ``None`` on the CPU), ``graphs`` (the
+    CUDA graphs it holds) and ``eager`` (why dispatches run eagerly — on
+    the CPU, or a tensor-parallel mesh, whose collectives a graph cannot
+    hold — or None)."""
     t0 = time.monotonic()
     n0 = jit_trace_count()
     entries = enumerate_traces(engine)
@@ -82,4 +86,5 @@ def warm_engine(engine) -> Dict[str, object]:
             "traces": jit_trace_count() - n0, "shapes": entries,
             "capture_seconds": graphs.capture_seconds,
             "instantiate_seconds": graphs.instantiate_seconds,
-            "graph_bytes": graphs.pool_bytes()}
+            "graph_bytes": graphs.pool_bytes(), "graphs": graphs.n_graphs,
+            "eager": graphs.eager_reason}

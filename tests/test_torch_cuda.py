@@ -1170,3 +1170,121 @@ def test_flash_attention_raw_launch_refuses_grad(cuda):
     with torch.no_grad():
         out = fa_ops.flash_attention_fwd(q, k, k)
     assert out.grad_fn is None
+
+
+# -- tensor parallelism: kernels at internlm2-1.8b's tp = 2 shard shapes ------
+
+TP2_SHARDS = {  # leaf: (K, N) of one rank's slice
+    "wq": (2048, 1024), "wk_wv": (2048, 512), "attn_wo": (1024, 2048),
+    "wg_wi": (2048, 4096), "mlp_wo": (4096, 2048)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf", sorted(TP2_SHARDS))
+def test_msb_matmul_at_tp2_shard_shapes(cuda, leaf):
+    """Kernel A at each shard shape (bf16 x, M = 1, 8 and 512) against its
+    plain version (1e-2 of the largest output), rows at M = 1 and 8
+    bitwise the same rows at M = 512; a rank's slice cut from a whole
+    column-sharded weight (``tp_shard``: a contiguous copy) runs too."""
+    from repro_torch.core.policy import tp_shard
+    k, n = TP2_SHARDS[leaf]
+    rng = np.random.default_rng(k + n)
+    p, s = _weights(rng, k, n, False, cuda)
+    x = torch.from_numpy(rng.standard_normal((512, k)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    full = mm_ops.msb_matmul(x, p, s)
+    for m in (1, 8, 512):
+        y = mm_ops.msb_matmul(x[:m].contiguous(), p, s)
+        want = mm_ref.msb_matmul_ref(x[:m], p, s).float()
+        torch.testing.assert_close(y.float(), want, rtol=0,
+                                   atol=1e-2 * want.abs().max().item())
+        assert torch.equal(y, full[:m]), f"rows at M={m}"
+    pw, sw = _weights(rng, k, 2 * n, False, cuda)
+    whole = PackedQTensor(pw, sw, 4, 64, torch.float32, 2 * n, shard="n")
+    spec = PackedQTensor(1, 1, 4, 64, torch.float32, 2 * n)
+    half = tp_shard({"w": whole}, {"w": spec}, 1, 2)["w"]
+    y = mm_ops.msb_matmul(x[:8].contiguous(), half.packed, half.scales)
+    want = mm_ref.msb_matmul_ref(x[:8], pw, sw).float()[:, n:]
+    torch.testing.assert_close(y.float(), want, rtol=0,
+                               atol=1e-2 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_unembed_on_the_tp2_vocab_shard(cuda):
+    """``msb_unembed`` on one rank's half of internlm2-1.8b's k-blocked
+    table (2048 x 46336 of 92672): within 1e-5 of the largest logit of its
+    plain version, rows at M = 1 and 8 bitwise those at M = 64."""
+    rng = np.random.default_rng(46336)
+    pq = _unembed_table(rng, 46336, 2048, True, torch.float32, cuda)
+    x = torch.from_numpy(rng.standard_normal((64, 2048)).astype(
+        np.float32)).to(cuda)
+    full = mm_ops.msb_unembed(x, pq)
+    for m in (1, 8, 64):
+        y = mm_ops.msb_unembed(x[:m], pq)
+        want = mm_ref.msb_unembed_ref(x[:m], pq)
+        torch.testing.assert_close(y, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+        assert torch.equal(y, full[:m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_paged_attention_at_tp2_heads(cuda, bits):
+    """B (kv16) and C (kv8/kv4) on one rank's heads at tp = 2: 8 query
+    heads over 4 KV heads, bf16, rows alone bitwise in the batch, the
+    batch within 2e-2 of the plain version."""
+    rng = np.random.default_rng(70 + bits)
+    lens = [0, 1, 17, 300, 2048, 4100]
+    kw = dict(kv=4, h=8)
+    if bits == 16:
+        q, kp, vp, bt, kv_lens = _kv16_case(rng, torch.bfloat16, lens, cuda,
+                                            **kw)
+        out = pa_ops.paged_attention_decode(q, kp, vp, bt, kv_lens)
+        ref = pa_ref.paged_attention_decode_ref(q, kp, vp, bt, kv_lens)
+
+        def alone(i, width):
+            return pa_ops.paged_attention_decode(
+                q[i:i + 1].contiguous(), kp, vp,
+                bt[i:i + 1, :width].contiguous(),
+                kv_lens[i:i + 1].contiguous())
+    else:
+        args, n_full = _quant_case(rng, bits, torch.bfloat16, lens, cuda,
+                                   **kw)
+        out = pa_ops.paged_attention_decode_quant(*args, kv_bits=bits,
+                                                  n_full=n_full)
+        ref = pa_ref.paged_attention_decode_quant_ref(*args, kv_bits=bits,
+                                                      n_full=n_full)
+        q, kc, ks, vc, vs, kh, vh, bt, kv_lens, hot_rows = args
+
+        def alone(i, width):
+            return pa_ops.paged_attention_decode_quant(
+                q[i:i + 1].contiguous(), kc, ks, vc, vs, kh, vh,
+                bt[i:i + 1, :width].contiguous(),
+                kv_lens[i:i + 1].contiguous(),
+                hot_rows[i:i + 1].contiguous(), kv_bits=bits,
+                n_full=n_full[i:i + 1].contiguous())
+    assert out.shape == (len(lens), 8, 128)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+    for i, n in enumerate(lens):
+        assert torch.equal(alone(i, max(1, -(-n // 16)))[0], out[i])
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_gloo_collectives(cuda):
+    """A two-rank gloo world, both ranks on cuda:0: ``psum`` and
+    ``all_gather`` of f32 and bf16 CUDA tensors equal the local sum (in
+    rank order) and concatenation, bitwise, on both ranks."""
+    import test_torch_tp_ranks as torch_tp_ranks
+    from repro_torch.launch.mesh import make_tp_mesh
+    mesh = make_tp_mesh(2, devices=["cuda:0", "cuda:0"])
+    try:
+        res = mesh.gather(torch_tp_ranks.card_collectives)
+    finally:
+        mesh.close()
+    for key in res[0]:
+        xs = [r[key][0] for r in res]
+        want_sum = (xs[0].to(cuda) + xs[1].to(cuda)).cpu()
+        want_cat = torch.cat(xs, dim=-1)
+        for r in res:
+            assert torch.equal(r[key][1], want_sum), key
+            assert torch.equal(r[key][2], want_cat), key

@@ -1,7 +1,6 @@
 """Overload-control tests of the PyTorch port (src/repro_torch/serve/
 overload.py), re-pointed from tests/test_overload.py at the port's engine
-on the CPU (the tensor-parallel soak is left out: tensor parallelism is
-ROADMAP item 11).
+on the CPU, the tensor-parallel soak on a mesh of two CPU ranks.
 
 Overload control plane (DESIGN.md Sec. 17): priority/deadline-aware
 admission, the SLO-driven brownout ladder, and starvation-free shedding.
@@ -615,7 +614,7 @@ def _soak_cohort(n=12):
 
 def _drive_soak(model, params, *, overload, execution="simulated",
                 kv_bits=16, num_pages=24, cohort=None,
-                ladder=SOAK_LADDER, ctrl_kw=None):
+                ladder=SOAK_LADDER, ctrl_kw=None, mesh=None):
     """Direct-drive overload run: the cohort's whole-sequence page demand
     is ~2x the pool's usable pages. TTFT is measured in engine *steps*
     (fully deterministic — no wall clock). Returns
@@ -624,7 +623,7 @@ def _drive_soak(model, params, *, overload, execution="simulated",
                            num_pages=num_pages, max_seq=32,
                            prefill_chunk=8, decode_horizon=4,
                            max_waiting=32, execution=execution,
-                           kv_bits=kv_bits)
+                           kv_bits=kv_bits, mesh=mesh)
     # the demand bound would shed class-blind before brownout gets a say;
     # this soak isolates the controller's class-aware shedding
     eng.scheduler.oversubscribe = 100.0
@@ -715,6 +714,27 @@ def test_overload_soak_token_identity(qsetup, ref_setup, execution,
         assert cohort[i][2] == "batch", "only batch class may be shed"
     assert all(t >= 0 for t in ttft.values())
     assert st["sheds_by_class"]["interactive"] == 0
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_overload_soak_tp2(qsetup, kv_bits):
+    """The soak invariants hold on a 2-way tensor-parallel mesh (two CPU
+    ranks): no starvation, and every admitted request's tokens are the
+    unloaded tp = 2 run's."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    model, params = qsetup
+    mesh = make_tp_mesh(2, devices=["cpu", "cpu"])
+    try:
+        outputs, _ttft, shed, _st, cohort = _drive_soak(
+            model, params, overload=True, kv_bits=kv_bits, mesh=mesh)
+        ref = _soak_reference(model, params, cohort, kv_bits=kv_bits,
+                              mesh=mesh)
+    finally:
+        mesh.close()
+    admitted = [i for i in range(len(cohort)) if i not in shed]
+    assert set(outputs) == set(admitted), "starved request"
+    for i in admitted:
+        assert outputs[i] == ref[i], f"cohort[{i}] diverged under tp=2"
 
 
 def test_soak_interactive_ttft_beats_uncontrolled(qsetup):

@@ -118,7 +118,7 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 UNPORTED = {
-    "mesh": (dict(mesh=object()), "item 11"),
+    "parallel": (dict(parallel=object()), "item 11"),
 }
 
 
@@ -127,6 +127,12 @@ def test_unported_engine_options_name_their_roadmap_item(name):
     kwargs, item = UNPORTED[name]
     with pytest.raises(NotImplementedError, match=item):
         ContinuousEngine(_tiny(), {}, device="cpu", **kwargs)
+
+
+def test_engines_refuse_a_foreign_mesh():
+    """``mesh=`` takes a mesh of ``launch.mesh.make_tp_mesh`` only."""
+    with pytest.raises(TypeError, match="make_tp_mesh"):
+        ContinuousEngine(_tiny(), {}, device="cpu", mesh=object())
 
 
 def test_paged_window_runs():

@@ -188,8 +188,12 @@ def test_temperature_sampling_is_reproducible(engines):
 
 @pytest.mark.parametrize("option", ["mesh", "parallel"])
 def test_tensor_parallel_options_name_item_11(setup, option):
+    """``parallel=`` (GSPMD) is ROADMAP item 11; ``mesh=`` is served, and
+    refuses (TypeError) a mesh that ``make_tp_mesh`` did not make."""
     _, tm, _ = setup
-    with pytest.raises(NotImplementedError, match="item 11"):
+    error, match = ((TypeError, "make_tp_mesh") if option == "mesh"
+                    else (NotImplementedError, "item 11"))
+    with pytest.raises(error, match=match):
         ServeEngine(tm, {}, max_seq=8, device="cpu", **{option: object()})
 
 
