@@ -17,7 +17,8 @@ one line each (details indented), any failure exits non-zero:
    4096; jamba's dt_proj (K=256) at M = 8 and 2048; its expert batch at
    granite-moe's shapes (48 experts, C = 8 and 112, counts with zeros)
    and jamba's (16 experts, 4096 x 14336 both ways, C = 8), every expert
-   bit-identical to msb_matmul on it alone; internlm2's projections as
+   bit-identical to msb_matmul on it alone (one cluster launch a call: its
+   tile, cluster size and ptxas registers printed); internlm2's projections as
    one rank of a tp = 2 mesh holds them (k/v N 512, attention wo K 1024,
    gate/up N 4096, the MLP's wo K 4096) at M = 1, 8 and 512, rows at 1, 8
    and 17 bitwise those at 512; the unembedding's kernel
@@ -504,7 +505,10 @@ def msb_matmul_experts_cases(torch, timer, device, gen):
     experts, top-2, a B=8 decode step at capacity 8). Every expert bit for
     bit ``msb_matmul`` on it alone; against the plain version (a loop of
     ``msb_matmul_ref``) within 1e-2 relative. Library: a loop of
-    ``torch.matmul`` over the routed experts' pre-dequantized weights."""
+    ``torch.matmul`` over the routed experts' pre-dequantized weights.
+    Bound: the routed experts' x and weights read once, every expert's
+    output written once. Prints each launch's tile, cluster and ptxas
+    registers (``expert_launch``)."""
     from repro_torch.kernels.msb_matmul import ops, ref
     rows = []
     for model, e, n_real, topk, dm, df, waves in EXPERT_SHAPES:
@@ -515,6 +519,35 @@ def msb_matmul_experts_cases(torch, timer, device, gen):
     return rows
 
 
+def expert_launch(ops, c, k, n):
+    """How the expert batch launches at (C, K, N): the cluster kernel's
+    tile, cluster and splits a block, with ptxas's registers and spills
+    for that kernel (from this process's build), or the tile of
+    ``msb_matmul``'s kernel it runs past 128 rows (and in a package older
+    than the cluster kernel, as ``chip_compare.py`` runs a parent)."""
+    from repro_torch.kernels import _build
+    if not hasattr(ops, "experts_plan"):
+        p = ops.plan(c, k, n)
+        return (f"msb_matmul's {p.bm} x {p.bn} tile, {p.grid_splits} "
+                "splits on separate blocks (this package has no cluster "
+                "kernel)")
+    p = ops.experts_plan(c, k, n)
+    if not isinstance(p, ops.ExpertPlan):
+        return (f"msb_matmul's {p.bm} x {p.bn} tile, {p.splits} splits "
+                "walked by one block")
+    tag = f"TileILi{p.bm}ELi{p.bn}E"
+    ptx = [r for r in _build.ptxas_report("msb_matmul")
+           if "msb_experts_kernel" in r["kernel"] and tag in r["kernel"]
+           and "ELb0E" in r["kernel"]]
+    regs = (f"{ptx[0]['registers']} registers, spills "
+            f"{ptx[0]['spill_stores']} B stored / {ptx[0]['spill_loads']} B "
+            "loaded" if ptx else "no ptxas report in this process")
+    return (f"cluster kernel, tile {p.bm} x {p.bn}, clusters of {p.cluster} "
+            f"blocks, {p.walk} of {p.splits} K splits a block, "
+            f"{'persistent clusters' if p.persist else 'one item a cluster'}, "
+            f"{p.smem} B shared; {regs}")
+
+
 def expert_shape_cases(torch, timer, device, gen, model, e, n_real, topk,
                        dm, df, c, tokens, ops, ref):
     """Both directions of one model's expert batch at capacity ``c``."""
@@ -522,6 +555,8 @@ def expert_shape_cases(torch, timer, device, gen, model, e, n_real, topk,
     counts = expert_counts(torch, gen, tokens, topk, n_real, e, c, device)
     live = [i for i in range(e) if int(counts[i]) > 0]
     for k, n in ((dm, df), (df, dm)):
+        log(f"  msb_matmul_experts {model} C={c} K={k} N={n}: "
+            f"{expert_launch(ops, c, k, n)}")
         packed = torch.randint(0, 256, (e, k, n // 2), generator=gen,
                                device=device, dtype=torch.int32).to(
                                    torch.uint8)
@@ -556,7 +591,9 @@ def expert_shape_cases(torch, timer, device, gen, model, e, n_real, topk,
         lib, _ = timer.stats(lambda: [torch.matmul(x[i], ws[i])
                                       for i in live])
         del ws
-        nbytes = (e * c * k * 2 + len(live) * (k * n // 2 + k * n // 8 * 4)
+        # unrouted experts' x and weights are never read; their zero
+        # outputs are written
+        nbytes = (len(live) * (c * k * 2 + k * n // 2 + k * n // 8 * 4)
                   + e * c * n * 2 + e * 4)
         b_ms, b_by = bound(nbytes, 2.0 * c * k * n * len(live),
                            "bfloat16")
@@ -1778,6 +1815,11 @@ def device_breakdown(prof, wall, n_steps, what):
         if "paged_attention" in name or "flash_attention" in name:
             log(f"    {ms / n_steps:8.3f} ms/step  {name[:90]} (outside the "
                 "top ten)")
+    experts = sum(ms for name, ms in by_name.items()
+                  if "msb_experts_kernel" in name) / n_steps
+    if experts > 0:
+        log(f"    expert batch (msb_experts_kernel): {experts:.3f} ms/step, "
+            f"{100 * experts / busy:.1f}% of the busy time")
     return busy, kernels / n_steps
 
 

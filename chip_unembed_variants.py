@@ -74,20 +74,21 @@ OLD = ("as built", "conflict-free lookup", "no products (old)")
 NEW = ("as built", "no x loads", "no table lookups", "no products")
 
 
-def build():
-    """{variant: the C library}, every copy built in parallel."""
+def build(variants=None, tag="v"):
+    """{variant: the C library} of ``variants`` ({name: [(old text, new
+    text)]}, ``EDITS`` by default), every copy built in parallel."""
     from repro_torch.kernels import _build
     os.makedirs(OUT, exist_ok=True)
     text, procs = open(SRC).read(), {}
-    for i, (name, edits) in enumerate(EDITS.items()):
+    for i, (name, edits) in enumerate((variants or EDITS).items()):
         src = text
         for old, new in edits:
             if src.count(old) != 1:
                 sys.exit(f"{name}: the edited text was not found once")
             src = src.replace(old, new)
-        cu = os.path.join(OUT, f"v{i}.cu")
+        cu = os.path.join(OUT, f"{tag}{i}.cu")
         open(cu, "w").write(src)
-        lib = os.path.join(OUT, f"v{i}.so")
+        lib = os.path.join(OUT, f"{tag}{i}.so")
         cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-o", lib, cu]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

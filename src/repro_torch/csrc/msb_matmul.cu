@@ -49,13 +49,41 @@
 // and the row alone, whatever M and the tile.
 //
 // Expert batch (msb_matmul_experts, the MoE FFN): E independent products
-// x[e] (M, K) @ dequant(W[e]) (K, N) in one launch, the experts stacked on
-// the grid's z axis beside the K splits. Each expert's blocks run the tile
-// code above on that expert's slices unchanged, so its rows are bit for
-// bit those of msb_matmul on the expert alone. An expert whose routed-token
-// count counts[e] (int32 on the device) is 0 reads no weight and writes
-// zeros: the reference's lax.cond zero branch, with no host sync, so a
-// CUDA graph can capture it.
+// x[e] (M, K) @ dequant(W[e]) (K, N) in one launch. An expert whose
+// routed-token count counts[e] (int32 on the device) is 0 reads no weight
+// and no x and writes zeros: the reference's lax.cond zero branch, with no
+// host sync, so a CUDA graph can capture it. Every other expert's rows are
+// bit for bit those of msb_matmul on the expert alone: the same K plan,
+// the same mma.sync steps into zeroed per-split sums, the same ascending
+// additions of the splits. bf16 x at M <= 128 (decode steps, packed-prefill
+// waves: msb_experts_kernel):
+//   * what bounds it: the routed experts' weights, 1 B a weight, once; x
+//     and the output are smaller at these M (granite-moe's 512-token wave:
+//     31 MB of weights, 14 of x). Tiled as msb_matmul's 16-row tiles, a
+//     wave re-streamed each expert's weights and re-decoded them once per
+//     16 rows; its splits went through an f32 (E, splits, M, N) scratch in
+//     device memory and a second launch;
+//   * one block holds all M rows of an expert (up to 8 m16 fragments,
+//     warps over rows and columns), so a step's weights are loaded and
+//     decoded once for every row;
+//   * the K splits of one item (an expert's N tile) run as the blocks of
+//     one thread block cluster (at most 8; past 8 splits a block walks
+//     several in a row and keeps each sum apart). Each leaves its f32 sums
+//     in shared memory; after cluster.sync() every block adds a share of
+//     the tile over all splits through distributed shared memory, in
+//     ascending split order from 0, and writes bf16: no scratch, no second
+//     launch;
+//   * what bounds it in practice is a block's fixed cost (filling its
+//     ring, the cluster's barrier and reduction), not the decode or the
+//     products: at up to 64 rows as many clusters as the card holds each
+//     take routed items in turn, the ring running on into the next item
+//     while the last one is reduced; at 128 rows (a wave) two sets of
+//     sum tiles do not fit beside the ring, so each cluster takes one
+//     item and its last sums lie over the drained ring. A thread's copies
+//     advance by fixed strides a step (StepCopies), and an N tile of 128
+//     columns reads 64 contiguous bytes a row of codes and codebooks.
+// f32 x, and M > 128 (LargeTile walks all of K in a block), run
+// msb_matmul's kernels with the experts on the grid's z axis.
 //
 // f32 x (f32 projections): SIMT f32 FMA (TF32 would miss the 1e-5
 // tolerance): each 256-thread block owns a BM x 64 tile and one K split,
@@ -66,16 +94,20 @@
 // The unembedding (msb_unembed, below) has a kernel of its own: it streams
 // the table's weights into registers and reads both of its layouts, the
 // untied k-blocked table and a tied n-blocked table as its transpose.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 typedef __nv_bfloat16 bf16;
 
 constexpr int BK = 64;       // K step == MSB block
 constexpr int LEVELS = 8;
+constexpr size_t SMEM_LIMIT = 232448;   // shared bytes a block may opt into
 
 // Expert e of a batch (blockIdx.z = e * zs + split): moves the operands'
 // pointers to its slices and returns the split index within the expert.
@@ -266,6 +298,8 @@ struct Tile {
   static constexpr int STAGE_BYTES = X_BYTES + PK_BYTES + CB_BYTES;
   static constexpr int W_BYTES = BK * LDW * 2;
   static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * W_BYTES;
+  static constexpr int LDS = BN + 8;    // f32 row stride of a split's sum tile
+  static constexpr int SUM_BYTES = BM * LDS * 4;
   static constexpr int WPT = BK * BN / 8 / THREADS;   // packed words a thread decodes
   static constexpr int TPR = BN / 8 / WPT;             // decoding threads per k row
   static_assert(BK * TPR == THREADS && (WPT == 2 || WPT == 4) && 64 % (8 * WPT) == 0,
@@ -279,6 +313,22 @@ using SmallTile = Tile<16, 64, 1, 4, 5, 4>;
 // one block an SM) were slower, and a 64 x 128 tile was no faster summed
 // over a layer's projections at M = 256 to 2048.
 using LargeTile = Tile<128, 128, 4, 4, 3, 1>;
+// The expert batch at M <= 128 (msb_experts_kernel): one block holds all
+// the rows of an expert, so its tile is chosen by M (ops.EXPERT_TILES):
+// 16 rows x 128 columns on 8 warps, 32 and 64 rows x 64 columns on 4
+// warps, 128 rows on 8 warps of 32 x 64 (32 x 32 where N is not a multiple
+// of 128 or the split sums would not fit); 2-3 blocks an SM. At 16 rows,
+// 64 columns on 4 warps (4 blocks an SM) were slower
+// (chip_experts_variants.py).
+template <class TL, bool PERSIST_>
+struct ExpertTile : TL {
+  static constexpr bool PERSIST = PERSIST_;   // clusters persist over items
+};
+using ExpertTile16 = ExpertTile<Tile<16, 128, 1, 8, 4, 2>, true>;
+using ExpertTile32 = ExpertTile<Tile<32, 64, 2, 2, 4, 3>, true>;
+using ExpertTile64 = ExpertTile<Tile<64, 64, 2, 2, 4, 2>, true>;
+using ExpertTile128 = ExpertTile<Tile<128, 128, 4, 2, 3, 2>, false>;
+using ExpertTile128N = ExpertTile<Tile<128, 64, 4, 2, 3, 2>, false>;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -374,88 +424,75 @@ __device__ __forceinline__ uint32_t weight_bits(const float* c, uint32_t nib) {
   return (uint32_t)(*reinterpret_cast<const unsigned short*>(&v)) ^ ((nib & 8u) << 12);
 }
 
-// grid: (ceil(N / BN), ceil(M / BM), E * (splits on separate blocks or
-// 1)), zs the second factor (expert_slice), per expert:
-// partial != nullptr: block z sums split z alone and writes it to
-// partial[z, m, n]. Else the block walks all of K, adds each split's sum to
-// its running total at the split's end, and writes bf16(total + bias).
+// The pieces of a bf16 tile's K step (TL: tile, KBLOCKED: scales layout),
+// on the shared memory of one block: a ring of STAGES stages, each the x
+// tile (BM x 64 bf16, rows past M zero-filled), the packed bytes (64 x
+// BN/2) and codebooks of one 64-row K step, then two decoded bf16 W tiles.
 template <class TL, bool KBLOCKED>
-__global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS)
-msb_matmul_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
-                     const float* __restrict__ scales, const float* __restrict__ bias,
-                     bf16* __restrict__ out, float* __restrict__ partial,
-                     const int* __restrict__ counts, int zs, int M, int K, int N,
-                     int k_per_split) {
-  constexpr int BM = TL::BM, BN = TL::BN, MT = TL::MT, NT = TL::NT;
-  constexpr int LDX = TL::LDX, LDW = TL::LDW, STAGES = TL::STAGES;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  int e;
-  const int z = expert_slice(x, packed, scales, out, partial, zs, M, K, N, e);
-  if (counts != nullptr && counts[e] == 0) {   // the reduce zeros split sums
-    if (partial == nullptr) zero_tile<BM, BN>(out, m0, n0, M, N);
-    return;
+struct TileSteps {
+  static constexpr int BM = TL::BM, BN = TL::BN, MT = TL::MT, NT = TL::NT;
+  static constexpr int LDX = TL::LDX, LDW = TL::LDW, STAGES = TL::STAGES;
+  unsigned char* smem;
+  int tid, wm, wn, lane;
+
+  __device__ __forceinline__ explicit TileSteps(unsigned char* s) : smem(s) {
+    tid = threadIdx.x;
+    lane = tid % 32;
+    wm = (tid / 32) / TL::WARPS_N;
+    wn = (tid / 32) % TL::WARPS_N;
   }
-  const int k_begin = z * k_per_split;
-  const int n_steps = ((partial != nullptr) ? k_per_split : K) / BK;
-  const int split_steps = k_per_split / BK;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
-  const int g = lane >> 2, tq = lane & 3;
-
-  auto xs_of = [&](int s) {
+  __device__ __forceinline__ bf16* xs_of(int s) const {
     return reinterpret_cast<bf16*>(smem + s * TL::STAGE_BYTES);
-  };
-  auto pk_of = [&](int s) { return smem + s * TL::STAGE_BYTES + TL::X_BYTES; };
-  auto cb_of = [&](int s) {
-    return reinterpret_cast<float*>(smem + s * TL::STAGE_BYTES + TL::X_BYTES +
-                                    TL::PK_BYTES);
-  };
-  auto ws_of = [&](int b) {
+  }
+  __device__ __forceinline__ unsigned char* pk_of(int s) const {
+    return smem + s * TL::STAGE_BYTES + TL::X_BYTES;
+  }
+  __device__ __forceinline__ float* cb_of(int s) const {
+    return reinterpret_cast<float*>(smem + s * TL::STAGE_BYTES + TL::X_BYTES + TL::PK_BYTES);
+  }
+  __device__ __forceinline__ bf16* ws_of(int b) const {
     return reinterpret_cast<bf16*>(smem + STAGES * TL::STAGE_BYTES + b * TL::W_BYTES);
-  };
+  }
 
-  // Step i's x tile, packed bytes and codebooks -> stage i % STAGES, one
-  // commit group (empty past the last step, so the group count stays fixed).
-  auto load = [&](int i) {
-    if (i < n_steps) {
-      const int s = i % STAGES, k0 = k_begin + i * BK;
-      const uint32_t xs = smem_u32(xs_of(s)), pk = smem_u32(pk_of(s));
-      const uint32_t cb = smem_u32(cb_of(s));
-      for (int c = tid; c < BM * 8; c += TL::THREADS) {
-        const int r = c / 8, j = c % 8;
-        const bool in = m0 + r < M;
-        cp_async16(xs + (r * LDX + j * 8) * 2,
-                   in ? x + (size_t)(m0 + r) * K + k0 + j * 8 : x, in);
-      }
-      for (int c = tid; c < BK * BN / 32; c += TL::THREADS) {
-        const int r = c / (BN / 32), j = c % (BN / 32);
-        const bool in = n0 + j * 32 < N;
-        cp_async16(pk + c * 16, in ? packed + (size_t)(k0 + r) * (N / 2) + n0 / 2 + j * 16
-                                   : packed, in);
-      }
-      for (int c = tid; c < BN * LEVELS / 4; c += TL::THREADS) {
-        const float* src;
-        bool in;
-        if constexpr (KBLOCKED) {   // BN codebooks of this 64-k block
-          const int col = c / 2;
-          in = n0 + col < N;
-          src = scales + ((size_t)(k0 / BK) * N + n0 + col) * LEVELS + (c % 2) * 4;
-        } else {                    // BK rows x BN / 64 codebooks
-          const int r = c / (BN / 32), j = c % (BN / 32);
-          in = n0 + (j / 2) * 64 < N;
-          src = scales + ((size_t)(k0 + r) * (N / 64) + n0 / 64 + j / 2) * LEVELS +
-                (j % 2) * 4;
-        }
-        cp_async16(cb + c * 16, in ? src : scales, in);
-      }
+  // The K step at k0 of x rows m0.. and W columns n0.. -> stage s (the
+  // copies only; the caller commits).
+  __device__ __forceinline__ void load(int s, const bf16* __restrict__ x,
+                                       const uint8_t* __restrict__ packed,
+                                       const float* __restrict__ scales, int m0, int n0, int M,
+                                       int K, int N, int k0) const {
+    const uint32_t xs = smem_u32(xs_of(s)), pk = smem_u32(pk_of(s));
+    const uint32_t cb = smem_u32(cb_of(s));
+    for (int c = tid; c < BM * 8; c += TL::THREADS) {
+      const int r = c / 8, j = c % 8;
+      const bool in = m0 + r < M;
+      cp_async16(xs + (r * LDX + j * 8) * 2, in ? x + (size_t)(m0 + r) * K + k0 + j * 8 : x,
+                 in);
     }
-    cp_async_commit();
-  };
+    for (int c = tid; c < BK * BN / 32; c += TL::THREADS) {
+      const int r = c / (BN / 32), j = c % (BN / 32);
+      const bool in = n0 + j * 32 < N;
+      cp_async16(pk + c * 16, in ? packed + (size_t)(k0 + r) * (N / 2) + n0 / 2 + j * 16
+                                 : packed, in);
+    }
+    for (int c = tid; c < BN * LEVELS / 4; c += TL::THREADS) {
+      const float* src;
+      bool in;
+      if constexpr (KBLOCKED) {   // BN codebooks of this 64-k block
+        const int col = c / 2;
+        in = n0 + col < N;
+        src = scales + ((size_t)(k0 / BK) * N + n0 + col) * LEVELS + (c % 2) * 4;
+      } else {                    // BK rows x BN / 64 codebooks
+        const int r = c / (BN / 32), j = c % (BN / 32);
+        in = n0 + (j / 2) * 64 < N;
+        src = scales + ((size_t)(k0 + r) * (N / 64) + n0 / 64 + j / 2) * LEVELS + (j % 2) * 4;
+      }
+      cp_async16(cb + c * 16, in ? src : scales, in);
+    }
+  }
 
   // Stage s -> W tile b: thread tid decodes the WPT packed words (8
   // columns each) from column c0 of k row r.
-  auto decode = [&](int s, int b) {
+  __device__ __forceinline__ void decode(int s, int b) const {
     constexpr int WPT = TL::WPT;
     const int r = tid / TL::TPR, c0 = (tid % TL::TPR) * WPT * 8;
     uint32_t words[WPT];
@@ -492,34 +529,18 @@ msb_matmul_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
         *reinterpret_cast<uint4*>(dst + j * 8) = make_uint4(o[0], o[1], o[2], o[3]);
       }
     }
-  };
+  }
 
-  float acc[MT][NT][4], total[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = total[i][j][e] = 0.f;
-
-  // ldmatrix lanes: x rows (lane & 15), k offset (lane >> 4) * 8; W (trans)
-  // k rows (lane & 7) + ((lane >> 3) & 1) * 8, columns (lane >> 4) * 8
-  const int x_row = wm * TL::WTM + (lane & 15), x_col = (lane >> 4) * 8;
-  const int w_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int w_col = wn * TL::WTN + (lane >> 4) * 8;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) load(s);
-  cp_async_wait<STAGES - 2>();   // step 0 has landed
-  __syncthreads();
-  decode(0, 0);
-
-  for (int i = 0; i < n_steps; ++i) {
-    cp_async_wait<STAGES - 3>();   // step i + 1 has landed
-    __syncthreads();               // W tile i visible; step i - 1 done by all
-    load(i + STAGES - 1);
-    const bf16* xs = xs_of(i % STAGES);
-    const bf16* wt = ws_of(i & 1);
+  // acc += stage s's x tile times W tile b: the step's four k16 products in
+  // ascending order. ldmatrix lanes: x rows (lane & 15), k offset (lane >>
+  // 4) * 8; W (trans) k rows (lane & 7) + ((lane >> 3) & 1) * 8, columns
+  // (lane >> 4) * 8.
+  __device__ __forceinline__ void mma(int s, int b, float (&acc)[MT][NT][4]) const {
+    const int x_row = wm * TL::WTM + (lane & 15), x_col = (lane >> 4) * 8;
+    const int w_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int w_col = wn * TL::WTN + (lane >> 4) * 8;
+    const bf16* xs = xs_of(s);
+    const bf16* wt = ws_of(b);
 #pragma unroll
     for (int kc = 0; kc < BK / 16; ++kc) {
       uint32_t af[MT][4], bfr[NT][2];
@@ -540,22 +561,97 @@ msb_matmul_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
     }
+  }
+};
+
+// The K loop of a bf16 tile (TL) at rows m0.. and columns n0.. of one
+// product: n_steps steps of 64 from k_begin, each split of split_steps
+// steps summed in ascending k16 order into acc (zeroed by the caller). At
+// each split's end, after the next step's weights are decoded, split_end(j)
+// (j the split's index from 0) takes acc and leaves it zeroed. Returns once
+// every copy has landed; a caller that reuses the ring syncs first.
+template <class TL, bool KBLOCKED, class SplitEnd>
+__device__ __forceinline__ void tile_k_loop(unsigned char* smem, const bf16* __restrict__ x,
+                                            const uint8_t* __restrict__ packed,
+                                            const float* __restrict__ scales, int m0, int n0,
+                                            int M, int K, int N, int k_begin, int n_steps,
+                                            int split_steps, float (&acc)[TL::MT][TL::NT][4],
+                                            SplitEnd&& split_end) {
+  constexpr int STAGES = TL::STAGES;
+  const TileSteps<TL, KBLOCKED> st(smem);
+  // step i -> stage i % STAGES, one commit group (empty past the last step,
+  // so the group count stays fixed)
+  auto load = [&](int i) {
+    if (i < n_steps) st.load(i % STAGES, x, packed, scales, m0, n0, M, K, N, k_begin + i * BK);
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load(s);
+  cp_async_wait<STAGES - 2>();   // step 0 has landed
+  __syncthreads();
+  st.decode(0, 0);
+
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<STAGES - 3>();   // step i + 1 has landed
+    __syncthreads();               // W tile i visible; step i - 1 done by all
+    load(i + STAGES - 1);
+    st.mma(i % STAGES, i & 1, acc);
     // step i + 1's weights, after step i's products are issued (faster
     // than decoding first: the integer work fills the tensor cores' wait)
-    if (i + 1 < n_steps) decode((i + 1) % STAGES, (i + 1) & 1);
-    if ((i + 1) % split_steps == 0) {   // a split ends: total += its sum
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            total[mt][nt][e] += acc[mt][nt][e];
-            acc[mt][nt][e] = 0.f;
-          }
-    }
+    if (i + 1 < n_steps) st.decode((i + 1) % STAGES, (i + 1) & 1);
+    if ((i + 1) % split_steps == 0) split_end((i + 1) / split_steps - 1);
   }
   cp_async_wait<0>();
+}
+
+// grid: (ceil(N / BN), ceil(M / BM), E * (splits on separate blocks or
+// 1)), zs the second factor (expert_slice), per expert:
+// partial != nullptr: block z sums split z alone and writes it to
+// partial[z, m, n]. Else the block walks all of K, adds each split's sum to
+// its running total at the split's end, and writes bf16(total + bias).
+template <class TL, bool KBLOCKED>
+__global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS)
+msb_matmul_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
+                     const float* __restrict__ scales, const float* __restrict__ bias,
+                     bf16* __restrict__ out, float* __restrict__ partial,
+                     const int* __restrict__ counts, int zs, int M, int K, int N,
+                     int k_per_split) {
+  constexpr int BM = TL::BM, BN = TL::BN, MT = TL::MT, NT = TL::NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  int e;
+  const int z = expert_slice(x, packed, scales, out, partial, zs, M, K, N, e);
+  if (counts != nullptr && counts[e] == 0) {   // the reduce zeros split sums
+    if (partial == nullptr) zero_tile<BM, BN>(out, m0, n0, M, N);
+    return;
+  }
+  const int k_begin = z * k_per_split;
+  const int n_steps = ((partial != nullptr) ? k_per_split : K) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
+  const int g = lane >> 2, tq = lane & 3;
+
+  float acc[MT][NT][4], total[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = total[i][j][e] = 0.f;
+
+  tile_k_loop<TL, KBLOCKED>(smem, x, packed, scales, m0, n0, M, K, N, k_begin, n_steps,
+                            k_per_split / BK, acc, [&](int) {   // total += the split's sum
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          total[mt][nt][e] += acc[mt][nt][e];
+          acc[mt][nt][e] = 0.f;
+        }
+  });
 
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -580,6 +676,292 @@ msb_matmul_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
         *reinterpret_cast<uint32_t*>(out + (size_t)m * N + n) = pack_bf16(v0, v1);
       }
     }
+}
+
+// Shared bytes of an expert-batch block that walks `walk` splits of each
+// item: the tile's ring and W tiles, then the split sums. persist: two
+// sets of walk sum tiles after the ring (item by item, alternating, while
+// the ring runs on into the next item). Else (one item a cluster) the sums
+// of the first walk - 1 splits after the ring, the last split's over the
+// ring, free by then. ops.experts_smem computes the same.
+template <class TL>
+size_t experts_smem(int walk) {
+  if (TL::PERSIST) return TL::SMEM + 2 * (size_t)walk * TL::SUM_BYTES;
+  const size_t lead = TL::SMEM > TL::SUM_BYTES ? TL::SMEM : TL::SUM_BYTES;
+  return lead + (size_t)(walk - 1) * TL::SUM_BYTES;
+}
+
+// A thread's share of TileSteps::load's copies for one product (an
+// expert's slices), set up once an item, then issued a step at a time: the
+// sources' offsets advance by one K step each time (x 64 elements, packed
+// bytes 64 rows, codebooks 8 N floats in either layout).
+template <class TL, bool KBLOCKED>
+struct StepCopies {
+  static constexpr int NX = TL::BM * 8, NP = BK * TL::BN / 32, NC = TL::BN * LEVELS / 4;
+  static constexpr int CX = (NX + TL::THREADS - 1) / TL::THREADS;
+  static constexpr int CP = (NP + TL::THREADS - 1) / TL::THREADS;
+  static constexpr int CC = (NC + TL::THREADS - 1) / TL::THREADS;
+  const bf16* x;
+  const uint8_t* packed;
+  const float* scales;
+  uint32_t xo[CX], po[CP], co[CC];   // source offsets (elements) of the next step
+  uint32_t in_mask;                  // bit i: copy i is in range (else zero-filled)
+
+  // Expert slices x, packed, scales; columns n0..; the first step at k0.
+  __device__ __forceinline__ void start(const bf16* xe, const uint8_t* pe, const float* se,
+                                        int n0, int M, int K, int N, int k0) {
+    x = xe;
+    packed = pe;
+    scales = se;
+    in_mask = 0;
+    const int tid = threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < CX; ++i) {
+      const int c = tid + i * TL::THREADS, r = c / 8, j = c % 8;
+      const bool in = r < M;
+      xo[i] = in ? (uint32_t)(r * K + k0 + j * 8) : 0u;
+      in_mask |= (uint32_t)in << i;
+    }
+#pragma unroll
+    for (int i = 0; i < CP; ++i) {
+      const int c = tid + i * TL::THREADS, r = c / (TL::BN / 32), j = c % (TL::BN / 32);
+      const bool in = n0 + j * 32 < N;
+      po[i] = in ? (uint32_t)((k0 + r) * (N / 2) + n0 / 2 + j * 16) : 0u;
+      in_mask |= (uint32_t)in << (8 + i);
+    }
+#pragma unroll
+    for (int i = 0; i < CC; ++i) {
+      const int c = tid + i * TL::THREADS;
+      bool in;
+      if constexpr (KBLOCKED) {
+        const int col = c / 2;
+        in = n0 + col < N;
+        co[i] = in ? (uint32_t)(((k0 / BK) * N + n0 + col) * LEVELS + (c % 2) * 4) : 0u;
+      } else {
+        const int r = c / (TL::BN / 32), j = c % (TL::BN / 32);
+        in = n0 + (j / 2) * 64 < N;
+        co[i] = in ? (uint32_t)(((k0 + r) * (N / 64) + n0 / 64 + j / 2) * LEVELS + (j % 2) * 4)
+                   : 0u;
+      }
+      in_mask |= (uint32_t)in << (16 + i);
+    }
+  }
+
+  // This step's copies -> stage s of the ring at smem; then one step on.
+  __device__ __forceinline__ void issue(unsigned char* smem, int s, int K, int N) {
+    const int tid = threadIdx.x;
+    unsigned char* stage = smem + s * TL::STAGE_BYTES;
+#pragma unroll
+    for (int i = 0; i < CX; ++i) {
+      const int c = tid + i * TL::THREADS;
+      if (CX * TL::THREADS > NX && c >= NX) break;
+      const bool in = (in_mask >> i) & 1u;
+      cp_async16(smem_u32(stage + ((c / 8) * TL::LDX + (c % 8) * 8) * 2), x + xo[i], in);
+      xo[i] += in ? BK : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < CP; ++i) {
+      const int c = tid + i * TL::THREADS;
+      if (CP * TL::THREADS > NP && c >= NP) break;
+      const bool in = (in_mask >> (8 + i)) & 1u;
+      cp_async16(smem_u32(stage + TL::X_BYTES + c * 16), packed + po[i], in);
+      po[i] += in ? (uint32_t)(BK * (N / 2)) : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < CC; ++i) {
+      const int c = tid + i * TL::THREADS;
+      if (CC * TL::THREADS > NC && c >= NC) break;
+      const bool in = (in_mask >> (16 + i)) & 1u;
+      cp_async16(smem_u32(stage + TL::X_BYTES + TL::PK_BYTES + c * 16), scales + co[i], in);
+      co[i] += in ? (uint32_t)(8 * N) : 0u;
+    }
+  }
+};
+
+// The experts with a routed token, in order: expert_of(r) is the index of
+// the r-th of them (E past the last), found 32 experts at a time with a
+// warp ballot. r must not decrease between calls; every lane of the warp
+// calls it.
+struct RoutedExperts {
+  const int* counts;
+  int E, e0 = 0, r0 = 0;   // the chunk of 32 experts from e0; routed ones before it
+  __device__ __forceinline__ RoutedExperts(const int* c, int n) : counts(c), E(n) {}
+  __device__ __forceinline__ int expert_of(int rank) {
+    for (; e0 < E; e0 += 32) {
+      const int e = e0 + (int)(threadIdx.x % 32);
+      const unsigned bits = __ballot_sync(0xffffffffu, e < E && counts[e] != 0);
+      const int n = __popc(bits);
+      if (rank < r0 + n) return e0 + (int)__fns(bits, 0, rank - r0 + 1);
+      r0 += n;
+    }
+    return E;
+  }
+};
+
+// The expert batch at M <= 128 rows an expert. An item is one expert's
+// N tile of BN columns; the routed items (experts with counts[e] > 0, N
+// tiles in order) are numbered q = 0, 1, ... grid: G clusters of
+// `cluster` blocks ((G * cluster, 1, 1), clusters (cluster, 1, 1)); cluster
+// c takes routed items c, c + G, ... Its block of rank r holds all M rows
+// and walks splits r * walk .. r * walk + walk - 1 of each (cluster * walk
+// = splits, each k_per_split), decoding each step's weights once for
+// every row; its cp.async ring runs on from one item into the next. Each
+// split's f32 sum goes to the block's shared memory. After the item's
+// cluster.sync() every block adds its share of the item's M x BN outputs
+// over all splits, read through distributed shared memory, in ascending
+// split order from 0 (split_reduce_kernel's additions), and writes them
+// as bf16. Cluster c also writes the zeros of unrouted items c, c + G, ...
+// of all E * ceil(N / BN) items, and reads nothing of those experts.
+// Without TL::PERSIST, G is the item count (one item a cluster at most).
+template <class TL, bool KBLOCKED>
+__global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS)
+msb_experts_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
+                   const float* __restrict__ scales, const int* __restrict__ counts,
+                   bf16* __restrict__ out, int E, int M, int K, int N, int k_per_split,
+                   int walk) {
+  constexpr int BN = TL::BN, MT = TL::MT, NT = TL::NT, LDS = TL::LDS, STAGES = TL::STAGES;
+  constexpr bool persist = TL::PERSIST;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int G = gridDim.x / cl, c = blockIdx.x / cl;
+  const int ntiles = (N + BN - 1) / BN;
+  const size_t x_e = (size_t)M * K, pk_e = (size_t)K * (N / 2), out_e = (size_t)M * N;
+  const size_t sc_e = (size_t)K * (N / 8);   // K * N/64 * 8 == K/64 * N * 8
+  // this block's share of an item's outputs: groups [lo, hi) of 4 columns
+  // of the M x BN tile, row-major
+  const int groups = M * (BN / 4);
+  const int lo = rank * groups / cl, hi = (rank + 1) * groups / cl;
+
+  for (int i = c; i < E * ntiles; i += G) {   // unrouted items: zeros
+    const int e = i / ntiles, n0 = (i % ntiles) * BN;
+    if (counts[e] != 0) continue;
+    for (int f = lo + threadIdx.x; f < hi; f += TL::THREADS) {
+      const int m = f / (BN / 4), n = n0 + (f % (BN / 4)) * 4;
+      if (n < N)
+        *reinterpret_cast<uint2*>(out + e * out_e + (size_t)m * N + n) = make_uint2(0u, 0u);
+    }
+  }
+  RoutedExperts routed(counts, E), routed_ld(counts, E);
+  int q = c, e = routed.expert_of(c / ntiles);
+  if (e >= E) return;   // no routed item: the cluster touches no peer
+
+  const TileSteps<TL, KBLOCKED> st(smem);
+  const int split_steps = k_per_split / BK, item_steps = walk * split_steps;
+  const int k_first = rank * walk * k_per_split;
+  // the loader's cursor (routed item q_ld of expert e_ld, its step s_ld)
+  // runs STAGES - 1 steps ahead, into the cluster's next items
+  int q_ld = q, e_ld = e, s_ld = 0, t_ld = 0;
+  StepCopies<TL, KBLOCKED> copies;
+  auto start_item = [&]() {
+    copies.start(x + e_ld * x_e, packed + e_ld * pk_e, scales + e_ld * sc_e,
+                 (q_ld % ntiles) * BN, M, K, N, k_first);
+  };
+  start_item();
+  auto load_next = [&]() {
+    if (e_ld < E) {
+      copies.issue(smem, t_ld % STAGES, K, N);
+      if (++s_ld == item_steps) {   // one item a cluster: none after it
+        s_ld = 0;
+        q_ld += G;
+        e_ld = persist ? routed_ld.expert_of(q_ld / ntiles) : E;
+        if (e_ld < E) start_item();
+      }
+    }
+    cp_async_commit();
+    ++t_ld;
+  };
+  const size_t lead = TL::SMEM > TL::SUM_BYTES ? TL::SMEM : TL::SUM_BYTES;
+  auto sum_at = [&](unsigned char* base, int parity, int j) {   // split j's sum tile
+    if constexpr (persist)
+      return reinterpret_cast<float*>(base + TL::SMEM +
+                                      (size_t)(parity * walk + j) * TL::SUM_BYTES);
+    return reinterpret_cast<float*>(base + (j == walk - 1 ? 0 : lead + (size_t)j * TL::SUM_BYTES));
+  };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
+  const int g = lane >> 2, tq = lane & 3;
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+  auto store = [&](float* dst) {   // acc -> a sum tile, then acc = 0
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int m = wm * TL::WTM + mt * 16 + g + 8 * hh;
+          const int n = wn * TL::WTN + nt * 8 + 2 * tq;
+          *reinterpret_cast<float2*>(dst + m * LDS + n) =
+              make_float2(acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]);
+          acc[mt][nt][2 * hh] = acc[mt][nt][2 * hh + 1] = 0.f;
+        }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_next();
+  cp_async_wait<STAGES - 2>();   // step 0 has landed
+  __syncthreads();
+  st.decode(0, 0);
+  const int splits = cl * walk;
+  for (int t = 0, parity = 0;; parity ^= 1) {
+    const int n0 = (q % ntiles) * BN;
+    const int e_next = persist ? routed.expert_of((q + G) / ntiles) : E;
+    for (int s = 0, ss = 0, j = 0; s < item_steps; ++s, ++t) {   // split j, its step ss
+      cp_async_wait<STAGES - 3>();   // step t + 1 has landed
+      __syncthreads();               // W tile t visible; step t - 1 done by all
+      load_next();
+      st.mma(t % STAGES, t & 1, acc);
+      if (s + 1 < item_steps || e_next < E) st.decode((t + 1) % STAGES, (t + 1) & 1);
+      if (++ss == split_steps) {
+        if (persist || j < walk - 1) store(sum_at(smem, parity, j));
+        ss = 0;
+        ++j;
+      }
+    }
+    if constexpr (!persist) {   // the last split's sum over the drained ring
+      cp_async_wait<0>();
+      __syncthreads();
+      store(sum_at(smem, parity, walk - 1));
+    }
+    cluster.sync();   // every split's sum of item q is in its block's shared memory
+    bf16* o = out + e * out_e;
+    for (int f = lo + threadIdx.x; f < hi; f += TL::THREADS) {
+      const int m = f / (BN / 4), col = (f % (BN / 4)) * 4;
+      if (n0 + col >= N) continue;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s0 = 0; s0 < splits; s0 += 8) {   // split s lies in rank s / walk
+        float4 p[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)   // the loads first, all in flight at once
+          if (s0 + u < splits)
+            p[u] = *reinterpret_cast<const float4*>(
+                sum_at(cluster.map_shared_rank(smem, (s0 + u) / walk), parity,
+                       (s0 + u) % walk) +
+                m * LDS + col);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)   // then the additions, in ascending order
+          if (s0 + u < splits) {
+            v.x += p[u].x;
+            v.y += p[u].y;
+            v.z += p[u].z;
+            v.w += p[u].w;
+          }
+      }
+      *reinterpret_cast<uint2*>(o + (size_t)m * N + n0 + col) =
+          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    }
+    if (e_next >= E) break;
+    q += G;
+    e = e_next;
+  }
+  cp_async_wait<0>();
+  cluster.sync();    // no block leaves while a peer still reads its sums
 }
 
 template <class TL, bool KB>
@@ -613,6 +995,84 @@ int launch_tc_kb(const void* x, const void* packed, const void* scales, const vo
                                         grid_splits, s)
                   : launch_tc<TL, false>(xx, pk, sc, bs, counts, o, p, E, M, K, N, splits,
                                          grid_splits, s);
+}
+
+template <class TL, bool KB>
+int launch_experts(const bf16* x, const uint8_t* packed, const float* scales,
+                   const int* counts, bf16* out, int E, int M, int K, int N, int splits,
+                   int cluster, cudaStream_t stream) {
+  const int walk = splits / cluster;
+  const size_t smem = experts_smem<TL>(walk);
+  if (M > TL::BM || smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kernel = msb_experts_kernel<TL, KB>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  const long long items = (long long)E * ((N + TL::BN - 1) / TL::BN);
+  cfg.gridDim = dim3((unsigned)(items * cluster), 1, 1);
+  cfg.blockDim = dim3(TL::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (TL::PERSIST) {   // as many clusters as the card holds, each walking several items
+    static int resident[8][16] = {};   // by cluster size and walk (smem), per instance
+    int fresh = 0, *g = cluster <= 8 && walk <= 16 ? &resident[cluster - 1][walk - 1] : &fresh;
+    if (*g == 0) {
+      e = cudaOccupancyMaxActiveClusters(g, kernel, &cfg);
+      if (e != cudaSuccess) return (int)e;
+      if (*g < 1) return (int)cudaErrorInvalidConfiguration;
+    }
+    if (*g < items) cfg.gridDim.x = (unsigned)(*g * cluster);
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, x, packed, scales, counts, out, E, M, K, N, K / splits,
+                         walk);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <class TL>
+int launch_experts_kb(const void* x, const void* packed, const void* scales,
+                      const int* counts, void* out, int E, int M, int K, int N, int splits,
+                      int cluster, int kblocked, cudaStream_t s) {
+  auto* xx = static_cast<const bf16*>(x);
+  auto* pk = static_cast<const uint8_t*>(packed);
+  auto* sc = static_cast<const float*>(scales);
+  auto* o = static_cast<bf16*>(out);
+  return kblocked ? launch_experts<TL, true>(xx, pk, sc, counts, o, E, M, K, N, splits,
+                                             cluster, s)
+                  : launch_experts<TL, false>(xx, pk, sc, counts, o, E, M, K, N, splits,
+                                              cluster, s);
+}
+
+// The expert batch's cluster launch (bf16 x, M <= 128): the tile (bm, bn),
+// `cluster` blocks along K a cluster and persistent clusters or one item a
+// cluster, as ops.experts_plan chose them.
+int run_experts(const void* x, const void* packed, const void* scales, const int* counts,
+                void* out, int E, int M, int K, int N, int splits, int bm, int bn,
+                int cluster, int persist, int kblocked, void* stream) {
+  if (splits < 1 || K % (BK * splits) || N % 64 || M < 0 || M > 128 || E < 1 ||
+      cluster < 1 || cluster > 8 || splits % cluster ||
+      (long long)E * ((N + bn - 1) / bn) * cluster > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define EXPERT_TILE(TL)                                                                \
+  if (bm == TL::BM && bn == TL::BN && persist == (int)TL::PERSIST)                     \
+    return launch_experts_kb<TL>(x, packed, scales, counts, out, E, M, K, N, splits, \
+                                 cluster, kblocked, s);
+  EXPERT_TILE(ExpertTile16)
+  EXPERT_TILE(ExpertTile32)
+  EXPERT_TILE(ExpertTile64)
+  EXPERT_TILE(ExpertTile128)
+  EXPERT_TILE(ExpertTile128N)
+#undef EXPERT_TILE
+  return (int)cudaErrorInvalidValue;
 }
 
 // Both entry points: E products (E = 1 and counts == nullptr for one).
@@ -708,7 +1168,6 @@ constexpr int UN_SLOTS = 2;         // tied: rows a lane holds; k-blocked: colum
 constexpr int TAB = 16 * 32;        // floats of one signed decode table, all lanes
 constexpr int KB_STAGES = 3;        // k-blocked: cp.async ring of 64-row k-blocks
 constexpr int KB_STAGE_BYTES = BK * 32;   // one k-block of a warp's 64 columns
-constexpr size_t UN_SMEM_LIMIT = 232448;
 
 __host__ __device__ constexpr int x_pad(bool kblocked, int mt) {
   return kblocked ? 0 : (mt == 1 ? 1 : 4);
@@ -988,7 +1447,7 @@ int launch_unembed(const float* x, const uint8_t* packed, const float* scales, f
                    int M, int K, int Kp, int N, int kblocked, int round_bf16, int S,
                    cudaStream_t stream) {
   const size_t smem = unembed_smem(kblocked, MT, Kp, S);
-  if (smem > UN_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const int per_warp = kblocked ? 64 : 16;
   const int strips = (N + per_warp - 1) / per_warp;
   const int per_block = UN_WARPS / S;
@@ -1029,15 +1488,24 @@ extern "C" int msb_matmul(const void* x, const void* packed, const void* scales,
 }
 
 // The expert batch: x (E, M, K), packed (E, K, N/2), scales (E, ...) as
-// one expert's, counts (E,) int32 on the device, out (E, M, N), partial
-// (E, splits, M, N) under the same rule; the plan is one expert's (its M).
-// No bias (the expert FFN has none).
+// one expert's, counts (E,) int32 on the device, out (E, M, N); no bias
+// (the expert FFN has none). cluster > 0 (bf16 x, M <= 128): one cluster
+// launch of the tile (bm, bn), persistent clusters or not, no workspace
+// (ops.experts_plan). cluster == 0: msb_matmul's kernels with its plan
+// for one expert's M (f32 x, or M > 128: bm 128, grid_splits 1), partial
+// (E, splits, M, N) under its rule.
 extern "C" int msb_matmul_experts(const void* x, const void* packed, const void* scales,
                                   const void* counts, void* out, void* partial, int E,
                                   int M, int K, int N, int splits, int grid_splits, int bm,
-                                  int kblocked, int x_is_bf16, void* stream) {
-  return run(x, packed, scales, nullptr, static_cast<const int*>(counts), out, partial, E,
-             M, K, N, splits, grid_splits, bm, kblocked, x_is_bf16, stream);
+                                  int bn, int cluster, int persist, int kblocked,
+                                  int x_is_bf16, void* stream) {
+  const int* cnt = static_cast<const int*>(counts);
+  if (cluster > 0)
+    return x_is_bf16 ? run_experts(x, packed, scales, cnt, out, E, M, K, N, splits, bm, bn,
+                                   cluster, persist, kblocked, stream)
+                     : (int)cudaErrorInvalidValue;
+  return run(x, packed, scales, nullptr, cnt, out, partial, E, M, K, N, splits, grid_splits,
+             bm, kblocked, x_is_bf16, stream);
 }
 
 // The unembedding: out (M, N) f32 = x (M, K) f32 against a table in either

@@ -5,8 +5,10 @@ tensor takes the plain version (``ref.msb_matmul_ref``), a CUDA tensor
 launches the hand-written kernel (``csrc/msb_matmul.cu``: bf16 x on the
 tensor cores, f32 x on SIMT f32 FMA) or raises. ``plan`` is its launch
 plan, ``msb_matmul.launches`` counts kernel launches.
-``msb_matmul_experts`` is the same kernel over a batch of MoE experts in
-one launch, with device-side routed-token counts (its own ``.launches``);
+``msb_matmul_experts`` runs a batch of MoE experts in one launch, with
+device-side routed-token counts (its own ``.launches``): at up to 128 bf16
+rows an expert a kernel of the same source launched as thread block
+clusters (``experts_plan``), else the same kernel as ``msb_matmul``;
 ``packed_matmul_experts`` runs it on a layer's stacked expert weights.
 ``msb_unembed`` is the unembedding: logits in f32 from a packed table of
 either layout (the untied k-blocked ``unembed``, or a tied n-blocked
@@ -69,7 +71,76 @@ def plan(m, k, n, bf16=True):
     return Plan(128, 128, splits, k // splits, 1)
 
 
-_ARGS = {"msb_matmul": (6, 8), "msb_matmul_experts": (6, 9),
+SMEM_LIMIT = 232448   # shared bytes a block may opt into (H100)
+MAX_CLUSTER = 8       # the portable thread block cluster size
+
+
+class ExpertPlan(NamedTuple):
+    """The expert batch's launch at C <= 128 bf16 rows an expert: a tile
+    of ``bm`` (>= C) x ``bn``; K cut into ``splits`` runs of
+    ``k_per_split`` (``k_splits``'s plan); the splits of an item (one
+    expert's N tile) run on the ``cluster`` blocks of one thread block
+    cluster, each walking ``walk`` consecutive splits and keeping each
+    split's f32 sum in shared memory (``smem`` bytes a block); the blocks
+    add them in ascending order through distributed shared memory.
+    ``persist``: as many clusters as the card holds, each taking routed
+    items in turn, its loads running on into the next item; else one
+    cluster an item."""
+    bm: int
+    bn: int
+    splits: int
+    k_per_split: int
+    cluster: int
+    walk: int
+    persist: bool
+    smem: int
+
+
+# the expert batch's tiles, by the rows they hold: (bm, bn, warps, stages,
+# persistent clusters); csrc/msb_matmul.cu's ExpertTile* (the first that
+# holds C, divides N and fits its split sums in shared memory). At 128 rows
+# two sets of sum tiles would leave one block an SM: one item a cluster.
+EXPERT_TILES = ((16, 128, 8, 4, True), (32, 64, 4, 4, True),
+                (64, 64, 4, 4, True), (128, 128, 8, 3, False),
+                (128, 64, 8, 3, False))
+
+
+def experts_smem(bm, bn, stages, walk, persist):
+    """Shared bytes of an expert-batch block (the kernel computes the
+    same): ``stages`` of x (bm x 64 bf16, rows padded to 72), packed bytes
+    and codebooks, two decoded bf16 W tiles (64 x bn + 8), then f32 sum
+    tiles (bm x bn + 8): two sets of ``walk`` when ``persist``, else all
+    but the last split's, which lies over the drained ring."""
+    ring = stages * (bm * 72 * 2 + 64 * bn // 2 + bn * 32) + 2 * 64 * (bn + 8) * 2
+    tile = bm * (bn + 8) * 4
+    if persist:
+        return ring + 2 * walk * tile
+    return max(ring, tile) + (walk - 1) * tile
+
+
+def experts_plan(m, k, n, bf16=True):
+    """The expert batch's launch plan for x (E, M, K) @ W (E, K, N): an
+    ``ExpertPlan`` for bf16 at M <= 128 (one block holds all of an
+    expert's rows; its K splits summed in a cluster), else ``plan``'s for
+    one expert (f32: the SIMT kernel; M > 128: 128 x 128 tiles walking all
+    of K). The K plan is ``k_splits(K, N)`` either way, so every expert's
+    rows are bit for bit ``msb_matmul``'s."""
+    if not bf16 or m > SMALL_M:
+        return plan(m, k, n, bf16)
+    splits = k_splits(k, n)
+    cluster = min(splits, MAX_CLUSTER)
+    walk = splits // cluster
+    for bm, bn, _, stages, persist in EXPERT_TILES:
+        smem = experts_smem(bm, bn, stages, walk, persist)
+        if bm >= m and n % bn == 0 and smem <= SMEM_LIMIT:
+            return ExpertPlan(bm, bn, splits, k // splits, cluster, walk,
+                              persist, smem)
+    raise ValueError(f"msb_matmul_experts: K={k}, N={n} at M={m} needs "
+                     f"{walk} split sums a block, more than its shared "
+                     "memory holds")
+
+
+_ARGS = {"msb_matmul": (6, 8), "msb_matmul_experts": (6, 12),
          "msb_unembed": (4, 8)}    # (leading pointers, ints), then the stream
 
 
@@ -164,15 +235,22 @@ def _launch_experts(x, packed, scales, counts, kblocked):
     if m == 0 or e == 0:
         return out
     bf16 = x.dtype == torch.bfloat16
-    p = plan(m, k, n, bf16)
-    zs = p.grid_splits if bf16 else p.splits
-    partial = (torch.empty((e, zs, m, n), dtype=torch.float32, device=dev)
-               if zs > 1 else None)
+    p = experts_plan(m, k, n, bf16)
+    partial = None
+    if isinstance(p, ExpertPlan):   # one cluster launch, no workspace
+        grid_splits, cluster, persist = 0, p.cluster, int(p.persist)
+    else:
+        grid_splits, cluster, persist = p.grid_splits, 0, 0
+        zs = p.grid_splits if bf16 else p.splits
+        if zs > 1:
+            partial = torch.empty((e, zs, m, n), dtype=torch.float32,
+                                  device=dev)
     err = _lib(what)(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                      counts.data_ptr(), out.data_ptr(),
                      None if partial is None else partial.data_ptr(), e, m,
-                     k, n, p.splits, p.grid_splits, p.bm, int(kblocked),
-                     int(bf16), torch.cuda.current_stream(dev).cuda_stream)
+                     k, n, p.splits, grid_splits, p.bm, p.bn, cluster,
+                     persist, int(kblocked), int(bf16),
+                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
     msb_matmul_experts.launches += 1
     return out
@@ -247,7 +325,6 @@ UNEMBED_WARPS = 16        # warps of a block: K slices x output strips
 UNEMBED_OUTPUTS = {True: 64, False: 16}   # outputs a warp owns: k-blocked
                                           # columns, tied table rows
 UNEMBED_RING = 16 * 3 * 64 * 32           # k-blocked: the warps' code rings
-UNEMBED_SMEM_LIMIT = 232448               # shared bytes a block may opt into
 UNEMBED_TARGET_WARPS = 2 * 132 * 16       # two waves of 16-warp blocks
 
 
@@ -297,11 +374,10 @@ def unembed_plan(m, kp, n, kblocked):
     not fit; ``slices`` depends on (kp, n, layout) only."""
     slices = unembed_slices(kp, n, kblocked)
     mt = 1 if m <= 1 else 2 if m == 2 else 4 if m <= 4 else 8
-    while mt > 1 and unembed_smem(mt, kp, slices, kblocked) > \
-            UNEMBED_SMEM_LIMIT:
+    while mt > 1 and unembed_smem(mt, kp, slices, kblocked) > SMEM_LIMIT:
         mt //= 2
     smem = unembed_smem(mt, kp, slices, kblocked)
-    if smem > UNEMBED_SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(f"msb_unembed: a reduction width of {kp} needs "
                          f"{smem} B of shared memory, more than a block has")
     return UnembedPlan(mt, slices, smem)

@@ -1014,6 +1014,131 @@ def test_msb_matmul_experts_at_jamba_shape(cuda, direction):
         atol=1e-2 * want.float().abs().max().item())
 
 
+def _routed_counts(rng, tokens, topk, n_real, e, c):
+    """int32 (e,) routed tokens per expert as top-``topk`` routing of
+    ``tokens`` tokens over the first ``n_real`` experts gives them, capped
+    at capacity ``c``; the first routed expert filled to ``c``, so counts
+    have zeros (unrouted and padded experts), partial and full experts."""
+    logits = rng.random((tokens, n_real))
+    idx = np.argsort(-logits, axis=1)[:, :topk].reshape(-1)
+    counts = np.minimum(np.bincount(idx, minlength=e), c).astype(np.int32)
+    counts[np.flatnonzero(counts)[0]] = c
+    return counts
+
+
+# the expert batch on the cluster kernel: (E, K, N, C, tokens, top-k,
+# routed experts) — granite-moe-3b-a800m's 48 padded experts both ways at
+# a decode step (C=8), a 128-token wave (C=32) and a 512-token wave
+# (C=112), a tp = 2 rank's 24 of them, and a narrow shape with 32 K
+# splits (clusters of 8, each block walking 4 splits)
+EXPERT_CASES = {
+    "granite_up_c8": (48, 1536, 512, 8, 8, 8, 40),
+    "granite_up_c32": (48, 1536, 512, 32, 128, 8, 40),
+    "granite_down_c8": (48, 512, 1536, 8, 8, 8, 40),
+    "granite_up_c112": (48, 1536, 512, 112, 512, 8, 40),
+    "granite_down_c112": (48, 512, 1536, 112, 512, 8, 40),
+    "tp2_rank_c112": (24, 1536, 512, 112, 512, 8, 16),
+    "narrow_c8": (6, 8192, 64, 8, 8, 2, 4),
+    "narrow_c112": (6, 8192, 64, 112, 200, 2, 4),
+}
+
+
+def _expert_batch(case, device):
+    e, k, n, c, tokens, topk, n_real = EXPERT_CASES[case]
+    rng = np.random.default_rng(sorted(EXPERT_CASES).index(case))
+    packed = torch.from_numpy(rng.integers(0, 256, (e, k, n // 2),
+                                           dtype=np.uint8)).to(device)
+    scales = torch.from_numpy(np.sort(rng.random((e, k, n // 64, 8)).astype(
+        np.float32) * 0.05, axis=-1)).to(device)
+    # random rows everywhere, past each expert's count too
+    x = torch.from_numpy(rng.standard_normal((e, c, k)).astype(
+        np.float32)).to(device).to(torch.bfloat16)
+    counts = torch.from_numpy(_routed_counts(rng, tokens, topk, n_real, e,
+                                             c)).to(device)
+    return x, packed, scales, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EXPERT_CASES))
+def test_msb_matmul_experts_cluster_is_msb_matmul_per_expert(cuda, case):
+    """The expert batch's cluster launch at granite-moe's shapes, a tp = 2
+    rank's 24 experts and a shape with 32 K splits, persistent clusters (C
+    up to 64) and one item a cluster (C=112): one launch, each
+    routed expert (rows past its count included) ``torch.equal`` to
+    ``msb_matmul`` on it alone, each unrouted expert exactly 0, and within
+    1e-2 of the plain version's largest value."""
+    x, packed, scales, counts = _expert_batch(case, cuda)
+    e, c, k = x.shape
+    p = mm_ops.experts_plan(c, k, packed.shape[-1] * 2)
+    assert isinstance(p, mm_ops.ExpertPlan)
+    assert p.walk == (4 if case.startswith("narrow") else 1)
+    assert (counts == 0).any() and (counts == c).any()
+    before = mm_ops.msb_matmul_experts.launches
+    y = mm_ops.msb_matmul_experts(x, packed, scales, counts)
+    assert mm_ops.msb_matmul_experts.launches == before + 1
+    for i in range(e):
+        if int(counts[i]) == 0:
+            assert (y[i] == 0).all(), f"expert {i}"
+        else:
+            alone = mm_ops.msb_matmul(x[i].contiguous(), packed[i], scales[i])
+            assert torch.equal(y[i], alone), f"expert {i}"
+    want = mm_ref.msb_matmul_experts_ref(x, packed, scales, counts)
+    torch.testing.assert_close(
+        y.float(), want.float(), rtol=0,
+        atol=1e-2 * want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["granite_up_c32", "granite_up_c112"])
+def test_msb_matmul_experts_in_a_captured_graph(cuda, case):
+    """The expert batch captured in a CUDA graph (C=32: persistent
+    clusters, captured before any eager launch of its tile; C=112: one
+    item a cluster): a replay after new ``counts`` (and x) are copied in
+    gives the eager launch's bits, the experts unrouted now exactly 0."""
+    x, packed, scales, counts = _expert_batch(case, cuda)
+    assert (counts[:40] > 0).all()
+    e, c, k = x.shape
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mm_ops.msb_matmul_experts(x, packed, scales, counts)
+    graph.replay()
+    torch.cuda.synchronize()
+    y0 = out.clone()
+    assert torch.equal(y0, mm_ops.msb_matmul_experts(x, packed, scales,
+                                                     counts))
+    rng = np.random.default_rng(99)
+    # a new routing over the first 20 experts: 20 of the 40 go unrouted
+    counts.copy_(torch.from_numpy(_routed_counts(rng, 2 * c, 8, 20, e, c)))
+    x.copy_(torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(
+        np.float32)).to(torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, mm_ops.msb_matmul_experts(x, packed, scales,
+                                                      counts))
+    assert not torch.equal(out, y0)
+    assert (out[counts == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_msb_matmul_experts_is_one_kernel(cuda):
+    """One expert-batch call at a 512-token wave (C=112) runs one kernel on
+    the device, the cluster kernel: no ``split_reduce_kernel`` and no other
+    launch (the wrapper allocates only its output)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, packed, scales, counts = _expert_batch("granite_up_c112", cuda)
+    mm_ops.msb_matmul_experts(x, packed, scales, counts)     # built, warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mm_ops.msb_matmul_experts(x, packed, scales, counts)
+        torch.cuda.synchronize()
+    kernels = [evt.key for evt in prof.key_averages()
+               if evt.device_type.name == "CUDA" and evt.count > 0
+               and getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0)) > 0]
+    assert len(kernels) == 1 and "msb_experts_kernel" in kernels[0], kernels
+    assert not any("split_reduce" in name for name in kernels)
+
+
 WINDOW_LENS = [0, 1, 17, 100, 300, 517, 1029, 2048]
 
 

@@ -172,7 +172,7 @@ def test_unembed_plan_slices_depend_on_the_table_only(key):
     plans = [ops.unembed_plan(m, kp, n, kb) for m in (1, 2, 3, 8, 17, 64)]
     assert {p.slices for p in plans} == {NAMED[key]}
     assert [p.mt for p in plans] == [1, 2, 4, 8, 8, 8]
-    assert all(p.smem <= ops.UNEMBED_SMEM_LIMIT for p in plans)
+    assert all(p.smem <= ops.SMEM_LIMIT for p in plans)
     assert all(p.smem == ops.unembed_smem(p.mt, kp, p.slices, kb)
                for p in plans)
     assert (kp // 64) % NAMED[key] == 0
