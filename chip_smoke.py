@@ -50,7 +50,12 @@ one line each (details indented), any failure exits non-zero:
    through the plain version at internlm2's train shape (B=2, S=4096),
    gemma2's windowed d=256 prefill and whisper's encoder and
    cross-attention; D+lse, the backward and SDPA forward+backward timed
-   at the train shape
+   at the train shape. Then D with ``q_offset`` (context parallelism: a
+   rank's rows against the whole K/V) at internlm2's CP shape (S = 3072
+   over three ranks, bf16 and f32; phase 17's B=4 x 768 over three, f32)
+   and gemma2's windowed d=256 one (S = 4608 over three): every rank's rows against the plain version, with
+   the lse, and bitwise the same rows of the q_offset 0 launch over the
+   whole sequence; times, bound and SDPA with the same boolean mask
 7. serve  — internlm2-1.8b at full width: init, 4-bit DP quantization on
    the card, pack, ContinuousEngine at decode_horizon 8 and 1 over kv16
    pools, each engine's dispatch set captured as CUDA graphs by warmup()
@@ -150,6 +155,16 @@ one line each (details indented), any failure exits non-zero:
    granite-moe-3b-a800m cut to 4 layers, its heads and 48 experts
    sharded (24 a rank), each rank's expert batch launched, tokens
    against its tp = 1 run; eager step times and each rank's peak memory
+17. gspmd — GSPMD-style training on a process mesh of four ranks on the
+   one card (``make_host_mesh((2, 2), devices=["cuda:0"] * 4)``: data 2,
+   model 2; ZeRO-3 over data, heads and the MLP's channels over model,
+   the residual stream in rows between blocks): internlm2-1.8b at full
+   width cut to ``GSPMD["layers"]`` layers, f32, B=8 x 512, the loss and
+   two ``make_train_step`` steps against the same on one device on the
+   card (loss and grad norm within 1e-4 relative), each rank's D launches
+   exact, its peak memory; then a (1, 3) mesh, where 8 KV heads do not
+   divide three ranks: the context-parallel loss (K/V gathered, D at
+   every rank's ``q_offset``) against one device's
 
 Windowed B/C cases (phases 4-5) and D at d=256 and without the causal
 mask (phase 6) also hold every output row within ``ROW_REL_TOL`` of its
@@ -165,7 +180,9 @@ at whisper's encoder and cross-attention, and with its lse at
 internlm2's train shape, launched by phase 15's full-width run, the row
 also carrying the backward's and SDPA forward+backward's times; and the
 tp = 2 rows: A at internlm2's five shard shapes, the unembedding on a
-rank's half of the table, B and C kv4 at a rank's heads); the last line
+rank's half of the table, B and C kv4 at a rank's heads; D with
+``q_offset`` at the f32 shape phase 17's (1, 3) run launches it at,
+B=4, 256 of 768 rows a rank); the last line
 is ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
 stream is timed cold (L2 flushed before every launch), as decode meets it.
 Phases 3-6 report the median of 20 launches (the mean beside it) for the
@@ -1178,6 +1195,115 @@ def phase_flash_attention(torch, timer, device):
         "row within 1e-2 of its largest value; pad rows exactly 0; segment "
         "isolation bitwise; with lse: output bitwise, lse 1e-3 bf16 / 1e-5 "
         "f32)")
+    return rows
+
+
+OFFSET_CASES = [  # name, B, H, KV, S (whole), ranks, d, dtype, window, softcap
+    # internlm2-1.8b's context-parallel shape: S = 3072 over three ranks,
+    # each rank's 1024 query rows against the whole K/V at q_offset
+    # 0, 1024, 2048 (bf16 tensor cores; f32 SIMT)
+    ("internlm2 CP S=3072/3", 2, 16, 8, 3072, 3, 128, "bfloat16", 0, 0.0),
+    ("internlm2 CP S=3072/3 f32", 2, 16, 8, 3072, 3, 128, "float32", 0,
+     0.0),
+    # phase 17's (1, 3) context-parallel shape (GSPMD's cp_batch x
+    # cp_seq, f32: the SIMT kernel), the row of the kernels line
+    ("internlm2 CP S=768/3 f32 phase 17", 4, 16, 8, 768, 3, 128,
+     "float32", 0, 0.0),
+    # gemma2-2b's d=256, window 4096, softcap 50 over S = 4608 in three
+    ("gemma2 CP window 4096 S=4608/3", 1, 8, 4, 4608, 3, 256, "bfloat16",
+     4096, 50.0),
+]
+
+
+def visible_pairs_offset(sq, skv, off, window):
+    """Causal (query, key) pairs of ``sq`` rows at positions ``off`` ..
+    ``off + sq - 1`` against ``skv`` keys."""
+    qpos = off + np.arange(sq)[:, None]
+    kpos = np.arange(skv)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return int(mask.sum())
+
+
+def phase_flash_offset(torch, timer, device):
+    """Phase 6, context parallelism: kernel D with ``q_offset`` (a rank's
+    rows against the whole K/V) against its plain version, and bitwise
+    against the same rows of the whole sequence's launch at q_offset 0
+    (offsets are multiples of the 64-row tile, so each row walks the same
+    key tiles); with the lse at every offset. Times (median of 20), the
+    bound of the visible pairs and SDPA with the same boolean mask."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device=device).manual_seed(11)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for name, b, h, kv, s, n, d, dt_name, window, softcap in OFFSET_CASES:
+        dt = getattr(torch, dt_name)
+        q = torch.randn((b, h, s, d), generator=gen, device=device).to(dt)
+        k = torch.randn((b, kv, s, d), generator=gen, device=device).to(dt)
+        v = torch.randn((b, kv, s, d), generator=gen, device=device).to(dt)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        whole = ops.flash_attention_fwd(q, k, v, **kw)
+        sq = s // n
+        err = 0.0
+        for r in range(n):
+            off = r * sq
+            qr = q[:, :, off:off + sq]
+            out = ops.flash_attention_fwd(qr, k, v, q_offset=off, **kw)
+            if not torch.equal(out, whole[:, :, off:off + sq]):
+                fail(f"flash_attention {name}: rank {r}'s rows at q_offset "
+                     f"{off} differ from the whole launch's")
+            out_ref, lse_ref = ref.flash_attention_ref(
+                qr, k, v, with_lse=True, q_offset=off, **kw)
+            e = (out.float() - out_ref.float()).abs().max().item()
+            tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+            if not e <= tol:
+                fail(f"flash_attention {name} q_offset {off}: err {e} > "
+                     f"{tol}")
+            err = max(err, e)
+            lse = torch.empty(qr.shape[:3], dtype=torch.float32,
+                              device=device)
+            out2 = ops.flash_attention_fwd(qr, k, v, q_offset=off, lse=lse,
+                                           **kw)
+            lse_tol = (1e-3 if dt == torch.bfloat16 else
+                       1e-5 * lse_ref.abs().max().item())
+            lse_err = (lse - lse_ref).abs().max().item()
+            if not torch.equal(out2, out) or not lse_err <= lse_tol:
+                fail(f"flash_attention {name} q_offset {off}: lse err "
+                     f"{lse_err} > {lse_tol} or output changed with lse")
+            del out_ref, lse_ref, out2, lse
+        off = (n - 1) * sq          # the last rank: the most keys
+        qr = q[:, :, off:off + sq]
+        ms, ms_mean = timer.stats(lambda: ops.flash_attention_fwd(
+            qr, k, v, q_offset=off, **kw))
+        plain_ms = timer(lambda: ref.flash_attention_ref(
+            qr, k, v, q_offset=off, **kw), reps=3)
+        lib = None
+        if not softcap:      # SDPA has no softcap
+            qpos = off + torch.arange(sq, device=device)[:, None]
+            kpos = torch.arange(s, device=device)[None, :]
+            mask = kpos <= qpos
+            if window > 0:
+                mask &= kpos > qpos - window
+            lib, _ = timer.stats(lambda: sdpa(qr, k, v, attn_mask=mask,
+                                              enable_gqa=True))
+        pairs = b * visible_pairs_offset(sq, s, off, window)
+        nbytes = (2 * qr.numel() + k.numel() + v.numel()) * qr.element_size()
+        b_ms, b_by = bound(nbytes, 4.0 * pairs * h * d, dt_name)
+        row = dict(shape=f"{name} rank {n - 1} q_offset {off} H={h} KV={kv}"
+                   f" d={d} {dt_name}", name=name, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                   bound_by=b_by)
+        rows.append(row)
+        log(f"  flash_attention q_offset {row['shape']}: err {err:.3g}, "
+            f"rows bitwise the whole launch's at every offset, lse held; "
+            f"kernel {ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | plain "
+            f"{plain_ms:.4f} | SDPA with the mask "
+            f"{'n/a' if lib is None else f'{lib:.4f}'} | bound {b_ms:.4f} "
+            f"({b_by}), {100 * b_ms / ms:.1f} % of it reached")
+        del q, k, v, whole, qr
+    log(f"[flash_attention q_offset] {len(rows)} shapes: every rank's rows "
+        "agree with the plain version and bitwise with the whole launch")
     return rows
 
 
@@ -3653,9 +3779,181 @@ def phase_train(torch, device):
     return full
 
 
+# ---------------------------------------------------------------------------
+# phase 17: GSPMD-style training on a process mesh, four ranks on one card
+# ---------------------------------------------------------------------------
+
+# internlm2-1.8b at full width, cut to 2 of its 24 layers, f32
+GSPMD = {"layers": 2, "batch": 8, "seq": 512, "steps": 2,
+         "cp_batch": 4, "cp_seq": 768}
+
+
+def rank_cp_loss(ctx, model, params, batch):
+    """On a rank of the (1, 3) mesh: the loss on its blocks with every
+    ``flash_attention`` call's ``q_offset`` recorded and the launch
+    counters zeroed first: (loss, offsets, counters)."""
+    import torch
+    from repro_torch.models import layers
+    zero_launch_counters()
+    offsets, inner = [], layers.flash_attention
+
+    def record(*args, **kw):
+        offsets.append(kw.get("q_offset", 0))
+        return inner(*args, **kw)
+
+    layers.flash_attention = record
+    try:
+        with torch.no_grad():
+            dev = ctx.device
+            loss, _ = model.loss(params.local(ctx),
+                                 {k: v.to(dev) for k, v in batch.items()},
+                                 ctx.par)
+    finally:
+        layers.flash_attention = inner
+    return float(loss), offsets, read_launch_counters()
+
+
+def gspmd_batch(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int64)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def phase_gspmd(torch, device):
+    """Phase 17: GSPMD-style training on one card. A (data 2, model 2)
+    process mesh, four ranks on ``cuda:0`` (gloo collectives staged
+    through the host): internlm2-1.8b at full width, cut to
+    ``GSPMD["layers"]`` layers, f32, B=8 x 512: ``Model.loss`` and two
+    ``make_train_step`` steps against the same on one device on the card
+    (loss and grad norm within 1e-4 relative), each rank's D launches
+    exact (a layer once in the loss, twice a step: forward and remat),
+    its peak memory, step times; then a (1, 3) mesh, where 8 KV heads do
+    not divide three ranks and S = 768 runs context-parallel: every
+    rank's D launches at its ``q_offset``, the loss against one
+    device's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import AdamW, OptConfig, init_state, \
+        make_train_step
+    from repro_torch.train.train_loop import place_state
+    t0 = time.perf_counter()
+    n_layers = GSPMD["layers"]
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"),
+                              n_layers=n_layers, dtype=torch.float32)
+    model = Model(cfg)
+    opt = AdamW(OptConfig(lr=3e-4, warmup_steps=1, total_steps=100))
+    state = init_state(model, opt, torch.Generator().manual_seed(0), "cpu")
+    batches = [gspmd_batch(cfg, GSPMD["batch"], GSPMD["seq"], i)
+               for i in range(GSPMD["steps"] + 1)]
+
+    def on_card(tree):
+        if isinstance(tree, dict):
+            return {k: on_card(v) for k, v in tree.items()}
+        return tree.to(device, copy=True)
+
+    def card_batch(bt):
+        return {k: torch.from_numpy(v).to(device) for k, v in bt.items()}
+
+    one = on_card(state)
+    with torch.no_grad():
+        loss1 = float(model.loss(one["params"], card_batch(batches[0]))[0])
+    step1 = make_train_step(model, opt)
+    ref, t_one = [], []
+    for bt in batches[1:]:
+        t = time.perf_counter()
+        one, m = step1(one, card_batch(bt))
+        ref.append((float(m["loss"]), float(m["grad_norm"])))
+        t_one.append(time.perf_counter() - t)
+    del one, step1
+    torch.cuda.empty_cache()
+
+    mesh = make_host_mesh((2, 2), devices=[str(device)] * 4)
+    try:
+        ctx = shd.from_mesh(mesh)
+        placed = place_state(model, opt, state, mesh)
+        mesh.gather(rank_launches, True)
+        mesh.gather(rank_peak, True)
+        loss4 = float(model.loss(placed["params"], batches[0], ctx)[0])
+        d_loss = [c["flash_attention_fwd"]
+                  for c in mesh.gather(rank_launches, True)]
+        if abs(loss4 / loss1 - 1) > 1e-4:
+            fail(f"gspmd (2, 2) loss {loss4} vs one device {loss1}")
+        if d_loss != [n_layers] * 4:
+            fail(f"gspmd (2, 2) loss: D launches {d_loss}, want "
+                 f"{n_layers} a rank")
+        step4 = make_train_step(model, opt, ctx)
+        t_four = []
+        for i, bt in enumerate(batches[1:]):
+            t = time.perf_counter()
+            _, m = step4(placed, bt)
+            t_four.append(time.perf_counter() - t)
+            got = (float(m["loss"]), float(m["grad_norm"]))
+            for what, a, b in zip(("loss", "grad norm"), got, ref[i]):
+                if abs(a / b - 1) > 1e-4:
+                    fail(f"gspmd (2, 2) step {i + 1} {what} {a} vs one "
+                         f"device {b}")
+            log(f"  gspmd (2, 2) step {i + 1}: loss {got[0]:.6f} (one "
+                f"device {ref[i][0]:.6f}), grad norm {got[1]:.6f} "
+                f"({ref[i][1]:.6f}); {t_four[-1]:.2f} s (one device "
+                f"{t_one[i]:.2f} s)")
+        d_steps = [c["flash_attention_fwd"]
+                   for c in mesh.gather(rank_launches, True)]
+        want = 2 * n_layers * GSPMD["steps"]
+        if d_steps != [want] * 4:
+            fail(f"gspmd (2, 2) steps: D launches {d_steps}, want {want} a "
+                 "rank")
+        peaks = mesh.gather(rank_peak, True)
+        log(f"  gspmd (2, 2): loss {loss4:.6f} vs one device {loss1:.6f}; "
+            f"D launches a rank {d_loss} in the loss, {d_steps} in "
+            f"{GSPMD['steps']} steps; peak GB a rank "
+            + ", ".join(f"{p:.2f}" for p in peaks))
+        placed.drop()
+    finally:
+        mesh.close()
+
+    b, s = GSPMD["cp_batch"], GSPMD["cp_seq"]
+    cp_batch = gspmd_batch(cfg, b, s, 7)
+    with torch.no_grad():
+        cp1 = float(model.loss(on_card(state["params"]),
+                               card_batch(cp_batch))[0])
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh((1, 3), devices=[str(device)] * 3)
+    try:
+        ctx = shd.from_mesh(mesh)
+        placed = shd.device_put(state["params"], shd.tree_shardings(
+            ctx, model.param_axes(), model.param_shapes()), mesh)
+        t = time.perf_counter()
+        outs = mesh.gather(rank_cp_loss, model, shd._plain(placed),
+                           per_rank=shd.batch_blocks(ctx, cp_batch))
+        t_cp = time.perf_counter() - t
+        placed.drop()
+    finally:
+        mesh.close()
+    cp_launches = []
+    for r, (loss, offsets, counts) in enumerate(outs):
+        want = [r * (s // 3)] * n_layers
+        if offsets != want or counts["flash_attention_fwd"] != n_layers:
+            fail(f"gspmd (1, 3) rank {r}: q_offsets {offsets} (want {want}),"
+                 f" D launches {counts['flash_attention_fwd']}")
+        if abs(loss / cp1 - 1) > 1e-4:
+            fail(f"gspmd (1, 3) rank {r}: loss {loss} vs one device {cp1}")
+        cp_launches.append(counts["flash_attention_fwd"])
+    log(f"  gspmd (1, 3) context-parallel B={b} x {s}: loss {outs[0][0]:.6f}"
+        f" vs one device {cp1:.6f}; each rank {n_layers} D launches at "
+        f"q_offset 0, {s // 3}, {2 * s // 3}; {t_cp:.2f} s")
+    log(f"[gspmd] internlm2-1.8b full width, {n_layers} layers, f32: (2, 2) "
+        f"loss and {GSPMD['steps']} steps within 1e-4 of one device, (1, 3)"
+        f" context-parallel loss too; {time.perf_counter() - t0:.1f} s")
+    return {"cp_launches": sum(cp_launches),
+            "d_launches": d_loss + d_steps}
+
+
 def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
                 q_counts, s_counts, f_counts, st_counts, grad_row, train,
-                tp_counts):
+                tp_counts, off_rows, gspmd):
     """The kernel table as the JSON line's rows: each kernel at its main
     path's representative shape (A at decode and at M=4096, and its expert
     batch at granite-moe's and jamba's decode; the unembedding's kernel at
@@ -3763,6 +4061,14 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
                      bwd_ms=grad_row["bwd_ms"],
                      bwd_bound_ms=grad_row["bwd_bound_ms"],
                      sdpa_fwd_bwd_ms=grad_row["sdpa_fwd_bwd_ms"]))
+    # context parallelism: D with q_offset at the shape phase 17's (1, 3)
+    # run launches it on every rank (f32, the SIMT kernel; the last
+    # rank's rows)
+    rows.append(row("flash_attention_fwd_q_offset",
+                    src + "flash_attention.cu", d_tpu, gspmd["cp_launches"],
+                    next(r for r in off_rows
+                         if r["name"].endswith("phase 17")),
+                    max(r["max_abs_err"] for r in off_rows)))
     # tensor parallelism: both ranks' launches in phase 16's H=8 runs
     def tp_launches(bits, name):
         return sum(c[name] for c in tp_counts[bits])
@@ -3806,6 +4112,7 @@ def main():
     pa_rows = phase_paged_attention(torch, timer, device)
     paq_rows = phase_paged_attention_quant(torch, timer, device)
     fa_rows = phase_flash_attention(torch, timer, device)
+    off_rows = phase_flash_offset(torch, timer, device)
     grad_row = phase_flash_grad(torch, timer, device)
     del timer
     counts, ctx = phase_serve(torch, device)
@@ -3819,9 +4126,10 @@ def main():
     f_counts = phase_families(torch, device)
     st_counts = phase_state_stacks(torch, device)
     train = phase_train(torch, device)
+    gspmd = phase_gspmd(torch, device)
     kernels = kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows,
                           counts, q_counts, s_counts, f_counts, st_counts,
-                          grad_row, train, tp_counts)
+                          grad_row, train, tp_counts, off_rows, gspmd)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,7 +7,9 @@ a page-pool tree from ``Model.init_paged_pools`` into the port's pools, and
 a static ring cache (``Model.prefill`` / ``init_cache``: ``layers/s0/attn/
 {k,v}`` and int32 ``pos``) into the port's cache, with each leaf's dtype
 kept (kv16 pools and caches; or int8/uint8 codes, f32/bf16 scales and hot
-rows of quantized pools).
+rows of quantized pools). ``from_reference_state`` carries a train state
+({"params", "opt": {"m", "v", "step"}}, f32 or int8 moments) across, so
+the two packages' steps, sharded or not, start from the same numbers.
 Leaves are duck-typed on their attributes — ``codes/scales/bits/block`` or
 ``packed/scales/n/kblocked`` — and read with ``numpy.asarray``, so this
 module imports neither ``jax`` nor ``repro``. bf16 arrays come out of numpy
@@ -66,3 +68,14 @@ def from_reference(tree, device=None):
         return to_tensor(node, dev)
 
     return visit(tree)
+
+
+def from_reference_state(state, device=None):
+    """The reference's train state as the port's: params and f32 moments
+    as tensors, int8 moments as {"q" int8 | uint8 codes, "s" bf16 | f32
+    scales} (the reference's ``-inf`` log-max of an all-zero block kept),
+    ``step`` a 0-d int32 tensor; on ``device`` (``None`` = the card)."""
+    out = from_reference(state, device)
+    if out["opt"]["step"].dtype != torch.int32:
+        raise ValueError("the train state's step must be int32")
+    return out

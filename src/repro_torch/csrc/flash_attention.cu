@@ -9,9 +9,11 @@
 // and query position i < Sq:
 //   out[b, hq, i] = sum_j p_ij V[b, hk, j] / sum_j p_ij,
 //   s_ij = softcap(scale * q[b, hq, i] . K[b, hk, j])   (f32 dot, then scale)
-// over the keys j < Skv the mask allows: causal j <= i, window
-// j > i - window (window > 0), and, with segment ids, kv_seg[j] == q_seg[i]
-// with q_seg[i] >= 0. Positions count from 0 on both sides. p_ij is the
+// over the keys j < Skv the mask allows: causal j <= q_offset + i, window
+// j > q_offset + i - window (window > 0), and, with segment ids,
+// kv_seg[j] == q_seg[i] with q_seg[i] >= 0. Keys count from 0; query row i
+// sits at position q_offset + i (q_offset >= 0; context parallelism gives a
+// rank's rows their global positions, 0 everywhere else). p_ij is the
 // online-softmax weight, exactly 0 where masked, and enters the PV product
 // rounded to V's type (as the Pallas kernel and the jnp path do); maxima,
 // sums and the accumulator are f32. Masked scores never enter the maximum,
@@ -100,6 +102,7 @@ struct Args {
   float* lse;          // (B, H, Sq) f32 or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int H, KV, Sq, Skv, d, causal, window;
+  int q_offset;        // query row i sits at position q_offset + i
   float scale, softcap;
 };
 
@@ -152,8 +155,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fwd_kernel(const Args
 
   // key tiles that can hold a visible key for rows q0 .. q0 + BQ - 1
   int hi = (a.Skv + BKV - 1) / BKV;
-  if (a.causal) hi = min(hi, (q0 + BQ + BKV - 1) / BKV);
-  const int lo = a.window > 0 ? max(0, q0 - a.window + 1) / BKV : 0;
+  if (a.causal) hi = min(hi, (a.q_offset + q0 + BQ + BKV - 1) / BKV);
+  const int lo = a.window > 0 ? max(0, a.q_offset + q0 - a.window + 1) / BKV : 0;
   __syncthreads();
 
   for (int t = lo; t < hi; ++t) {
@@ -189,8 +192,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fwd_kernel(const Args
       for (int j = 0; j < CPT; ++j) {
         const int kpos = k0 + tx + 16 * j;
         bool ok = qpos < a.Sq && kpos < a.Skv;
-        if (a.causal) ok = ok && kpos <= qpos;
-        if (a.window > 0) ok = ok && kpos > qpos - a.window;
+        if (a.causal) ok = ok && kpos <= qpos + a.q_offset;
+        if (a.window > 0) ok = ok && kpos > qpos + a.q_offset - a.window;
         if (kseg) ok = ok && qseg[i] >= 0 && kseg[kpos] == qseg[i];
         float sv = s[i][j] * a.scale;
         if (a.softcap > 0.f) sv = a.softcap * tanhf(sv / a.softcap);
@@ -386,8 +389,8 @@ __global__ void __launch_bounds__(TC_THREADS, DP <= 128 ? 3 : 1)
 
   // key tiles that can hold a visible key for rows q0 .. q0 + TC_BQ - 1
   int hi = (a.Skv + TC_BKV - 1) / TC_BKV;
-  if (a.causal) hi = min(hi, (q0 + TC_BQ + TC_BKV - 1) / TC_BKV);
-  const int lo = a.window > 0 ? max(0, q0 - a.window + 1) / TC_BKV : 0;
+  if (a.causal) hi = min(hi, (a.q_offset + q0 + TC_BQ + TC_BKV - 1) / TC_BKV);
+  const int lo = a.window > 0 ? max(0, a.q_offset + q0 - a.window + 1) / TC_BKV : 0;
 
   stage_rows<DP, TC_BQ>(qs, q, a.q_ss, q0, a.Sq, a.d);
   if (lo < hi) stage_rows<DP, TC_BKV>(ks, k, a.k_ss, lo * TC_BKV, a.Skv, a.d);
@@ -453,7 +456,7 @@ __global__ void __launch_bounds__(TC_THREADS, DP <= 128 ? 3 : 1)
     // inside Skv, with no window and no segments, needs no mask (rows past
     // Sq hold zero queries and are not written), so the per-key tests run
     // only on edge tiles.
-    const bool masked = (a.causal && k0 + TC_BKV - 1 > q0) || k0 + TC_BKV > a.Skv ||
+    const bool masked = (a.causal && k0 + TC_BKV - 1 > q0 + a.q_offset) || k0 + TC_BKV > a.Skv ||
                         a.window > 0 || kseg;
     if (a.softcap > 0.f) {
 #pragma unroll
@@ -476,8 +479,8 @@ __global__ void __launch_bounds__(TC_THREADS, DP <= 128 ? 3 : 1)
           const int qsg = i < 2 ? qseg0 : qseg1;
           const int kpos = k0 + j * 8 + 2 * tq + (i & 1);
           bool ok = row < a.Sq && kpos < a.Skv;
-          if (a.causal) ok = ok && kpos <= row;
-          if (a.window > 0) ok = ok && kpos > row - a.window;
+          if (a.causal) ok = ok && kpos <= row + a.q_offset;
+          if (a.window > 0) ok = ok && kpos > row + a.q_offset - a.window;
           if (kseg) ok = ok && qsg >= 0 && kseg[kpos] == qsg;
           if (!ok) s[j][i] = -INFINITY;
         }
@@ -601,23 +604,23 @@ int launch_bf16(const Args& a, int B, cudaStream_t stream) {
 // its scores, m + log(max(l, 1e-30)) in natural units (the reference's
 // residual for the backward; -2e38 for a row that sees no key). Returns a
 // CUDA error code (0 = ok); cudaErrorInvalidValue for a head_dim that is not
-// a multiple of 16 in [16, 256] or H not a multiple of KV. bf16 runs on the
-// tensor cores, f32 on the SIMT kernel.
+// a multiple of 16 in [16, 256], H not a multiple of KV or q_offset < 0.
+// bf16 runs on the tensor cores, f32 on the SIMT kernel.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* q_segs,
     const void* kv_segs, void* out, void* lse, int B, int H, int KV, int Sq, int Skv, int d,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, int causal, int window, float scale,
+    long long o_sh, long long o_ss, int causal, int window, int q_offset, float scale,
     float softcap, int is_bf16, void* stream) {
-  if (d % 16 || d < 16 || d > 16 * NJ_MAX || KV <= 0 || H % KV)
+  if (d % 16 || d < 16 || d > 16 * NJ_MAX || KV <= 0 || H % KV || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const Args a{q,    k,    v,    static_cast<const int*>(q_segs),
                static_cast<const int*>(kv_segs),
                out,  static_cast<float*>(lse),
                q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-               o_sb, o_sh, o_ss, H, KV, Sq, Skv, d, causal, window, scale, softcap};
+               o_sb, o_sh, o_ss, H, KV, Sq, Skv, d, causal, window, q_offset, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_bf16(a, B, s) : launch<float>(a, B, s);
 }

@@ -27,8 +27,8 @@ def _lib():
     if fn.argtypes is None:
         vp, ci, cf, cl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_longlong)
-        fn.argtypes = [vp] * 7 + [ci] * 6 + [cl] * 12 + [ci, ci, cf, cf, ci,
-                                                          vp]
+        fn.argtypes = [vp] * 7 + [ci] * 6 + [cl] * 12 + [ci, ci, ci, cf, cf,
+                                                          ci, vp]
         fn.restype = ci
     return fn
 
@@ -44,7 +44,7 @@ def refuse_grad(q, k, v):
 
 
 def _launch(q, k, v, q_segs, kv_segs, causal, window, softcap, scale,
-            lse=None):
+            lse=None, q_offset=0):
     what = "flash_attention_fwd"
     refuse_grad(q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -55,6 +55,8 @@ def _launch(q, k, v, q_segs, kv_segs, causal, window, softcap, scale,
     if k.shape[0] != b or dk != d or kv == 0 or h % kv:
         raise ValueError(f"{what}: q {tuple(q.shape)} does not fit k/v "
                          f"{tuple(k.shape)}")
+    if int(q_offset) < 0:
+        raise ValueError(f"{what}: q_offset must be >= 0, got {q_offset}")
     if d % 16 or not 16 <= d <= 256:
         raise ValueError(f"{what}: head_dim {d} must be a multiple of 16 in "
                          "[16, 256]")
@@ -98,7 +100,8 @@ def _launch(q, k, v, q_segs, kv_segs, causal, window, softcap, scale,
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), *segs,
                  out.data_ptr(), None if lse is None else lse.data_ptr(),
                  b, h, kv, sq, skv, d, *strides,
-                 int(bool(causal)), int(window), scale, float(softcap),
+                 int(bool(causal)), int(window), int(q_offset), scale,
+                 float(softcap),
                  int(q.dtype == torch.bfloat16),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, what)
@@ -107,7 +110,8 @@ def _launch(q, k, v, q_segs, kv_segs, causal, window, softcap, scale,
 
 
 def flash_attention_fwd(q, k, v, q_segs=None, kv_segs=None, *, causal=True,
-                        window=0, softcap=0.0, scale=None, lse=None):
+                        window=0, softcap=0.0, scale=None, lse=None,
+                        q_offset=0):
     """Forward attention in head-major layout. q: (B, H, Sq, d); k/v: (B,
     KV, Skv, d), any Sq and Skv, any strides with a contiguous last dim;
     ``q_segs``/``kv_segs``: optional (B, Sq)/(B, Skv) int32 segment ids —
@@ -115,14 +119,16 @@ def flash_attention_fwd(q, k, v, q_segs=None, kv_segs=None, *, causal=True,
     and a row whose segment is -1 (a pad) outputs exactly 0. ``lse``: an
     optional contiguous f32 (B, H, Sq) tensor that receives each row's
     log-sum-exp ``m + log(max(l, 1e-30))`` of its (scaled, softcapped)
-    scores. Returns (B, H, Sq, d) in q's type."""
+    scores. ``q_offset`` (>= 0): query row i sits at position ``q_offset +
+    i`` for the causal and window masks (a context-parallel rank's rows),
+    keys at 0 .. Skv - 1. Returns (B, H, Sq, d) in q's type."""
     if (q_segs is None) != (kv_segs is None):
         raise ValueError("pass both q_segs and kv_segs, or neither")
     if q.is_cuda:
         return _launch(q, k, v, q_segs, kv_segs, causal, window, softcap,
-                       scale, lse)
+                       scale, lse, q_offset)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
-              with_lse=lse is not None)
+              with_lse=lse is not None, q_offset=q_offset)
     if q_segs is not None:
         res = flash_attention_segmented_ref(q, k, v, q_segs, kv_segs, **kw)
     else:

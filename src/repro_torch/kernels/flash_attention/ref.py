@@ -2,8 +2,10 @@
 
 Port of ``repro.kernels.flash_attention.ref``. Layout is head-major, as the
 kernel's: q (B, H, Sq, d), k/v (B, KV, Skv, d), GQA by ``h // rep`` (no
-repeated K/V copy). Masks are counted from position 0 on both sides
-(causal ``kpos <= qpos``, window ``kpos > qpos - window``), masked scores
+repeated K/V copy). Keys count from position 0 and query row i
+sits at ``q_offset + i`` (0 unless a context-parallel rank passes its
+rows' first position); causal is ``kpos <= qpos``, window ``kpos > qpos -
+window``; masked scores
 are ``_NEG_INF`` (finite, so an all-masked row never makes a NaN) and
 masked probabilities exactly 0.
 
@@ -53,7 +55,7 @@ def _lse(m, l, shape):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        scale=None, with_lse=False):
+                        scale=None, with_lse=False, q_offset=0):
     """q: (B, H, Sq, d); k/v: (B, KV, Skv, d). Returns (B, H, Sq, d) in q's
     type, and with ``with_lse`` also each row's log-sum-exp (B, H, Sq) f32.
     Any Sq and Skv: the last key tile is masked, not padded."""
@@ -61,7 +63,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     kv, skv = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else d ** -0.5)
     qg = _grouped(q, kv)
-    qpos = torch.arange(sq, device=q.device)
+    qpos = torch.arange(q_offset, q_offset + sq, device=q.device)
     acc = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
     m_i = torch.full(qg.shape[:-1], _NEG_INF, dtype=torch.float32,
                      device=q.device)
@@ -89,7 +91,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 def flash_attention_segmented_ref(q, k, v, q_segs, kv_segs, *, causal=True,
                                   window=0, softcap=0.0, scale=None,
-                                  with_lse=False):
+                                  with_lse=False, q_offset=0):
     """Masked full softmax with segment ids. q: (B, H, Sq, d); k/v: (B, KV,
     Skv, d); q_segs/kv_segs: (B, Sq)/(B, Skv) int32 (-1 = pad). A key is
     visible when it is in the query's segment, the query is not a pad, and
@@ -102,7 +104,8 @@ def flash_attention_segmented_ref(q, k, v, q_segs, kv_segs, *, causal=True,
     qs = q_segs.to(torch.int32)[:, None, None, :, None]
     ks = kv_segs.to(torch.int32)[:, None, None, None, :]
     mask = (qs == ks) & (qs >= 0)
-    mask = mask & _mask(torch.arange(sq, device=q.device),
+    mask = mask & _mask(torch.arange(q_offset, q_offset + sq,
+                                     device=q.device),
                         torch.arange(skv, device=q.device), causal, window)
     s = torch.where(mask, s, torch.tensor(_NEG_INF, device=q.device))
     m = s.amax(dim=-1, keepdim=True)

@@ -2,16 +2,19 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --shape train_4k --steps 100 [--smoke] [--device cpu] \
-        [--ckpt-dir DIR] [--checkpoint-every N] [--lr LR]
+        [--mesh host|single|multi] [--ckpt-dir DIR] \
+        [--checkpoint-every N] [--lr LR]
 
-Port of ``repro.launch.train`` on one device: ``--smoke`` takes the reduced
-config and a batch of at most 8 x 64 tokens; data is the reference's
-``MarkovStream`` (seed 0) through a ``Prefetcher``; AdamW with int8
-moments above 100e9 params, f32 below; periodic checkpoints, auto-resume,
-SIGTERM drain and straggler monitoring are on. Runs on the card unless
-``--device cpu``. ``--mesh host`` is the one device; the production
-meshes (``single``, ``multi``) are tensor/pipeline parallelism, ROADMAP
-item 11.
+Port of ``repro.launch.train``: ``--smoke`` takes the reduced config and a
+batch of at most 8 x 64 tokens; data is the reference's ``MarkovStream``
+(seed 0) through a ``Prefetcher``; AdamW with int8 moments above 100e9
+params, f32 below; periodic checkpoints, auto-resume, SIGTERM drain and
+straggler monitoring are on. The step runs GSPMD-style on a process mesh
+(``launch.mesh``): ``--mesh host`` the reference's host mesh over every
+card (one card trains on it alone, without a mesh; with ``--device cpu``,
+``CPU_RANKS`` ranks on the CPU), ``single`` / ``multi`` the production
+meshes, which need 256 / 512 cards and refuse with fewer. Runs on the
+cards unless ``--device cpu``.
 """
 import argparse
 
@@ -21,8 +24,12 @@ from ..configs import SHAPES, get_config, smoke_config
 from ..data import MarkovStream, Prefetcher
 from ..device import resolve_device
 from ..models import Model
+from ..parallel import from_mesh, gather
 from ..train import (AdamW, Checkpointer, OptConfig, PreemptionHandler,
                      StragglerMonitor, train_loop)
+from .mesh import make_host_mesh, make_production_mesh
+
+CPU_RANKS = 2     # ranks of the host mesh under --device cpu
 
 
 def main(argv=None):
@@ -39,11 +46,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: production meshes are ROADMAP item 11")
 
     dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh == "host":
+        if dev.type == "cpu":
+            mesh = make_host_mesh(devices=["cpu"] * CPU_RANKS)
+        elif torch.cuda.device_count() > 1:
+            mesh = make_host_mesh()
+    else:
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     shape = SHAPES[args.shape]
     model = Model(cfg)
@@ -54,18 +66,25 @@ def main(argv=None):
     opt = AdamW(OptConfig(
         lr=args.lr, total_steps=args.steps,
         moment_dtype="int8" if cfg.n_params() > 100e9 else "f32"))
+    # a mesh's state is made on the host and placed on its ranks
+    gen_dev = dev if mesh is None else "cpu"
     handler = PreemptionHandler()
     mon = StragglerMonitor()
     try:
         state, metrics = train_loop(
             model, opt, data, steps=args.steps,
-            generator=torch.Generator(device=dev).manual_seed(0),
-            device=dev, checkpointer=Checkpointer(args.ckpt_dir),
+            generator=torch.Generator(device=gen_dev).manual_seed(0),
+            device=dev, parallel=None if mesh is None else from_mesh(mesh),
+            checkpointer=Checkpointer(args.ckpt_dir),
             checkpoint_every=args.checkpoint_every,
             straggler_monitor=mon, should_stop=handler.should_stop)
+        if mesh is not None:
+            state = gather(state)
     finally:
         data.close()
         handler.restore()
+        if mesh is not None:
+            mesh.close()
     print(f"[launch.train] done; final loss {float(metrics['loss']):.4f}, "
           f"median step {mon.median * 1e3:.1f} ms")
     return state, metrics

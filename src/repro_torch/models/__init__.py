@@ -1,4 +1,6 @@
 from .model import Model
-from .transformer import init_params, layer_plan, n_periods, param_defs
+from .transformer import (init_params, layer_plan, n_periods, param_axes,
+                          param_defs, param_shapes)
 
-__all__ = ["Model", "init_params", "layer_plan", "n_periods", "param_defs"]
+__all__ = ["Model", "init_params", "layer_plan", "n_periods", "param_axes",
+           "param_defs", "param_shapes"]

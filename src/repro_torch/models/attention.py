@@ -70,7 +70,7 @@ def _visible(q0, q1, k0, k1, causal, window, device):
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
-                        softcap=0.0, scale=None, chunk=512):
+                        softcap=0.0, scale=None, chunk=512, q_offset=0):
     """Gradients (dq, dk, dv) of attention, in head-major layout: q, out,
     dout (B, H, Sq, d), k/v (B, KV, Skv, d), lse (B, H, Sq) f32 the
     forward's per-row log-sum-exp. Port of the reference's ``_flash_bwd``
@@ -80,8 +80,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
     the softcap's ``1 - tanh^2`` factor, and any Sq and Skv (ragged edges
     are masked where the reference pads, which adds exact zeros there).
     Chunk pairs the mask hides wholly are skipped, and masked weights are
-    exactly 0. Plain torch on every device: the reference's backward is
-    jnp, not a Pallas kernel. Returns grads in the inputs' types."""
+    exactly 0. Query row i sits at position ``q_offset + i`` for the masks
+    (the reference's ``q_offset``; a context-parallel rank's rows). Plain
+    torch on every device: the reference's backward is jnp, not a Pallas
+    kernel. Returns grads in the inputs' types."""
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     rep = h // kv
@@ -102,7 +104,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
         deltac = delta[:, :, :, q0:q1, None]
         for k0 in range(0, skv, chunk):
             k1 = min(k0 + chunk, skv)
-            m = _visible(q0, q1, k0, k1, causal, window, q.device)
+            m = _visible(q_offset + q0, q_offset + q1, k0, k1, causal,
+                         window, q.device)
             if m is None:
                 continue
             kc = k[:, :, k0:k1].to(f32)
@@ -131,41 +134,44 @@ class _Flash(torch.autograd.Function):
     Head-major (B, H, S, d) inputs."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale):
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
         out = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                  softcap=softcap, scale=scale, lse=lse)
+                                  softcap=softcap, scale=scale, lse=lse,
+                                  q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = dict(causal=causal, window=window, softcap=softcap,
-                      scale=scale)
+                      scale=scale, q_offset=q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    scale=None):
+                    scale=None, q_offset=0):
     """Attention over a whole sequence. q: (B, Sq, H, d), k/v: (B, Skv, KV,
     d) -> (B, Sq, H, d), any Sq and Skv. Kernel D on a CUDA tensor (head-
     major strided views, no padding or transposed copy), its plain version
     on a CPU tensor. Where grad mode is on and q, k or v requires grad, it
     runs under the autograd Function ``_Flash`` on either device (forward
     with the log-sum-exp, backward ``flash_attention_bwd``); otherwise
-    (serving) it calls the forward alone, without the log-sum-exp. The
-    reference's ``q_offset`` (context parallelism, ROADMAP item 11) is not
-    taken, and neither are its chunk sizes: the kernel tiles by 64 and
-    masks the ragged edge itself."""
+    (serving) it calls the forward alone, without the log-sum-exp. Query
+    row i sits at position ``q_offset + i`` for the causal and window masks
+    (context parallelism: a rank's rows against the gathered K/V,
+    ``layers._cp_attention``). The reference's chunk sizes are not taken:
+    the kernel tiles by 64 and masks the ragged edge itself."""
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out = _Flash.apply(qh, kh, vh, causal, int(window), float(softcap),
-                           scale)
+                           scale, int(q_offset))
     else:
         out = flash_attention_fwd(qh, kh, vh, causal=causal, window=window,
-                                  softcap=softcap, scale=scale)
+                                  softcap=softcap, scale=scale,
+                                  q_offset=int(q_offset))
     return out.transpose(1, 2)
 
 

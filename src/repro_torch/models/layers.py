@@ -16,6 +16,17 @@ DESIGN.md Sec. 10) the functions run on the rank's shard: a row-parallel
 head-sharded paged pool over replicated projections takes the rank's
 slice of the computed heads, and the heads are gathered before a
 replicated output projection.
+
+Under a ``parallel.ParallelContext`` (training on a process mesh) a block
+runs through ``Spmd``, a rank's view of the context: the params are the
+rank's blocks of every leaf (``resolve_spec``), gathered where the work
+needs them whole; the residual stream is held ``S / tp`` rows long
+between blocks when ``S % tp == 0`` (Megatron-SP, the reference's
+``("batch", "sp", None)`` constraint); attention shards its heads over
+``model`` where ``_qkv_axes`` says so (column-parallel QKV, row-parallel
+output, a psum), else runs context-parallel (``_cp_attention``: K/V
+gathered, kernel D with the rank's ``q_offset``) where ``use_cp`` holds,
+else the ``model`` ranks duplicate it.
 """
 from __future__ import annotations
 
@@ -24,7 +35,8 @@ import torch.utils.checkpoint
 
 from ..core.quantize import PackedQTensor, QTensor
 from ..kernels.msb_matmul.ops import packed_matmul
-from ..parallel.sharding import TPShard
+from ..parallel import sharding as shd
+from ..parallel.sharding import ParallelContext, TPShard
 from .attention import (decode_attention, flash_attention,
                         paged_attention, paged_attention_packed,
                         paged_attention_quant, paged_attention_quant_packed,
@@ -76,14 +88,14 @@ def dense(x, w, b=None, tp=None):
 
 def tp_of(parallel):
     """The ``TPShard`` of a ``parallel=`` argument with more than one rank,
-    else None. Anything else than a ``TPShard`` or None (the reference's
-    GSPMD ``ParallelContext``) is ROADMAP §1 item 11."""
-    if parallel is None:
+    else None: None for no parallelism, and for a ``ParallelContext`` (or
+    a block's ``Spmd`` view of one), whose GSPMD path the model functions
+    take themselves. Anything else is refused."""
+    if parallel is None or isinstance(parallel, (ParallelContext, Spmd)):
         return None
     if not isinstance(parallel, TPShard):
-        raise NotImplementedError(
-            "parallel=: GSPMD parallelism (ParallelContext, expert-parallel "
-            "all_to_all) is ROADMAP item 11; serving takes mesh=")
+        raise TypeError(f"parallel=: expected a TPShard or a "
+                        f"ParallelContext, got {type(parallel).__name__}")
     return parallel if parallel.size > 1 else None
 
 
@@ -292,6 +304,16 @@ def chunked_softmax_xent(hidden, unembed_vd, labels, mask, chunk=512,
     -1e30. ``tp`` (a ``TPShard``): ``unembed_vd`` is this rank's vocab
     shard, and each chunk's logits are gathered over the ranks before the
     softmax (not differentiable)."""
+    tot, cnt = xent_sums(hidden, unembed_vd, labels, mask, chunk, softcap,
+                         z_loss, vocab_real, tp)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def xent_sums(hidden, unembed_vd, labels, mask, chunk=512, softcap=0.0,
+              z_loss=1e-4, vocab_real=None, tp=None):
+    """(sum over masked positions of the cross-entropy plus z-loss, their
+    count): ``chunked_softmax_xent`` before its division. A rank of a
+    sharded batch adds its sums to the other ranks' before dividing."""
     s = hidden.shape[1]
     vp = unembed_vd.shape[0] * (1 if tp is None else tp.size)
     c = min(chunk, s)
@@ -310,4 +332,196 @@ def chunked_softmax_xent(hidden, unembed_vd, labels, mask, chunk=512,
                           labels[:, i:i + c].to(torch.int64), mc, softcap,
                           keep, z_loss, tp, on=on)
         cnt = cnt + torch.sum(mc)
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
+
+
+# ---------------------------------------------------------------------------
+# GSPMD-style training on a process mesh
+# ---------------------------------------------------------------------------
+
+class Spmd:
+    """A rank's view of a ``ParallelContext`` for one stack: ``ctx`` (the
+    rank's context), ``seq`` the stack's global sequence length, ``sp``
+    whether the residual stream is held ``seq / tp`` rows long (Megatron-
+    SP: ``resolve_spec(("batch", "sp", None))`` shards it), ``specs`` the
+    params' spec tree (``resolve_spec`` of every leaf, a layer leaf's
+    with its periods dim). The residual stream is the rank's batch rows
+    and, with ``sp``, its rows of the sequence."""
+
+    def __init__(self, ctx, seq, specs=None):
+        self.ctx = ctx
+        self.seq = int(seq)
+        self.tp = ctx.tp_size
+        self.axis = ctx.tp_axis
+        spec = shd.resolve_spec(("batch", "sp", None), (ctx.dp_size, seq, 1),
+                                ctx)
+        self.sp = len(spec) > 1 and spec[1] is not None
+        self.specs = specs
+
+    @property
+    def rows(self):
+        """The slice of the sequence this rank's stream holds."""
+        if not self.sp:
+            return slice(0, self.seq)
+        n = self.seq // self.tp
+        r = self.ctx.index(self.axis)
+        return slice(r * n, (r + 1) * n)
+
+    # -- the stream's layouts ---------------------------------------------
+    def full(self, x, dup):
+        """The whole sequence of the stream ``x`` (dim 1): gathered over
+        ``model`` when held in rows, for the same work on every rank
+        (``dup``) or for the rank's own share (heads, channels)."""
+        if self.sp:
+            return shd.all_gather(x, self.ctx, self.axis, 1, dup=dup)
+        return x if dup else shd.pvary(x, self.ctx, self.axis)
+
+    def from_partial(self, y):
+        """The stream from a row-parallel output (whole sequence, a
+        partial sum on each rank): reduce-scattered to rows under SP,
+        else psum'd."""
+        if self.sp:
+            return shd.reduce_scatter(y, self.ctx, self.axis, 1)
+        return shd.psum(y, self.ctx, self.axis)
+
+    def from_full_dup(self, y):
+        """The stream from the whole sequence every rank computed alike:
+        the rank's rows under SP."""
+        if self.sp:
+            return shd.slice_rank(y, self.ctx, self.axis, 1)
+        return y
+
+    # -- params -----------------------------------------------------------
+    def use(self, t, spec, dup=False, keep=False):
+        """A param from its local block ``t`` (spec ``spec``): gathered
+        whole over every mesh axis of its spec (the ZeRO-3 all_gather
+        over ``data``; over ``model`` for work each rank does alike when
+        ``dup``), except, with ``keep``, a dim sharded over ``model`` alone,
+        which stays the rank's share (column- or row-parallel). A leaf
+        replicated over ``model`` that enters work differing by rank
+        passes ``pvary``."""
+        ctx, on_model = self.ctx, False
+        for dim, entry in enumerate(spec):
+            axes = shd._axes(entry)
+            if not axes:
+                continue
+            if self.axis in axes:
+                on_model = True
+                if keep and axes == (self.axis,):
+                    continue
+            t = shd.all_gather(t, ctx, axes, dim,
+                               dup=dup and self.axis in axes)
+        if not dup and not on_model:
+            t = shd.pvary(t, ctx, self.axis)
+        return t
+
+    def use_tree(self, tree, specs, dup=False, keep=False):
+        if isinstance(tree, dict):
+            return {k: self.use_tree(v, specs[k], dup, keep)
+                    for k, v in tree.items()}
+        return self.use(tree, specs, dup, keep)
+
+    def sharded(self, spec, dim):
+        """Whether a leaf's ``dim`` is sharded over ``model`` alone."""
+        return (len(spec) > dim and spec[dim] is not None
+                and shd._axes(spec[dim]) == (self.axis,))
+
+
+def _qkv_axes(cfg, parallel):
+    """Attention's tensor-parallel policy (the reference's): shard heads
+    over ``model`` when ``n_kv_heads`` divides the tp size, else None
+    (context parallelism shards the query sequence instead)."""
+    if parallel is None:
+        return None
+    if cfg.n_kv_heads % parallel.tp_size == 0:
+        return ("batch", None, "heads", None)
+    return None
+
+
+def use_cp(parallel, qkv_ax, sq, skv, cfg):
+    """The reference's rule for context-parallel attention: no head
+    sharding, and the query sequence divides into ``tp`` blocks of whole
+    64-row (or ``attn_chunk``) chunks, the key sequence into ``tp``
+    blocks."""
+    return (parallel is not None and qkv_ax is None
+            and sq % (parallel.tp_size * min(cfg.attn_chunk, 64)) == 0
+            and skv % parallel.tp_size == 0)
+
+
+def _cp_attention(q, k, v, parallel, *, causal, window, softcap, scale):
+    """Context-parallel flash attention on a rank: q, k, v (B, S/tp, H|KV,
+    d) are its rows of the sequence; K and V are all-gathered over
+    ``model`` (backward: reduce-scatter of dK, dV) and kernel D runs the
+    rank's query rows against them at ``q_offset = rank * S/tp``, the
+    rows' global positions. Returns the rank's rows (B, S/tp, H, d)."""
+    axis = parallel.tp_axis
+    kf = shd.all_gather(k, parallel, axis, 1)
+    vf = shd.all_gather(v, parallel, axis, 1)
+    off = parallel.index(axis) * q.shape[1]
+    return flash_attention(q, kf, vf, causal=causal, window=window,
+                           softcap=softcap, scale=scale, q_offset=off)
+
+
+def spmd_attention(p, ps, h, cfg, sm, positions, *, window, causal):
+    """Self-attention of a block under ``Spmd`` ``sm``: ``p`` the layer's
+    local blocks, ``ps`` their specs, ``h`` the normed stream. Heads
+    sharded (column-parallel q/k/v, row-parallel ``wo``, a psum or SP's
+    reduce-scatter), else context-parallel on the rank's rows, else every
+    ``model`` rank computes it whole. Returns the block's output in the
+    stream's layout."""
+    ctx = sm.ctx
+    hd = cfg.head_dim_
+    softcap = cfg.attn_softcap
+    scale = hd ** -0.5 if cfg.query_scale == 0 else cfg.query_scale
+    qkv_ax = _qkv_axes(cfg, ctx)
+    rope_on = cfg.use_rope
+    if sm.tp > 1 and qkv_ax is not None and all(
+            sm.sharded(ps[n], 1) for n in ("wq", "wk", "wv")) and \
+            sm.sharded(ps["wo"], 0):
+        xf = sm.full(h, dup=False)
+        b, s = xf.shape[:2]
+        w = {n: sm.use(p[n], ps[n], keep=True) for n in p}
+        q = dense(xf, w["wq"], w.get("bq")).reshape(b, s, -1, hd)
+        k = dense(xf, w["wk"], w.get("bk")).reshape(b, s, -1, hd)
+        v = dense(xf, w["wv"], w.get("bv")).reshape(b, s, -1, hd)
+        glob = (b * ctx.dp_size, s)
+        shd.constraint(q, qkv_ax, ctx, glob + (cfg.n_heads, hd))
+        shd.constraint(k, qkv_ax, ctx, glob + (cfg.n_kv_heads, hd))
+        shd.constraint(v, qkv_ax, ctx, glob + (cfg.n_kv_heads, hd))
+        if rope_on:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale)
+        return sm.from_partial(dense(out.reshape(b, s, -1), w["wo"]))
+    if sm.tp > 1 and sm.sp and use_cp(ctx, qkv_ax, sm.seq, sm.seq, cfg):
+        w = {n: sm.use(p[n], ps[n]) for n in p}
+        b, s = h.shape[:2]
+        q = dense(h, w["wq"], w.get("bq")).reshape(b, s, -1, hd)
+        k = dense(h, w["wk"], w.get("bk")).reshape(b, s, -1, hd)
+        v = dense(h, w["wv"], w.get("bv")).reshape(b, s, -1, hd)
+        if rope_on:
+            pos = positions[sm.rows]
+            q = rope(q, pos, cfg.rope_theta)
+            k = rope(k, pos, cfg.rope_theta)
+        out = _cp_attention(q, k, v, ctx, causal=causal, window=window,
+                            softcap=softcap, scale=scale)
+        return dense(out.reshape(b, s, -1), w["wo"])
+    xf = sm.full(h, dup=True)
+    w = {n: sm.use(p[n], ps[n], dup=True) for n in p}
+    y, _ = attention_layer(w, xf, cfg, positions, window=window,
+                           causal=causal)
+    return sm.from_full_dup(y)
+
+
+def spmd_mlp(p, ps, h, sm):
+    """The SwiGLU MLP under ``Spmd``: column-parallel ``wg``/``wi`` and
+    row-parallel ``wo`` over the hidden channels when ``model`` shards
+    them (the reference's ``mlp`` activations), else row-wise on the
+    stream (the rank's rows under SP, the whole sequence alike on every
+    rank otherwise)."""
+    if sm.tp > 1 and sm.sharded(ps["wg"], 1) and sm.sharded(ps["wi"], 1) \
+            and sm.sharded(ps["wo"], 0):
+        w = sm.use_tree(p, ps, keep=True)
+        return sm.from_partial(mlp_layer(w, sm.full(h, dup=False)))
+    return mlp_layer(sm.use_tree(p, ps, dup=not sm.sp), h)

@@ -21,6 +21,16 @@ of a tensor-parallel mesh (DESIGN.md Sec. 10): ``params`` is the rank's
 tree (``core.policy.tp_shard``, ``tp_localize``), the paged pools and
 static caches hold the rank's KV heads where heads shard, and the logits
 come out whole on every rank (the vocab shards gathered).
+
+``loss`` also takes a ``parallel.ParallelContext``: on a rank of a
+process mesh (``launch.mesh.make_host_mesh``) ``params`` and ``batch``
+are the rank's blocks and the stacks run their GSPMD path
+(``transformer._block_spmd``); on the controller ``params`` is a
+``sharding.Sharded`` tree and the loss runs on every rank. The loss is
+the global mean: each rank's NLL sum and token count are summed over the
+mesh. ``prefill``, ``decode_step`` and the paged steps refuse a
+``ParallelContext`` (ROADMAP item 11: their caches carry ``kv_seq``
+axes).
 """
 from __future__ import annotations
 
@@ -35,10 +45,13 @@ from ..core.quantize import KVQuantSpec, PackedQTensor, QTensor, \
 from ..device import resolve_device
 from ..kernels.msb_matmul.ops import msb_unembed
 from . import ssm, xlstm
-from .layers import chunked_softmax_xent, heads_split, rms_norm, tp_of
+from ..parallel import sharding as shd
+from ..parallel.sharding import ParallelContext
+from .layers import (Spmd, chunked_softmax_xent, heads_split, rms_norm,
+                     tp_of, xent_sums)
 from .transformer import (_require_attention_stack, forward_stack,
-                          init_params, layer_plan, n_periods,
-                          supports_paged)
+                          init_params, layer_plan, n_periods, param_axes,
+                          param_shapes, supports_paged)
 
 
 def _sinusoid(positions, d):
@@ -78,6 +91,20 @@ class Model:
     def init(self, generator, device=None):
         """Random params on ``device`` (``None`` = the card)."""
         return init_params(self.cfg, generator, device)
+
+    def param_axes(self):
+        """Logical axes of every param leaf (the resolver's input)."""
+        return param_axes(self.cfg)
+
+    def param_shapes(self):
+        """Global shape (a tuple) of every param leaf."""
+        return param_shapes(self.cfg)
+
+    def param_specs(self, ctx):
+        """``resolve_spec`` of every param leaf on ``ctx``'s mesh."""
+        return shd.tree_map_axes(
+            lambda ax, shape: shd.resolve_spec(ax, shape, ctx),
+            self.param_axes(), self.param_shapes())
 
     # -- shared pieces -----------------------------------------------------
     def _embed(self, params, tokens):
@@ -178,6 +205,10 @@ class Model:
         Under a ``TPShard`` (inference only) each cross-entropy chunk's
         logits are gathered over a vocab-sharded table's slices."""
         cfg = self.cfg
+        if isinstance(parallel, ParallelContext):
+            if not parallel.on_rank:
+                return _mesh_loss(self, params, batch, parallel)
+            return self._loss_spmd(params, batch, parallel)
         tp = tp_of(parallel)
         enc_out = (self._encoder(params, batch, parallel) if cfg.is_encdec
                    else None)
@@ -200,6 +231,65 @@ class Model:
                                   vocab_real=cfg.vocab_size, tp=vocab_tp)
         return ce + cfg.router_aux_weight * aux, {"ce": ce,
                                                   "router_aux": aux}
+
+    def _loss_spmd(self, params, batch, ctx):
+        """``loss`` on a rank of a process mesh: ``params`` the rank's
+        blocks, ``batch`` its batch rows. The embedding (and internvl's,
+        whisper's inputs) is computed whole and alike on every ``model``
+        rank, then cut to the rank's rows of the sequence where SP holds
+        the stream in rows; each rank's NLL sum and count are summed over
+        the mesh. The returned loss carries the global value on every
+        rank and, backward, the gradient of this rank's share of it (a
+        value replicated over the data axes, as the router loss, counts
+        ``1 / dp`` a rank), so ``loss.backward()`` on every rank gives
+        the global gradient once the shares are reduced (``train.
+        make_train_step``)."""
+        cfg = self.cfg
+        specs = self.param_specs(ctx)
+        enc_out = None
+        if cfg.is_encdec:
+            frames = batch["frames"].to(cfg.dtype)
+            sme = Spmd(ctx, frames.shape[1], specs)
+            pos = torch.arange(frames.shape[1], device=frames.device)
+            xe = sme.from_full_dup(
+                frames + _sinusoid(pos, cfg.d_model)[None].to(cfg.dtype))
+            xe, _, _ = forward_stack(params["enc"], xe, cfg, stack="enc",
+                                     positions=pos, parallel=sme)
+            xe = rms_norm(xe, sme.use(params["enc_final_norm"],
+                                      specs["enc_final_norm"],
+                                      dup=not sme.sp), cfg.norm_eps)
+            enc_out = sme.full(xe, dup=True)
+        whole = {"embed": Spmd(ctx, 1).use(params["embed"], specs["embed"],
+                                           dup=True)}
+        x = self._assemble_inputs(whole, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        if (not cfg.use_rope and not cfg.is_encdec and _has_attn(cfg)) \
+                or cfg.is_encdec:
+            x = x + _sinusoid(positions, cfg.d_model)[None].to(cfg.dtype)
+        sm = Spmd(ctx, x.shape[1], specs)
+        x = sm.from_full_dup(x)
+        x, _, aux = forward_stack(params["dec"], x, cfg, positions=positions,
+                                  enc_out=enc_out, parallel=sm)
+        dup = not sm.sp
+        x = rms_norm(x, sm.use(params["final_norm"], specs["final_norm"],
+                               dup=dup), cfg.norm_eps)
+        name = "unembed" if "unembed" in params else "embed"
+        w = sm.use(params[name], specs[name], dup=dup)
+        labels = batch["labels"].to(torch.int64)[:, sm.rows]
+        tot, cnt = xent_sums(x, w, torch.clamp(labels, min=0),
+                             (labels >= 0).to(torch.float32),
+                             softcap=cfg.logit_softcap,
+                             vocab_real=cfg.vocab_size)
+        if sm.sp:
+            tot = shd.psum(tot, ctx, ctx.tp_axis)
+            cnt = shd.raw_psum(ctx, cnt, ctx.tp_axis)
+        cnt = shd.raw_psum(ctx, cnt, ctx.dp_axes)
+        ce_share = tot / torch.clamp(cnt, min=1.0)
+        aux = aux.to(torch.float32)
+        share = ce_share + cfg.router_aux_weight * aux / ctx.dp_size
+        loss = _GlobalValue.apply(share, ctx)
+        ce = shd.raw_psum(ctx, ce_share.detach(), ctx.dp_axes)
+        return loss, {"ce": ce, "router_aux": aux.detach()}
 
     # -- static serving: prefill + ring-buffer decode ------------------------
     def prefill(self, params, batch, parallel=None):
@@ -443,3 +533,31 @@ class Model:
             out_tok.append(torch.where(valid, nxt, torch.zeros_like(nxt)))
             out_valid.append(valid)
         return torch.stack(out_tok, 1), torch.stack(out_valid, 1), pools
+
+
+class _GlobalValue(torch.autograd.Function):
+    """A rank's share of the loss -> the loss: forward the shares summed
+    over the data axes (identical on every rank), backward the identity
+    to the share (the exact transpose of that sum's use on each rank)."""
+
+    @staticmethod
+    def forward(fctx, share, ctx):
+        return shd.raw_psum(ctx, share.detach(), ctx.dp_axes).clone()
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+def _mesh_loss(model, params, batch, ctx):
+    """``Model.loss`` from the controller: every rank runs it on its
+    blocks (no gradients); returns rank 0's (loss, metrics)."""
+    return ctx.mesh.run(_rank_loss, model, shd._plain(params),
+                        per_rank=shd.batch_blocks(ctx, batch))
+
+
+def _rank_loss(rctx, model, params, batch):
+    dev = rctx.device
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        return model.loss(params.local(rctx), batch, rctx.par)

@@ -20,9 +20,16 @@ where the reference maps ``packed_matmul`` over experts one at a time
 under ``lax.cond(count > 0)``; an expert with no routed token reads no
 weight and gives exactly 0, decided on the device from ``counts``.
 Under a ``TPShard`` with expert-sharded weights (``_moe_tp``) every rank
-routes all tokens and runs its resident experts; the reference's
-expert-parallel all_to_all path (a ``ParallelContext``) is ROADMAP item
-11.
+routes all tokens and runs its resident experts. Under a
+``ParallelContext`` (training) the reference's expert-parallel path runs
+(``_moe_ep``): each rank routes its own tokens (its batch rows and its
+rows of the sequence) with a capacity from that local count, the experts'
+weights are gathered over ``data`` in ``cfg.dtype`` (ZeRO-3), the
+dispatch buffer goes out to the experts' ranks and back by all_to_all
+over ``model``, and the load-balancing loss is the mean over the ranks.
+Where that does not apply (experts that do not divide over ``model``, a
+stream not held in rows) every rank routes the whole global batch, as
+the reference's GSPMD path does there.
 
 Gradients run through routing as the reference's: the gates and the
 load-balancing loss (through the router's softmax) carry them; top-k
@@ -36,7 +43,9 @@ import torch
 
 from ..core.quantize import PackedQTensor, QTensor
 from ..kernels.msb_matmul.ops import packed_matmul_experts
-from .layers import grad_on, remat, tp_of
+from ..parallel import sharding as shd
+from ..parallel.sharding import ParallelContext
+from .layers import Spmd, grad_on, remat, tp_of
 
 
 def _capacity(tokens, k, e_total, cf):
@@ -173,12 +182,79 @@ def _moe_tp(p, x, cfg, tp):
     return tp.psum(y).reshape(b, s, d), aux
 
 
+def moe_param_specs(cfg, ctx):
+    """The specs of an MoE layer's leaves (one layer, no periods dim)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts_padded
+    ax = ("experts", "fsdp", None)
+    return {"router": shd.resolve_spec((None, None), (d, e), ctx),
+            "wg": shd.resolve_spec(ax, (e, d, f), ctx),
+            "wi": shd.resolve_spec(ax, (e, d, f), ctx),
+            "wo": shd.resolve_spec(ax, (e, f, d), ctx)}
+
+
+def _moe_spmd(p, x, cfg, sm, ps):
+    """The MoE FFN on a rank under ``Spmd`` ``sm``: ``p`` the layer's
+    local blocks (specs ``ps``; quantized experts are dequantized first
+    and cut to the rank's block, as the reference dequantizes them before
+    its collectives), ``x`` the rank's stream. Expert-parallel
+    (``_moe_ep``) when the experts divide over ``model`` and the stream
+    is held in rows (or ``model`` has one rank); else every rank routes
+    the global batch."""
+    ctx = sm.ctx
+    p = dict(p)
+    for n in ("wg", "wi", "wo"):
+        if isinstance(p[n], (QTensor, PackedQTensor)):
+            p[n] = shd.local_block(p[n].dequantize(), ps[n], ctx)
+    if cfg.n_experts_padded % sm.tp == 0 and (sm.tp == 1 or sm.sp):
+        return _moe_ep(p, x, cfg, sm, ps)
+    xg = shd.all_gather(sm.full(x, dup=True), ctx, ctx.dp_axes, 0)
+    y, aux = moe_layer(sm.use_tree(p, ps, dup=True), xg, cfg)
+    return sm.from_full_dup(shd.slice_rank(y, ctx, ctx.dp_axes, 0)), aux
+
+
+def _moe_ep(p, x, cfg, sm, ps):
+    """The reference's expert-parallel MoE on one rank: route the rank's
+    (B, S_l) tokens with capacity from ``B * S_l``, all_to_all the (E, C,
+    D) dispatch over ``model`` so each rank holds its ``E / tp`` experts'
+    slots from every rank, run them (weights gathered over ``data`` in
+    ``cfg.dtype``), all_to_all back and combine; aux psum'd over every
+    mesh axis / n_devices."""
+    ctx, axis = sm.ctx, sm.axis
+    b, s, d = x.shape
+    k = cfg.n_experts_active
+    e_total = cfg.n_experts_padded
+    capacity = _capacity(b * s, k, e_total, cfg.capacity_factor)
+    router = sm.use(p["router"], ps["router"])
+    w = {n: sm.use(p[n].to(cfg.dtype), ps[n], keep=True)
+         for n in ("wg", "wi", "wo")}
+    x2d = x.reshape(-1, d)
+    gates, eidx, pos, keep, aux = _route(x2d, router, e_total,
+                                         cfg.n_experts, k, capacity)
+    buf, flat_slot = _dispatch(x2d, gates, eidx, pos, keep, e_total,
+                               capacity)
+    send = buf[:-1].reshape(e_total, capacity, d)
+    recv = shd.all_to_all(send, ctx, axis, 0, 1)     # (E/tp, tp*C, D)
+    ye = _expert_ffn(recv, w["wg"], w["wi"], w["wo"])
+    back = shd.all_to_all(ye, ctx, axis, 1, 0)       # (E, C, D)
+    y = _combine(back.reshape(-1, d), flat_slot, gates, keep, b * s, k, d)
+    aux = shd.psum(aux, ctx, ctx.mesh.axis_names) / ctx.n_devices
+    return y.reshape(b, s, d), aux
+
+
 def moe_layer(p, x, cfg, parallel=None):
     """x (B, S, D) -> (y (B, S, D), aux). ``p``: router (D, E) and experts
     wg/wi (E, D, F), wo (E, F, D), dense, ``QTensor`` or ``PackedQTensor``.
-    ``parallel``: None (one device), or a ``TPShard``: expert-sharded
+    ``parallel``: None (one device); a ``TPShard``: expert-sharded
     weights take ``_moe_tp``, any other layer the one-device path, which
-    is then exact on every rank."""
+    is then exact on every rank; a rank's ``ParallelContext``: ``p`` holds
+    the rank's blocks and ``x`` its block of the reference's
+    ``P(dp_axes, model)`` token layout (``_moe_spmd``); or a block's
+    ``Spmd`` view."""
+    if isinstance(parallel, ParallelContext):
+        parallel = Spmd(parallel, x.shape[1] * parallel.tp_size)
+    if isinstance(parallel, Spmd):
+        return _moe_spmd(p, x, cfg, parallel,
+                         moe_param_specs(cfg, parallel.ctx))
     tp = tp_of(parallel)
     if tp is not None and getattr(p.get("wg"), "shard", None) == "e":
         return _moe_tp(p, x, cfg, tp)

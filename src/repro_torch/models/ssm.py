@@ -11,12 +11,19 @@ The recurrence is plain PyTorch on every device: in the reference it is a
 selective-scan kernel as possible work). Projections go through ``dense``
 (kernel A for packed weights); ``x_proj`` and ``dt_proj`` at widths the
 quantization policy skips multiply with ``torch.matmul``.
+
+Under a ``ParallelContext`` the inner channels shard over ``model`` (the
+reference's ``mlp`` anchoring of ``xi`` and ``z``): a rank runs the scan
+on its ``d_inner / tp`` channels, ``x_proj`` is row-parallel (its dt/B/C
+summed over the ranks) and ``out_proj`` gives a partial sum
+(``spmd_mamba``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sharding as shd
 from .layers import dense, grad_on, remat
 
 
@@ -87,19 +94,29 @@ def _chunk(s, chunk):
     return ck
 
 
-def mamba_layer(p, x, cfg, cache=None):
+def mamba_layer(p, x, cfg, cache=None, parallel=None):
     """x: (B, S, D) -> (B, S, D), and the recurrent state {"conv" (B, K-1,
     d_inner) in x's type, "ssm" (B, d_inner, N) f32}. ``cache`` (decode)
-    is that state; S == 1 with a cache runs the single-step branch."""
+    is that state; S == 1 with a cache runs the single-step branch.
+    ``parallel`` (a rank's ``ParallelContext``): ``p`` holds the rank's
+    channels, ``x`` the whole sequence of its batch rows; the output is
+    the rank's partial sum of ``out_proj``."""
     b, s, _ = x.shape
     n, r = cfg.mamba_d_state, cfg.mamba_dt_rank
     f32 = torch.float32
     xi = dense(x, p["in_proj_x"])                        # (B, S, d_in)
     z = dense(x, p["in_proj_z"])
+    if parallel is not None:
+        glob = (b * parallel.dp_size, s, cfg.mamba_d_inner)
+        xi = shd.constraint(xi, ("batch", None, "mlp"), parallel, glob)
+        z = shd.constraint(z, ("batch", None, "mlp"), parallel, glob)
     xi, new_conv = _causal_conv1d(xi, p["conv_w"],
                                   None if cache is None else cache["conv"])
     xi = F.silu(xi.to(f32)).to(x.dtype)
     proj = dense(xi, p["x_proj"])                        # (B, S, r + 2N)
+    if parallel is not None:     # row-parallel: summed, then every rank's
+        axis = parallel.tp_axis  # channels read it
+        proj = shd.pvary(shd.psum(proj, parallel, axis), parallel, axis)
     dt_low, bmat, cmat = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
     dt = F.softplus(dense(dt_low, p["dt_proj"]).to(f32)
                     + p["dt_bias"].to(f32))              # (B, S, d_in) f32
@@ -137,19 +154,20 @@ def mamba_layer(p, x, cfg, cache=None):
 
 
 def mamba_param_defs(cfg, prefix):
-    """path -> (shape, init kind), as the reference declares them."""
+    """path -> (shape, logical axes, init kind), as the reference
+    declares them."""
     d, d_in = cfg.d_model, cfg.mamba_d_inner
     n, k, r = cfg.mamba_d_state, cfg.mamba_d_conv, cfg.mamba_dt_rank
     return {
-        f"{prefix}/in_proj_x": ((d, d_in), "fan_in"),
-        f"{prefix}/in_proj_z": ((d, d_in), "fan_in"),
-        f"{prefix}/conv_w": ((k, d_in), "one"),
-        f"{prefix}/x_proj": ((d_in, r + 2 * n), "fan_in"),
-        f"{prefix}/dt_proj": ((r, d_in), "fan_in"),
-        f"{prefix}/dt_bias": ((d_in,), "dt_bias"),
-        f"{prefix}/a_log": ((d_in, n), "a_log"),
-        f"{prefix}/d_skip": ((d_in,), "one"),
-        f"{prefix}/out_proj": ((d_in, d), "fan_in"),
+        f"{prefix}/in_proj_x": ((d, d_in), ("embed", "mlp"), "fan_in"),
+        f"{prefix}/in_proj_z": ((d, d_in), ("embed", "mlp"), "fan_in"),
+        f"{prefix}/conv_w": ((k, d_in), (None, "mlp"), "one"),
+        f"{prefix}/x_proj": ((d_in, r + 2 * n), ("mlp", None), "fan_in"),
+        f"{prefix}/dt_proj": ((r, d_in), (None, "mlp"), "fan_in"),
+        f"{prefix}/dt_bias": ((d_in,), ("mlp",), "dt_bias"),
+        f"{prefix}/a_log": ((d_in, n), ("mlp", None), "a_log"),
+        f"{prefix}/d_skip": ((d_in,), ("mlp",), "one"),
+        f"{prefix}/out_proj": ((d_in, d), ("mlp", "embed"), "fan_in"),
     }
 
 
@@ -157,3 +175,21 @@ def mamba_cache_shapes(cfg, batch):
     d_in, n, k = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
     return {"conv": ((batch, k - 1, d_in), cfg.dtype),
             "ssm": ((batch, d_in, n), torch.float32)}
+
+
+_MLP_DIMS = {"in_proj_x": 1, "in_proj_z": 1, "conv_w": 1, "x_proj": 0,
+             "dt_proj": 1, "dt_bias": 0, "a_log": 0, "d_skip": 0,
+             "out_proj": 0}
+
+
+def spmd_mamba(p, ps, h, cfg, sm):
+    """The mamba mixer under a block's ``Spmd`` ``sm``: on the rank's
+    inner channels when ``model`` shards them, else the whole layer alike
+    on every ``model`` rank. Returns the output in the stream's layout."""
+    if sm.tp > 1 and all(sm.sharded(ps[k], d) for k, d in _MLP_DIMS.items()):
+        w = sm.use_tree(p, ps, keep=True)
+        y, _ = mamba_layer(w, sm.full(h, dup=False), cfg, parallel=sm.ctx)
+        return sm.from_partial(y)
+    y, _ = mamba_layer(sm.use_tree(p, ps, dup=True), sm.full(h, dup=True),
+                       cfg)
+    return sm.from_full_dup(y)

@@ -11,7 +11,11 @@ stacked along a leading ``L`` dim (one subtree per period slot, as in the
 reference); the reference's ``lax.scan`` over that dim is a Python loop
 over layer slices here, and each layer's window is a Python int.
 ``parallel`` (a ``parallel.TPShard``) reaches every block: the stacks
-then run on one rank's shard of a tensor-parallel mesh.
+then run on one rank's shard of a tensor-parallel mesh. Under a
+``ParallelContext`` (the loss on a rank of a process mesh, through the
+block's ``layers.Spmd`` view) each block runs ``_block_spmd``: the rank's
+blocks of the params, the residual stream S/tp rows long between blocks
+where SP applies, and the collectives written out (``parallel.sharding``).
 """
 from __future__ import annotations
 
@@ -22,9 +26,10 @@ import torch
 
 from ..core.quantize import map_tensors
 from ..device import resolve_device
+from ..parallel import sharding as shd
 from . import ssm, xlstm
-from .layers import (attention_layer, grad_on, mlp_layer, remat, rms_norm,
-                     tp_of)
+from .layers import (Spmd, attention_layer, grad_on, mlp_layer, remat,
+                     rms_norm, spmd_attention, spmd_mlp, tp_of)
 from .moe import _capacity, moe_layer
 
 
@@ -77,16 +82,16 @@ def _require_attention_stack(cfg):
 def _attn_defs(cfg, prefix, cross=False):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     defs = {
-        f"{prefix}/wq": ((d, h * hd), "fan_in"),
-        f"{prefix}/wk": ((d, kv * hd), "fan_in"),
-        f"{prefix}/wv": ((d, kv * hd), "fan_in"),
-        f"{prefix}/wo": ((h * hd, d), "fan_out"),
+        f"{prefix}/wq": ((d, h * hd), ("fsdp", "tp"), "fan_in"),
+        f"{prefix}/wk": ((d, kv * hd), ("fsdp", "tp"), "fan_in"),
+        f"{prefix}/wv": ((d, kv * hd), ("fsdp", "tp"), "fan_in"),
+        f"{prefix}/wo": ((h * hd, d), ("tp", "fsdp"), "fan_out"),
     }
     if cfg.qkv_bias and not cross:
         defs.update({
-            f"{prefix}/bq": ((h * hd,), "zero"),
-            f"{prefix}/bk": ((kv * hd,), "zero"),
-            f"{prefix}/bv": ((kv * hd,), "zero"),
+            f"{prefix}/bq": ((h * hd,), ("tp",), "zero"),
+            f"{prefix}/bk": ((kv * hd,), ("tp",), "zero"),
+            f"{prefix}/bv": ((kv * hd,), ("tp",), "zero"),
         })
     return defs
 
@@ -94,9 +99,9 @@ def _attn_defs(cfg, prefix, cross=False):
 def _ffn_defs(cfg, prefix):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        f"{prefix}/wg": ((d, f), "fan_in"),
-        f"{prefix}/wi": ((d, f), "fan_in"),
-        f"{prefix}/wo": ((f, d), "fan_out"),
+        f"{prefix}/wg": ((d, f), ("fsdp", "tp"), "fan_in"),
+        f"{prefix}/wi": ((d, f), ("fsdp", "tp"), "fan_in"),
+        f"{prefix}/wo": ((f, d), ("tp", "fsdp"), "fan_out"),
     }
 
 
@@ -105,16 +110,16 @@ def _moe_defs(cfg, prefix):
     router keeps a column per padded expert, masked in routing."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts_padded
     return {
-        f"{prefix}/router": ((d, e), "fan_in"),
-        f"{prefix}/wg": ((e, d, f), "fan_in"),
-        f"{prefix}/wi": ((e, d, f), "fan_in"),
-        f"{prefix}/wo": ((e, f, d), "fan_out"),
+        f"{prefix}/router": ((d, e), (None, None), "fan_in"),
+        f"{prefix}/wg": ((e, d, f), ("experts", "fsdp", None), "fan_in"),
+        f"{prefix}/wi": ((e, d, f), ("experts", "fsdp", None), "fan_in"),
+        f"{prefix}/wo": ((e, f, d), ("experts", "fsdp", None), "fan_out"),
     }
 
 
 def _slot_defs(cfg, slot_prefix, mixer, ffn, cross=False):
     d = cfg.d_model
-    defs = {f"{slot_prefix}/norm1": ((d,), "zero")}
+    defs = {f"{slot_prefix}/norm1": ((d,), (None,), "zero")}
     if mixer in ("attn", "enc_attn"):
         defs.update(_attn_defs(cfg, f"{slot_prefix}/attn"))
     elif mixer == "mamba":
@@ -123,14 +128,14 @@ def _slot_defs(cfg, slot_prefix, mixer, ffn, cross=False):
         defs.update(xlstm.xlstm_param_defs(cfg, f"{slot_prefix}/{mixer}",
                                            mixer))
     if cfg.post_norm:
-        defs[f"{slot_prefix}/norm1b"] = ((d,), "zero")
+        defs[f"{slot_prefix}/norm1b"] = ((d,), (None,), "zero")
     if cross:
-        defs[f"{slot_prefix}/normx"] = ((d,), "zero")
+        defs[f"{slot_prefix}/normx"] = ((d,), (None,), "zero")
         defs.update(_attn_defs(cfg, f"{slot_prefix}/xattn", cross=True))
     if ffn != "none":
-        defs[f"{slot_prefix}/norm2"] = ((d,), "zero")
+        defs[f"{slot_prefix}/norm2"] = ((d,), (None,), "zero")
         if cfg.post_norm:
-            defs[f"{slot_prefix}/norm2b"] = ((d,), "zero")
+            defs[f"{slot_prefix}/norm2b"] = ((d,), (None,), "zero")
     if ffn in ("dense", "moe+dense"):
         defs.update(_ffn_defs(cfg, f"{slot_prefix}/mlp"))
     if ffn in ("moe", "moe+dense"):
@@ -138,20 +143,50 @@ def _slot_defs(cfg, slot_prefix, mixer, ffn, cross=False):
     return defs
 
 
-def param_defs(cfg):
-    """path -> (shape, init_kind), as the reference declares them."""
+def param_decls(cfg):
+    """path -> (shape, logical axes, init kind), as the reference's
+    ``param_defs`` declares them (a layer's shape and axes without the
+    leading periods dim)."""
     d, vp = cfg.d_model, cfg.vocab_padded
-    defs = {"embed": ((vp, d), "embed"), "final_norm": ((d,), "zero")}
+    defs = {"embed": ((vp, d), ("vocab", "fsdp"), "embed"),
+            "final_norm": ((d,), (None,), "zero")}
     if not cfg.tie_embeddings:
-        defs["unembed"] = ((vp, d), "fan_out")
+        defs["unembed"] = ((vp, d), ("vocab", "fsdp"), "fan_out")
     for slot, (mixer, ffn) in enumerate(layer_plan(cfg, "dec")):
         defs.update(_slot_defs(cfg, f"dec/s{slot}", mixer, ffn,
                                cross=cfg.is_encdec))
     if cfg.is_encdec:
-        defs["enc_final_norm"] = ((d,), "zero")
+        defs["enc_final_norm"] = ((d,), (None,), "zero")
         for slot, (mixer, ffn) in enumerate(layer_plan(cfg, "enc")):
             defs.update(_slot_defs(cfg, f"enc/s{slot}", mixer, ffn))
     return defs
+
+
+def param_defs(cfg):
+    """path -> (shape, init_kind) of ``param_decls``."""
+    return {path: (shape, kind)
+            for path, (shape, _axes, kind) in param_decls(cfg).items()}
+
+
+def _full_shape(cfg, path, shape):
+    stack = path.split("/", 1)[0]
+    return ((n_periods(cfg, stack),) + tuple(shape)
+            if stack in ("dec", "enc") else tuple(shape))
+
+
+def param_axes(cfg):
+    """The params tree's logical axes (a layer leaf's first, the periods
+    dim, replicated), the sharding resolver's input."""
+    return _nest({path: ((None,) + tuple(axes)
+                         if path.startswith(("dec/", "enc/"))
+                         else tuple(axes))
+                  for path, (_s, axes, _k) in param_decls(cfg).items()})
+
+
+def param_shapes(cfg):
+    """The params tree's shapes (tuples), layers stacked over periods."""
+    return _nest({path: _full_shape(cfg, path, shape)
+                  for path, (shape, _a, _k) in param_decls(cfg).items()})
 
 
 def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
@@ -202,10 +237,8 @@ def init_leaves(cfg, generator, device=None):
     (``repro_torch.convert``)."""
     dev = resolve_device(device)
     for path, (shape, kind) in sorted(param_defs(cfg).items()):
-        stack = path.split("/", 1)[0]
-        full = ((n_periods(cfg, stack),) + shape if stack in ("dec", "enc")
-                else shape)
-        yield path, _init_leaf(shape, full, kind, generator, dev)
+        yield path, _init_leaf(shape, _full_shape(cfg, path, shape), kind,
+                               generator, dev)
 
 
 def init_params(cfg, generator, device=None):
@@ -280,6 +313,66 @@ def _block(x, lp, cfg, mixer, ffn, *, window, positions, cur_pos, cache,
     return x + y, new_cache, aux
 
 
+def _strip_layer(specs):
+    """A layer-stack spec tree without each leaf's periods dim."""
+    if isinstance(specs, dict):
+        return {k: _strip_layer(v) for k, v in specs.items()}
+    return tuple(specs[1:])
+
+
+def _block_spmd(x, lp, ls, cfg, mixer, ffn, *, window, positions, enc_out,
+                cross, sm):
+    """``_block`` on a rank under ``Spmd`` ``sm``: ``lp`` the layer's local
+    blocks, ``ls`` their specs, ``x`` the rank's residual stream (its
+    batch rows; its rows of the sequence under SP). Attention, mamba, the
+    MLP and the MoE FFN take their sharded paths (``spmd_attention``,
+    ``ssm.spmd_mamba``, ``spmd_mlp``, ``moe_layer``); xLSTM's mixers and
+    whisper's cross-attention run whole and alike on every ``model`` rank
+    (the reference shards no activation of theirs over ``model`` here).
+    Norms and residual adds run on the stream as it lies. Returns (x,
+    aux)."""
+    ctx, dup = sm.ctx, not sm.sp
+
+    def norm(t, name):
+        return rms_norm(t, sm.use(lp[name], ls[name], dup=dup),
+                        cfg.norm_eps)
+
+    def whole(fn, name, h, **kw):
+        w = sm.use_tree(lp[name], ls[name], dup=True)
+        y, _ = fn(w, sm.full(h, dup=True), cfg, **kw)
+        return sm.from_full_dup(y)
+
+    aux = None
+    h = norm(x, "norm1")
+    if mixer in ("attn", "enc_attn"):
+        y = spmd_attention(lp["attn"], ls["attn"], h, cfg, sm, positions,
+                           window=window, causal=mixer == "attn")
+    elif mixer == "mamba":
+        y = ssm.spmd_mamba(lp["mamba"], ls["mamba"], h, cfg, sm)
+    else:
+        fn = xlstm.slstm_layer if mixer == "slstm" else xlstm.mlstm_layer
+        y = whole(fn, mixer, h)
+    if cfg.post_norm:
+        y = norm(y, "norm1b")
+    x = x + y
+    if cross:
+        y = whole(attention_layer, "xattn", norm(x, "normx"),
+                  positions=positions, xattn_kv=enc_out, causal=False)
+        x = x + y
+    if ffn != "none":
+        h = norm(x, "norm2")
+        y = None if ffn == "moe" else spmd_mlp(lp["mlp"], ls["mlp"], h, sm)
+        if ffn != "dense":
+            ym, aux = moe_layer(lp["moe"], h, cfg, sm)
+            y = ym if y is None else y + ym
+        if cfg.post_norm:
+            y = norm(y, "norm2b")
+        x = x + y
+    b = x.shape[0] * ctx.dp_size
+    shd.constraint(x, ("batch", "sp", None), ctx, (b, sm.seq, x.shape[2]))
+    return x, aux
+
+
 def _write_state(view, new):
     """Copy the new recurrent state into the cache's layer slice; leaves
     the block returned as they were (ring K/V written in place, the
@@ -345,6 +438,13 @@ def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
     checkpoints. Serving paths never remat."""
     if paged is not None:
         _require_attention_stack(cfg)
+    if isinstance(parallel, shd.ParallelContext) or (
+            isinstance(parallel, Spmd)
+            and (cache is not None or collect_cache)):
+        raise NotImplementedError(
+            "a ParallelContext runs the loss only: prefill and decode under "
+            "GSPMD parallelism are ROADMAP item 11 (their caches carry "
+            "kv_seq axes)")
     plan = layer_plan(cfg, stack)
     wins = _window_array(cfg, stack)
     cross = cfg.is_encdec and stack == "dec"
@@ -399,10 +499,18 @@ def _loss_stack(params_stack, x, cfg, plan, wins, cross, stack, positions,
     def block(x_, period, slot):
         mixer, ffn = plan[slot]
         lp = map_tensors(lambda t: t[period], params_stack[f"s{slot}"])
-        y, _, a = _block(x_, lp, cfg, mixer, ffn, window=wins[period][slot],
-                         positions=positions, cur_pos=None, cache=None,
-                         enc_out=enc_out, cross=cross, decode_positions=None,
-                         paged=None, parallel=parallel)
+        if isinstance(parallel, Spmd):
+            y, a = _block_spmd(
+                x_, lp, _strip_layer(parallel.specs[stack][f"s{slot}"]),
+                cfg, mixer, ffn, window=wins[period][slot],
+                positions=positions, enc_out=enc_out, cross=cross,
+                sm=parallel)
+        else:
+            y, _, a = _block(x_, lp, cfg, mixer, ffn,
+                             window=wins[period][slot], positions=positions,
+                             cur_pos=None, cache=None, enc_out=enc_out,
+                             cross=cross, decode_positions=None, paged=None,
+                             parallel=parallel)
         return y, (torch.zeros((), dtype=torch.float32, device=y.device)
                    if a is None else a)
 

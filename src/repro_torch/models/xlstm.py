@@ -142,24 +142,24 @@ def slstm_layer(p, x, cfg, cache=None):
 
 
 def xlstm_param_defs(cfg, prefix, kind):
-    """path -> (shape, init kind) of an ``kind`` ("mlstm" | "slstm")
-    block, as the reference declares them."""
+    """path -> (shape, logical axes, init kind) of an ``kind`` ("mlstm"
+    | "slstm") block, as the reference declares them."""
     d, h_, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     hd = h_ * dh
     if kind == "mlstm":
         return {
-            f"{prefix}/wq": ((d, hd), "fan_in"),
-            f"{prefix}/wk": ((d, hd), "fan_in"),
-            f"{prefix}/wv": ((d, hd), "fan_in"),
-            f"{prefix}/w_gates": ((d, 2 * h_), "fan_in"),
-            f"{prefix}/f_bias": ((h_,), "f_bias"),
-            f"{prefix}/w_o_gate": ((d, hd), "fan_in"),
-            f"{prefix}/w_out": ((hd, d), "fan_in"),
+            f"{prefix}/wq": ((d, hd), ("embed", "heads"), "fan_in"),
+            f"{prefix}/wk": ((d, hd), ("embed", "heads"), "fan_in"),
+            f"{prefix}/wv": ((d, hd), ("embed", "heads"), "fan_in"),
+            f"{prefix}/w_gates": ((d, 2 * h_), ("embed", None), "fan_in"),
+            f"{prefix}/f_bias": ((h_,), (None,), "f_bias"),
+            f"{prefix}/w_o_gate": ((d, hd), ("embed", "heads"), "fan_in"),
+            f"{prefix}/w_out": ((hd, d), ("heads", "embed"), "fan_in"),
         }
     return {
-        f"{prefix}/w_in": ((d, 4 * hd), "fan_in"),
-        f"{prefix}/w_rec": ((h_, dh, dh), "orth"),
-        f"{prefix}/w_out": ((hd, d), "fan_in"),
+        f"{prefix}/w_in": ((d, 4 * hd), ("embed", "heads"), "fan_in"),
+        f"{prefix}/w_rec": ((h_, dh, dh), (None, None, None), "orth"),
+        f"{prefix}/w_out": ((hd, d), ("heads", "embed"), "fan_in"),
     }
 
 

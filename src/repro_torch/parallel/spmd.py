@@ -1,11 +1,14 @@
 """One process a rank: the port's stand-in for ``shard_map`` and ``jit``.
 
-PyTorch has no single-process SPMD, so a tensor-parallel mesh
-(``launch.mesh.make_tp_mesh``) is the calling process, rank 0, plus one
-worker process for each further rank, spawned (a fork after CUDA
-initialisation breaks). The ranks join a gloo process group over a
-``file://`` store in a temp dir (no port to clash over) and each holds a
-``TPShard`` on it.
+PyTorch has no single-process SPMD, so a mesh is the calling process,
+rank 0, plus one worker process for each further rank, spawned (a fork
+after CUDA initialisation breaks). The ranks join a gloo process group
+over a ``file://`` store in a temp dir (no port to clash over) and each
+holds a ``TPShard`` on it. A tensor-parallel mesh
+(``launch.mesh.make_tp_mesh``) is 1-D; a ``ProcessMesh``
+(``launch.mesh.make_host_mesh``) has named axes of any number, and each
+rank also holds a ``ParallelContext`` with its coordinates and a gloo
+group for every set of axes it shares with other ranks (``par``).
 
 The control plane stays on rank 0 alone: an engine's scheduler,
 allocator, block tables, sampling decisions, deadlines and overload
@@ -34,7 +37,9 @@ collective), after stopping them.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import os
 import shutil
 import tempfile
@@ -45,7 +50,8 @@ import weakref
 
 import torch
 
-from .sharding import TPShard
+from .sharding import (MeshShape, TPShard, from_mesh, make_groups,
+                       mesh_coords)
 
 
 # seconds any collective, and rank 0's wait for a worker's reply, may take
@@ -58,42 +64,61 @@ class RankError(RuntimeError):
     message), or the mesh was broken by an earlier failure."""
 
 
-def gloo_group(store_path, rank, size):
-    """The mesh's gloo process group over a ``file://`` store, on the
-    loopback interface (the ranks share one host)."""
+def _gloo(store, rank, size):
     import torch.distributed as dist
-    store = dist.FileStore(store_path, size)
-    timeout = datetime.timedelta(seconds=TIMEOUT_S)
     opts = dist.ProcessGroupGloo._Options()
-    opts._timeout = timeout
+    opts._timeout = datetime.timedelta(seconds=TIMEOUT_S)
     opts._devices = [dist.ProcessGroupGloo.create_device(
         hostname="127.0.0.1")]
     return dist.ProcessGroupGloo(store, rank, size, opts)
 
 
-class RankContext:
-    """What a rank holds: its ``TPShard``, its device and the engines'
-    rank-local states by key."""
+def join_mesh(store_path, rank, size, mesh_shape, device):
+    """A rank's groups over the ``file://`` store, on the loopback
+    interface (the ranks share one host): (the world group, the rank's
+    ``ParallelContext`` or None). ``mesh_shape``: None for a 1-D
+    tensor-parallel mesh, else (shape, axis_names), the ranks row-major
+    over it."""
+    import torch.distributed as dist
+    store = dist.FileStore(store_path, size)
+    world = _gloo(store, rank, size)
+    if mesh_shape is None:
+        return world, None
+    shape, names = mesh_shape
+    par = dataclasses.replace(from_mesh(MeshShape(shape, names)),
+                              coords=mesh_coords(shape, rank),
+                              device=device)
+    groups = make_groups(par, lambda prefix, r_, n_: _gloo(
+        dist.PrefixStore(prefix, store), r_, n_))
+    return world, dataclasses.replace(par, groups=groups)
 
-    def __init__(self, tp: TPShard, device: torch.device):
+
+class RankContext:
+    """What a rank holds: its ``TPShard``, its ``ParallelContext`` on an
+    N-D mesh (``par``, else None), its device and the rank-local states
+    by key."""
+
+    def __init__(self, tp: TPShard, device: torch.device, par=None):
         self.tp = tp
+        self.par = par
         self.device = device
         self.states = {}
 
 
-def _worker_main(rank, size, store_path, device, threads, conn):
-    """A worker rank: join the group, then run each function rank 0 sends
-    until told to exit or its pipe closes."""
+def _worker_main(rank, size, store_path, device, threads, conn,
+                 mesh_shape=None):
+    """A worker rank: join the groups, then run each function rank 0
+    sends until told to exit or its pipe closes."""
     torch.set_num_threads(threads)
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     try:
-        group = gloo_group(store_path, rank, size)
+        group, par = join_mesh(store_path, rank, size, mesh_shape, dev)
     except BaseException:
         conn.send(("err", traceback.format_exc()))
         return
-    ctx = RankContext(TPShard(size=size, rank=rank, group=group), dev)
+    ctx = RankContext(TPShard(size=size, rank=rank, group=group), dev, par)
     conn.send(("ready", None))
     while True:
         try:
@@ -124,10 +149,13 @@ class TPMesh:
     ``gather`` returns every rank's. ``fn`` must be a module-level
     function of an importable module (it is sent by name)."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, mesh_shape=None):
         import torch.multiprocessing as tmp   # shares CPU tensors' memory
         self.devices = [torch.device(d) for d in devices]
         self.size = len(self.devices)
+        if mesh_shape is None:        # the reference's ("model",) mesh
+            self.shape = {"model": self.size}
+            self.axis_names = ("model",)
         self._broken = None
         self._next_key = 0
         self._dir = tempfile.mkdtemp(prefix="repro_tp_")
@@ -143,27 +171,28 @@ class TPMesh:
             for r in range(1, self.size):
                 parent, child = mp.Pipe()
                 # a rank on a card computes there: one host thread, so
-                # ranks sharing a host do not oversubscribe its cores
+                # ranks sharing a host do not oversubscribe its cores; a
+                # CPU rank takes its share of them
                 n = (1 if self.devices[r].type == "cuda"
-                     else torch.get_num_threads())
+                     else max(1, torch.get_num_threads() // self.size))
                 proc = mp.Process(
                     target=_worker_main, daemon=True,
                     args=(r, self.size, store, str(self.devices[r]), n,
-                          child))
+                          child, mesh_shape))
                 proc.start()
                 child.close()
                 self._conns.append(parent)
                 self._procs.append(proc)
-            group = self._join(store)
+            group, par = self._join(store, mesh_shape)
             for r in range(1, self.size):
                 self._recv(r)
         except BaseException:
             self._finalizer()
             raise
         self.ctx = RankContext(TPShard(size=self.size, rank=0, group=group),
-                               self.devices[0])
+                               self.devices[0], par)
 
-    def _join(self, store):
+    def _join(self, store, mesh_shape):
         """Rank 0's process group, made while watching the workers: one
         that exits before joining fails the mesh at once, with its error,
         instead of after the store's timeout."""
@@ -171,7 +200,8 @@ class TPMesh:
 
         def join():
             try:
-                box["group"] = gloo_group(store, 0, self.size)
+                box["group"] = join_mesh(store, 0, self.size, mesh_shape,
+                                         self.devices[0])
             except BaseException as exc:
                 box["error"] = exc
 
@@ -325,3 +355,29 @@ def _drop(ctx, key):
         # the ranks may share a card: give the freed memory back to it
         torch.cuda.synchronize(ctx.device)
         torch.cuda.empty_cache()
+
+
+class ProcessMesh(TPMesh):
+    """A mesh with named axes: ``shape`` maps each axis name to its size
+    (in mesh order, as ``jax.sharding.Mesh.shape``) and ``axis_names``
+    lists them; rank r sits at the row-major coordinates of r, on
+    ``devices[r]``. Every rank holds a ``ParallelContext`` (``ctx.par``)
+    with its coordinates and groups. Made by ``launch.mesh.
+    make_host_mesh``; runs functions as ``TPMesh`` does."""
+
+    def __init__(self, shape, axis_names, devices):
+        shape = tuple(int(n) for n in shape)
+        self.shape = MeshShape(shape, axis_names).shape
+        self.axis_names = tuple(axis_names)
+        if len(devices) != math.prod(shape):
+            raise ValueError(f"mesh {shape} needs {math.prod(shape)} "
+                             f"devices, got {len(devices)}")
+        super().__init__(devices, mesh_shape=(shape, self.axis_names))
+
+    def coords(self, rank):
+        """Rank ``rank``'s index along each axis (row-major)."""
+        return mesh_coords(tuple(self.shape.values()), rank)
+
+    def __repr__(self):
+        return (f"ProcessMesh({tuple(self.shape.values())}, "
+                f"{self.axis_names})")

@@ -1,5 +1,6 @@
-"""Training of the port on one device (port of ``repro.train``): AdamW
-with f32 or int8 moments, the train step and loop, checkpoints in the
+"""Training of the port (port of ``repro.train``): AdamW with f32 or
+int8 moments, the train step and loop on one device or GSPMD-style on a
+process mesh (``parallel=`` a ``ParallelContext``), checkpoints in the
 reference's format, error-feedback gradient compression, and the
 fault-tolerance helpers the loop and the serving supervisor use."""
 from .optim import (AdamW, OptConfig, clip_by_global_norm, global_norm,

@@ -4,8 +4,10 @@
 ``ef_compress`` / ``ef_decompress`` are the pure int8 codec: q =
 round(g / s) with a per-block-256 absmax scale, and the quantization
 residual carried to the next step so the compression error telescopes.
-The reference's ``psum_compressed`` all-reduces the codes across a mesh
-axis; it needs a collective and belongs to ROADMAP item 11.
+``psum_compressed`` all-reduces the codes across the ranks of a mesh
+axis (the reference's pod-axis reduce under ``shard_map``): the scales'
+max over the ranks, the codes renormalized to it, summed in int32, and
+rescaled to the mean.
 """
 from __future__ import annotations
 
@@ -33,3 +35,24 @@ def ef_decompress(q, scale, shape):
     for s in shape:
         n *= s
     return deq.reshape(-1)[:n].reshape(shape)
+
+
+def psum_compressed(grad, residual, axis, block=256, *, ctx):
+    """Error-feedback int8 all-reduce over the ranks along ``axis`` (a
+    mesh axis name or tuple) of ``ctx``, a rank's ``ParallelContext``:
+    (the mean of every rank's grad as the codes carry it, this rank's new
+    residual). int8 codes are summed in int32 (exact for <= 2^23
+    summands), after renormalizing each rank's codes to the max scale over
+    the ranks, and rescaled by it: one shared scale a block, so the wire
+    holds one byte an element."""
+    from ..parallel import sharding as shd
+    q, scale, new_residual = ef_compress(grad, residual, block)
+    smax = shd.raw_pmax(ctx, scale, axis)
+    ratio = scale / torch.clamp(smax, min=1e-20)
+    qr = torch.round(q.to(torch.float32) * ratio[:, None]).to(torch.int32)
+    tot = shd.raw_psum(ctx, qr, axis)
+    avg = (tot.to(torch.float32) * smax[:, None]) / float(ctx.size(axis))
+    size = 1
+    for s in grad.shape:
+        size *= s
+    return avg.reshape(-1)[:size].reshape(grad.shape), new_residual

@@ -9,9 +9,14 @@ device, as the reference's is jnp (no kernel).
 
 ``update`` runs under ``torch.no_grad()`` and writes the params and the
 moments in place (the reference's train step donates its state; here the
-tensors are reused), returning the same trees. The reference's
-``moment_axes`` (sharding rules of the moments) belongs to tensor
-parallelism, ROADMAP item 11, and is not ported.
+tensors are reused), returning the same trees. ``moment_axes`` gives the
+moments' logical axes (the sharding resolver's input), as the
+reference's. On a rank of a process mesh ``update(..., sharding=...)``
+runs on the rank's blocks: elementwise, except the int8 codecs' per-block
+maxima, which are reduced (pmax) over the ranks of the last dim where a
+shard cuts a 256-wide block (the scales then stay whole on every rank, as
+``moment_axes`` resolves them), so each rank's codes are the ones the
+whole leaf's codec gives.
 
 A division by a constant is a multiplication by its f32 reciprocal here,
 as XLA compiles the reference's (``x / 255.0`` becomes ``x * (1 / 255)``),
@@ -122,6 +127,59 @@ def _is_q(leaf):
     return isinstance(leaf, dict) and set(leaf) == {"q", "s"}
 
 
+class _Cut:
+    """A rank's block of an int8 moment whose last dim a shard cuts
+    inside 256-wide blocks: ``bid`` the global block of each local
+    column, ``nb`` the number of blocks, ``ctx``/``axes`` the ranks that
+    share the blocks. Maxima go through ``pmax``, then every element is
+    coded as the whole leaf's codec codes it."""
+
+    def __init__(self, n_local, n_global, block, ctx, axes, device):
+        off = ctx.index(axes) * n_local
+        self.bid = torch.div(torch.arange(off, off + n_local, device=device),
+                             block, rounding_mode="floor")
+        self.nb = n_global // block
+        self.ctx, self.axes = ctx, axes
+
+    def block_max(self, x):
+        from ..parallel.sharding import raw_pmax
+        part = x.new_zeros(x.shape[:-1] + (self.nb,))
+        part.scatter_reduce_(-1, self.bid.expand(x.shape), x, "amax")
+        return raw_pmax(self.ctx, part, self.axes)
+
+    def cols(self, per_block):
+        return per_block[..., self.bid]
+
+
+def _q8_cut(x, cut):
+    scale = cut.block_max(torch.abs(x)) * (1.0 / 127.0)
+    q = torch.round(x / torch.clamp(cut.cols(scale), min=1e-20)).to(
+        torch.int8)
+    return {"q": q, "s": scale.to(torch.bfloat16)}
+
+
+def _dq8_cut(st, cut):
+    return st["q"].to(torch.float32) * cut.cols(st["s"].to(torch.float32))
+
+
+def _q8_log_cut(x, cut):
+    logmax = torch.log(cut.block_max(x))
+    logv = torch.log(x) - cut.cols(logmax)
+    code = torch.clamp(torch.round(
+        255.0 * _fma(logv, _f32(1.0 / _LOG_DECADES), 1.0)), 0, 255)
+    code = torch.where(x > 0, torch.clamp(code, min=1),
+                       torch.zeros((), device=x.device)).to(torch.uint8)
+    return {"q": code, "s": logmax}
+
+
+def _dq8_log_cut(st, cut):
+    fp = st["q"].to(torch.float32)
+    logv = _fma(_fma(fp, _f32(1.0 / 255.0), -1.0), _f32(_LOG_DECADES),
+                cut.cols(st["s"]).to(torch.float64))
+    return torch.where(fp > 0, torch.exp(logv),
+                       torch.zeros((), device=fp.device))
+
+
 def leaves(tree, path=()):
     """(path tuple, tensor) of a nested dict in sorted key order (the
     reference's pytree order); ``{"q", "s"}`` moment dicts are leaves."""
@@ -158,9 +216,39 @@ class AdamW:
         self.cfg = cfg
 
     def _quantize_leaf(self, p):
+        return self._quantize_shape(tuple(p.shape))
+
+    def _quantize_shape(self, shape):
         return (self.cfg.moment_dtype == "int8"
-                and p.numel() >= self.cfg.min_quant_size
-                and p.shape[-1] % self.cfg.q_block == 0)
+                and math.prod(shape) >= self.cfg.min_quant_size
+                and shape[-1] % self.cfg.q_block == 0)
+
+    def moment_axes(self, params_axes, params_shapes):
+        """Logical axes of the optimizer state, nested as ``init`` builds
+        it: an int8 leaf's {"q", "s"} both take the param's axes (the
+        resolver drops the last one for "s" where the shrunken dim stops
+        dividing), ``step`` ()."""
+        from ..parallel.sharding import tree_map_axes
+
+        def one(axes, shape):
+            if self._quantize_shape(tuple(shape)):
+                return {"q": tuple(axes), "s": tuple(axes)}
+            return tuple(axes)
+        t = tree_map_axes(one, params_axes, params_shapes)
+        return {"m": t, "v": t, "step": ()}
+
+    def moment_shapes(self, params_shapes):
+        """Global shapes of the optimizer state, nested as ``moment_axes``:
+        an int8 leaf's "s" has the param's shape with the last dim
+        divided by ``q_block``."""
+        def one(shape):
+            shape = tuple(shape)
+            if self._quantize_shape(shape):
+                return {"q": shape,
+                        "s": shape[:-1] + (shape[-1] // self.cfg.q_block,)}
+            return shape
+        t = _map(one, params_shapes)
+        return {"m": t, "v": t, "step": ()}
 
     def init(self, params):
         """Zero moments shaped like ``params`` (f32, or int8 / uint8 codes
@@ -181,10 +269,13 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, sharding=None):
         """One AdamW step: params and moments updated in place, returned
         as (params, {"m", "v", "step"}). ``grads`` is nested like
-        ``params``."""
+        ``params``. ``sharding`` (on a rank of a process mesh): (the
+        rank's ``ParallelContext``, the state's spec tree as
+        ``tree_shardings`` resolves ``moment_axes``, the params' global
+        shapes); the trees then hold the rank's blocks."""
         cfg = self.cfg
         step = state["step"] + 1
         lr = lr_schedule(cfg, step)
@@ -194,18 +285,46 @@ class AdamW:
         for path, p in leaves(params):
             g = _get(grads, path).to(torch.float32)
             m, v = _get(state["m"], path), _get(state["v"], path)
-            mf = _dq8(m, cfg.q_block, p.shape) if _is_q(m) else m
-            vf = _dq8_log(v, cfg.q_block, p.shape) if _is_q(v) else v
+            cut = None if sharding is None else _cut_of(
+                sharding, path, p, cfg.q_block) if _is_q(m) else None
+            if cut is not None:
+                mf, vf = _dq8_cut(m, cut), _dq8_log_cut(v, cut)
+            else:
+                mf = _dq8(m, cfg.q_block, p.shape) if _is_q(m) else m
+                vf = _dq8_log(v, cfg.q_block, p.shape) if _is_q(v) else v
             mf = cfg.b1 * mf + (1 - cfg.b1) * g
             vf = cfg.b2 * vf + (1 - cfg.b2) * g * g
             u = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
             if p.dim() >= 2:
                 u = u + cfg.weight_decay * p.to(torch.float32)
             p.copy_((p.to(torch.float32) - lr * u).to(p.dtype))
+            if cut is not None:
+                _assign(m, _q8_cut(mf, cut))
+                _assign(v, _q8_log_cut(vf, cut))
+                continue
             _assign(m, _q8(mf, cfg.q_block) if _is_q(m) else mf)
             _assign(v, _q8_log(vf, cfg.q_block) if _is_q(v) else vf)
         state["step"].copy_(step)
         return params, state
+
+
+def _cut_of(sharding, path, p, block):
+    """The ``_Cut`` of an int8 leaf whose shards cut its blocks, else None
+    (blocks whole on each rank: the local codec is the global one)."""
+    from ..parallel.sharding import _axes
+    ctx, specs, shapes = sharding
+    q_spec = _get(specs["opt"]["m"], path)["q"]
+    s_spec = _get(specs["opt"]["m"], path)["s"]
+    nd = p.dim()
+    last = _axes(q_spec[nd - 1]) if len(q_spec) >= nd else ()
+    s_last = _axes(s_spec[nd - 1]) if len(s_spec) >= nd else ()
+    if not last or s_last == last:
+        return None
+    if s_last:
+        raise ValueError(f"{'/'.join(path)}: moment scales sharded over "
+                         f"{s_last}, codes over {last}")
+    return _Cut(p.shape[-1], _get(shapes, path)[-1], block, ctx, last,
+                p.device)
 
 
 def global_norm(tree):

@@ -1413,3 +1413,69 @@ def test_two_ranks_on_one_card_gloo_collectives(cuda):
         for r in res:
             assert torch.equal(r[key][1], want_sum), key
             assert torch.equal(r[key][2], want_cat), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_attention_q_offset_on_the_card(cuda, dtype, window):
+    """Kernel D with ``q_offset`` (a context-parallel rank's rows against
+    the whole K/V): against its plain version at every rank's offset, and
+    bitwise the same rows of the whole sequence's launch at q_offset 0
+    (offsets on the 64-row tile); the lse against the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, h, kv, s, d, n = 2, 4, 2, 384, 64, 3
+    q, k, v = (torch.randn((b, hh, s, d), generator=gen, device=cuda).to(
+        dtype) for hh in (h, kv, kv))
+    kw = dict(causal=True, window=window)
+    whole = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    sq = s // n
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for r in range(n):
+        qr = q[:, :, r * sq:(r + 1) * sq]
+        lse = torch.empty(qr.shape[:3], dtype=torch.float32, device=cuda)
+        out = fa_ops.flash_attention_fwd(qr, k, v, q_offset=r * sq, lse=lse,
+                                         **kw)
+        assert torch.equal(out, whole[:, :, r * sq:(r + 1) * sq])
+        want, want_lse = fa_ref.flash_attention_ref(
+            qr, k, v, with_lse=True, q_offset=r * sq, **kw)
+        assert (out.float() - want.float()).abs().max().item() <= tol
+        assert (lse - want_lse).abs().max().item() <= (
+            1e-3 if dtype == torch.bfloat16 else 1e-5 * want_lse.abs().max())
+
+
+@pytest.mark.cuda
+def test_gspmd_loss_on_one_card(cuda):
+    """internlm2's smoke config on a (1, 2) process mesh, both ranks on
+    cuda:0, f32: the sharded loss (heads over ``model``) and one
+    ``make_train_step`` step's loss and grad norm within 1e-4 relative of
+    the one-device run on the card."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import AdamW, OptConfig, init_state, \
+        make_train_step
+    from repro_torch.train.train_loop import place_state
+    cfg = smoke_config("internlm2-1.8b")
+    model = Model(cfg)
+    opt = AdamW(OptConfig(warmup_steps=1))
+    state = init_state(model, opt, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab_size, (4, 64))
+             for k in ("tokens", "labels")}
+    on = lambda t: ({k: on(v) for k, v in t.items()}    # noqa: E731
+                    if isinstance(t, dict) else t.to(cuda, copy=True))
+    card = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    with torch.no_grad():
+        want_loss = float(model.loss(on(state["params"]), card)[0])
+    _, want = make_train_step(model, opt)(on(state), card)
+    mesh = make_host_mesh((1, 2), devices=["cuda:0", "cuda:0"])
+    try:
+        ctx = shd.from_mesh(mesh)
+        placed = place_state(model, opt, state, mesh)
+        loss = float(model.loss(placed["params"], batch, ctx)[0])
+        _, got = make_train_step(model, opt, ctx)(placed, batch)
+    finally:
+        mesh.close()
+    assert abs(loss / want_loss - 1) <= 1e-4
+    for k in ("loss", "grad_norm"):
+        assert abs(float(got[k]) / float(want[k]) - 1) <= 1e-4, k

@@ -95,6 +95,50 @@ def test_autograd_through_flash_attention_matches_reference(case):
         _close(t.grad, w)
 
 
+# context parallelism: a rank's Sq query rows at positions q_offset + i
+# against the whole Skv keys (B, H, KV, Sq, Skv, d, window)
+OFFSET_SHAPE = (2, 4, 2, 48, 160, 16)
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("q_offset", [0, 48, 112])
+def test_q_offset_matches_reference_vjp(q_offset, window):
+    """The plain D (out and lse), ``flash_attention_bwd`` and the autograd
+    Function with ``q_offset`` in {0, Sq, Skv - Sq}, causal, with and
+    without a window, against ``jax.vjp`` of the reference's
+    ``flash_attention(q_offset=...)``."""
+    b, h, kv, sq, skv, d = OFFSET_SHAPE
+    rng = np.random.default_rng(q_offset + window)
+    q, dout = (rng.standard_normal((b, sq, h, d)).astype(np.float32)
+               for _ in range(2))
+    k, v = (rng.standard_normal((b, skv, kv, d)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(causal=True, window=window)
+    want_out, vjp = jax.vjp(
+        lambda *a: jattn.flash_attention(*a, q_offset=q_offset, **kw),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    _, want_lse = jattn._fa_fwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=jnp.int32(window), q_offset=jnp.int32(q_offset), softcap=0.0,
+        scale=d ** -0.5, chunk_q=sq, chunk_kv=skv)
+    qh, kh, vh, doh = _head_major(q, k, v, dout)
+    lse = torch.empty(qh.shape[:3])
+    out = fa_ops.flash_attention_fwd(qh, kh, vh, lse=lse, q_offset=q_offset,
+                                     **kw)
+    _close(out.transpose(1, 2), np.asarray(want_out))
+    _close(lse.transpose(1, 2), np.asarray(want_lse))
+    grads = flash_attention_bwd(qh, kh, vh, out, lse, doh,
+                                q_offset=q_offset, **kw)
+    for g, w in zip(grads, want):
+        _close(g.transpose(1, 2), w)
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    flash_attention(*ts, q_offset=q_offset, **kw).backward(
+        torch.from_numpy(dout))
+    for t, w in zip(ts, want):
+        _close(t.grad, w)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_lse_matches_reference_residual(case):
     """The plain forward's lse (the kernel's, on the card) against the

@@ -155,6 +155,6 @@ def test_launchers_train_then_serve_the_checkpoint(tmp_path):
 
 
 def test_launch_train_refuses_production_meshes():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="needs 256 devices"):
         launch_train.main(["--arch", "internlm2-1.8b", "--smoke",
                            "--device", "cpu", "--mesh", "single"])
