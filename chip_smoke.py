@@ -165,6 +165,23 @@ one line each (details indented), any failure exits non-zero:
    exact, its peak memory; then a (1, 3) mesh, where 8 KV heads do not
    divide three ranks: the context-parallel loss (K/V gathered, D at
    every rank's ``q_offset``) against one device's
+18. gspmd serve — GSPMD serving on the same (2, 2) mesh of four ranks on
+   the one card: internlm2-1.8b at full width cut to
+   ``GSPMD_SERVE["layers"]`` layers (4b/64 DP, packed);
+   ``ContinuousEngine(parallel=)`` at kv16 and kv4, H=8 and H=1 (the
+   planner's slices over ``model``, KV heads over ``model``, each data
+   rank the whole step, eager as phase 16's), tokens against one
+   device (near-tie rule; kv4 reported, H=8 = H=1 held), logits within
+   ``TP_LOGIT_TOL``; ``ServeEngine(parallel=)`` generate and score at
+   B=8 x 512 (rows over data, the ``kv_seq`` ring over model, decode
+   through the flash-decode combine) and one B=1 x 1024 prompt (the ring
+   over the whole mesh), tokens against one device, score within 1e-4;
+   every rank's A, unembedding, B, C and D launches held exactly to what
+   its dispatches count; then ``ServeEngine(parallel=)`` on a dense bf16
+   tree of ``GSPMD_SERVE["dense_layers"]`` layers, which the resolver
+   cuts (ZeRO-3 over data, heads over model): every rank's D once a layer
+   at its rows and 8 of 16 heads, the K/V re-cut to ``kv_seq``, the
+   weights gathered each decode step, tokens against one device
 
 Windowed B/C cases (phases 4-5) and D at d=256 and without the causal
 mask (phase 6) also hold every output row within ``ROW_REL_TOL`` of its
@@ -182,7 +199,10 @@ also carrying the backward's and SDPA forward+backward's times; and the
 tp = 2 rows: A at internlm2's five shard shapes, the unembedding on a
 rank's half of the table, B and C kv4 at a rank's heads; D with
 ``q_offset`` at the f32 shape phase 17's (1, 3) run launches it at,
-B=4, 256 of 768 rows a rank); the last line
+B=4, 256 of 768 rows a rank; phase 18's rows: A, the unembedding, B
+and C kv4 at the tp = 2 shard shapes its model shards run, D at a (2, 2)
+rank's prefill, at the B=1 x 1024 prompt and at a rank's 8 heads of the
+dense tree, with the four ranks' launches); the last line
 is ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
 stream is timed cold (L2 flushed before every launch), as decode meets it.
 Phases 3-6 report the median of 20 launches (the mean beside it) for the
@@ -1120,6 +1140,16 @@ def phase_flash_attention(torch, timer, device):
          0.0, False),
         ("jamba B=4 S=512", 4, 32, 8, 512, 512, 128, bf16, True, 0, 0.0,
          False),
+        # phase 18's GSPMD prefills (packed weights whole on every rank):
+        # a (2, 2) rank's 4 of 8 rows, and the B=1 1024-token prompt every
+        # rank attends whole
+        ("gspmd rank B=4 S=512", 4, 16, 8, 512, 512, 128, bf16, True, 0,
+         0.0, False),
+        ("gspmd B=1 S=1024", 1, 16, 8, 1024, 1024, 128, bf16, True, 0, 0.0,
+         False),
+        # and its dense tree's: a (2, 2) rank's 4 rows, 8 of 16 heads
+        ("gspmd dense rank B=4 S=256", 4, 8, 4, 256, 256, 128, bf16, True, 0,
+         0.0, False),
     ]
     rows = []
     for name, b, h, kv, sq, s, d, dt, causal, window, softcap, seg in cases:
@@ -2360,7 +2390,7 @@ def rank_next_logits(ctx, key, tokens, kv_bits):
     import torch
     st = ctx.states[key]
     return next_logits(torch, st.model, st.params, tokens, ctx.device,
-                       kv_bits=kv_bits, parallel=ctx.tp)
+                       kv_bits=kv_bits, parallel=st.parallel)
 
 
 # the largest |logit| difference of a tp = 2 prefill from tp = 1's, as a
@@ -2371,7 +2401,8 @@ def rank_next_logits(ctx, key, tokens, kv_bits):
 TP_LOGIT_TOL = {16: 5e-2, 4: 1.5e-1}
 
 
-def tp_logit_gaps(torch, device, mesh, eng, model, packed, prompts, bits):
+def tp_logit_gaps(torch, device, mesh, eng, model, packed, prompts, bits,
+                  tag="tp=2"):
     """Each prompt's next-token logits through the tp = 2 engine's ranks
     against one device's: the largest |difference| over finite logits, as
     a share of the largest |logit|. Held to ``TP_LOGIT_TOL``."""
@@ -2381,12 +2412,12 @@ def tp_logit_gaps(torch, device, mesh, eng, model, packed, prompts, bits):
         b = next_logits(torch, model, packed, p, device, kv_bits=bits)
         fin = torch.isfinite(b)
         rel.append(float((a[fin] - b[fin]).abs().max() / b[fin].abs().max()))
-    log(f"  tp=2 kv{bits}: next-token logits of each prompt against tp=1: "
-        f"largest |difference| / largest |logit| "
+    log(f"  {tag} kv{bits}: next-token logits of each prompt against one "
+        f"device: largest |difference| / largest |logit| "
         f"{[f'{r:.3g}' for r in rel]} (bound {TP_LOGIT_TOL[bits]})")
     if not max(rel) <= TP_LOGIT_TOL[bits]:
-        fail(f"tp=2 kv{bits}: next-token logits differ from tp=1's by "
-             f"{max(rel)} of their largest")
+        fail(f"{tag} kv{bits}: next-token logits differ from one device's "
+             f"by {max(rel)} of their largest")
 
 
 def rank_experts(ctx, key):
@@ -3951,9 +3982,290 @@ def phase_gspmd(torch, device):
             "d_launches": d_loss + d_steps}
 
 
+GSPMD_SERVE = {"layers": 4, "new": 16, "batch": 8, "prompt": 512,
+               "long": 1024, "max_seq": 1280,
+               # (d): the dense bf16 tree the resolver cuts
+               "dense_layers": 2, "dense_prompt": 256, "dense_new": 4}
+A_PER_LAYER = 7    # internlm2's packed projections: wq, wk, wv, wo, wg,
+                   # wi and the MLP's wo, each one kernel A launch a step
+
+
+def gspmd_counts_ok(name, per_rank, want):
+    """Every rank launched exactly ``want`` ({kernel: launches})."""
+    for r, counts in enumerate(per_rank):
+        got = {k: counts[k] for k in want}
+        if got != want:
+            fail(f"{name}: rank {r} launches {got}, want {want}")
+    log(f"  {name}: every rank launched exactly {want}")
+
+
+def rank_d_shapes(ctx, start=False):
+    """On a mesh rank: from now on (``start``) record the (q, k) shapes of
+    every kernel D call the model's attention makes (head-major (B, H, S,
+    d)); else stop and return them. The recorder calls the wrapper
+    itself, so the launch counts are untouched."""
+    from repro_torch.models import attention
+    fn = attention.flash_attention_fwd
+    if start:
+        def record(q, k, v, *args, **kw):
+            record.shapes.append((tuple(q.shape), tuple(k.shape)))
+            return fn(q, k, v, *args, **kw)
+        record.shapes, record.inner = [], fn
+        attention.flash_attention_fwd = record
+        return None
+    attention.flash_attention_fwd = fn.inner
+    return fn.shapes
+
+
+def paged_want(eng, before, horizon, bits, n_layers):
+    """The launches each rank of a ``ContinuousEngine(parallel=)`` makes
+    over the dispatches since ``before`` (prefill dispatches, decode
+    dispatches): every step runs each layer's projections on kernel A,
+    its attention on B (kv16) or C (kv4), the unembedding once; a decode
+    dispatch is ``horizon`` steps."""
+    steps = (eng.n_prefill_dispatches - before[0]
+             + horizon * (eng.n_decode_steps - before[1]))
+    att = ("paged_attention_decode" if bits == 16
+           else "paged_attention_decode_quant")
+    return {"msb_matmul": A_PER_LAYER * n_layers * steps,
+            "msb_unembed": steps, att: n_layers * steps,
+            "flash_attention_fwd": 0}
+
+
+def phase_gspmd_serve(torch, device):
+    """Phase 18: GSPMD serving on a (data 2, model 2) process mesh of four
+    ranks on the one card (gloo staged through the host, every dispatch
+    eager), internlm2-1.8b at full width cut to ``GSPMD_SERVE["layers"]``
+    layers (random weights, seed 0, 4-bit block-64 DP, packed on the
+    card). (a) ``ContinuousEngine(parallel=ctx)`` (the planner's slices
+    over ``model``, KV heads over ``model``, each data rank the whole
+    step) at kv16 and kv4, H=8 and H=1, on phase 7's prompts, 16 new
+    tokens: tokens against the same engine on one device (identical, or
+    the first divergence at a top-2 gap < 1e-2; kv4 reported, H=8 = H=1
+    held), next-token logits within ``TP_LOGIT_TOL``, each rank's A, the
+    unembedding's kernel and B or C launched exactly as its dispatches
+    count. (b) ``ServeEngine(parallel=ctx)`` at B=8 x 512 (rows over
+    data, the ring over model; packed leaves whole on every rank):
+    exactly one D a layer a rank in the prefill, decode through the
+    ``kv_seq`` combine, tokens against one device, ``score`` within 1e-4
+    relative. (c) one B=1 prompt of 1024 tokens, the ring over the whole
+    mesh: each rank's A, unembedding and D launches exact, tokens against
+    one device. (d) a dense bf16 tree of ``GSPMD_SERVE["dense_layers"]``
+    layers, which the resolver cuts (ZeRO-3 over data, heads over model):
+    each rank's D at its 4 rows and 8 of 16 heads in the prefill, the K/V
+    re-cut from heads to ``kv_seq``, the weights gathered every decode
+    step, tokens against one device. Seconds and peak GB a rank are
+    checks, not rates. Returns the per-rank launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+    t_phase = time.perf_counter()
+    n_layers, new = GSPMD_SERVE["layers"], GSPMD_SERVE["new"]
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=n_layers)
+    model, packed = build_leafwise(torch, cfg, device)
+    prompts = serve_prompts(cfg)
+    rng = np.random.default_rng(18)
+    b, p = GSPMD_SERVE["batch"], GSPMD_SERVE["prompt"]
+    st_prompts = rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
+    scored = rng.integers(0, cfg.vocab_size, (b, p + 1)).astype(np.int32)
+    long_prompt = rng.integers(0, cfg.vocab_size,
+                               (1, GSPMD_SERVE["long"])).astype(np.int32)
+    max_seq = GSPMD_SERVE["max_seq"]
+    # one device on the card: the references
+    t0 = time.perf_counter()
+    ref = {}
+    for bits in (16, 4):
+        eng = ContinuousEngine(model, packed, decode_horizon=8, kv_bits=bits,
+                               device=device, **SERVE_ENGINE)
+        ref[bits], _, _ = run_engine(eng, prompts, True, new)
+        eng.close()
+    one = ServeEngine(model, packed, max_seq=max_seq, device=device)
+    st_toks = one.generate(st_prompts, new)
+    st_nll = one.score(scored)
+    long_toks = one.generate(long_prompt, new)
+    del one
+    torch.cuda.empty_cache()
+    log(f"[gspmd serve] internlm2-1.8b full width, {n_layers} of 24 layers, "
+        f"packed 4b/64 DP; one-device references in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    mesh = make_host_mesh((2, 2), devices=[str(device)] * 4)
+    log(f"  (2, 2) mesh of 4 ranks on {device} up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    try:
+        ctx = shd.from_mesh(mesh)
+        # (a) the continuous engine
+        for bits in (16, 4):
+            res = {}
+            for horizon in (8, 1):
+                name = f"gspmd (2, 2) kv{bits} H={horizon}"
+                t0 = time.perf_counter()
+                eng = ContinuousEngine(model, packed, decode_horizon=horizon,
+                                       kv_bits=bits, parallel=ctx,
+                                       **SERVE_ENGINE)
+                mesh.gather(rank_launches, True)
+                mesh.gather(rank_peak, True)
+                before = (eng.n_prefill_dispatches, eng.n_decode_steps)
+                res[horizon], t_pre, t_dec = run_engine(eng, prompts, True,
+                                                        new)
+                counts = mesh.gather(rank_launches, True)
+                peaks = mesh.gather(rank_peak)
+                want = paged_want(eng, before, horizon, bits, n_layers)
+                if horizon == 8:
+                    out[bits] = counts
+                    tp_logit_gaps(torch, device, mesh, eng, model, packed,
+                                  prompts[:4], bits, tag="gspmd (2, 2)")
+                eng.close()
+                eng.cache.check_invariants(expect_idle=True)
+                n_dec = eng.n_decode_steps - before[1]
+                log(f"  {name}: {time.perf_counter() - t0:.2f} s wall, "
+                    f"prefill {t_pre:.3f} s, decode {t_dec:.3f} s in "
+                    f"{n_dec} eager dispatches ({1e3 * t_dec / max(n_dec * horizon, 1):.2f} ms a "
+                    f"decode step); peak GB by rank "
+                    f"{[f'{x:.3f}' for x in peaks]}")
+                gspmd_counts_ok(name, counts, want)
+                compare_tokens(torch, f"{name} vs one device", res[horizon],
+                               ref[bits], prompts, model, packed, device,
+                               kv_bits=bits, hold=bits == 16)
+            if bits == 4:
+                for rid in res[8]:
+                    if not np.array_equal(res[8][rid], res[1][rid]):
+                        fail(f"gspmd kv4: request {rid} differs between "
+                             f"H=8 and H=1: {res[8][rid]} vs {res[1][rid]}")
+                log("  gspmd (2, 2) kv4 H=8 vs H=1: tokens identical")
+        # (b) the static engine, B=8: rows over data, the ring over model
+        eng = ServeEngine(model, packed, max_seq=max_seq, parallel=ctx)
+        mesh.gather(rank_launches, True)
+        mesh.gather(rank_peak, True)
+        t0 = time.perf_counter()
+        toks = eng.generate(st_prompts, new)
+        t_gen = time.perf_counter() - t0
+        out["static"] = mesh.gather(rank_launches, True)
+        gspmd_counts_ok(f"gspmd (2, 2) ServeEngine B={b} P={p} generate",
+                        out["static"], {
+                            "flash_attention_fwd": n_layers,
+                            "msb_matmul": A_PER_LAYER * n_layers * (1 + new),
+                            "msb_unembed": 1 + new,
+                            "paged_attention_decode": 0})
+        t0 = time.perf_counter()
+        nll = eng.score(scored)
+        t_score = time.perf_counter() - t0
+        gspmd_counts_ok("gspmd (2, 2) score", mesh.gather(rank_launches,
+                                                          True),
+                        {"flash_attention_fwd": n_layers,
+                         "msb_matmul": A_PER_LAYER * n_layers})
+        rel = abs(nll - st_nll) / abs(st_nll)
+        log(f"  gspmd (2, 2) ServeEngine B={b} P={p}: generate {new} tokens "
+            f"{t_gen:.3f} s eager; score {t_score:.3f} s, NLL {nll:.6f} "
+            f"against one device {st_nll:.6f} (relative {rel:.3g})")
+        if not rel < 1e-4:
+            fail(f"gspmd score {nll} vs one device {st_nll}: relative {rel}")
+        compare_tokens(torch, "gspmd (2, 2) static vs one device",
+                       {i: toks[i] for i in range(b)},
+                       {i: st_toks[i] for i in range(b)}, list(st_prompts),
+                       model, packed, device)
+        # (c) one 1024-token prompt: kv_seq over the whole mesh (the
+        # counts zeroed again: (b)'s near-tie check ran on rank 0's process)
+        mesh.gather(rank_launches, True)
+        t0 = time.perf_counter()
+        toks = eng.generate(long_prompt, new)
+        t_long = time.perf_counter() - t0
+        out["long"] = mesh.gather(rank_launches, True)
+        peaks = mesh.gather(rank_peak)
+        gspmd_counts_ok("gspmd (2, 2) ServeEngine B=1 P=1024 generate",
+                        out["long"], {
+                            "flash_attention_fwd": n_layers,
+                            "msb_matmul": A_PER_LAYER * n_layers * (1 + new),
+                            "msb_unembed": 1 + new,
+                            "paged_attention_decode": 0})
+        compare_tokens(torch, "gspmd (2, 2) B=1 x 1024 vs one device",
+                       {0: toks[0]}, {0: long_toks[0]}, list(long_prompt),
+                       model, packed, device)
+        log(f"  gspmd (2, 2) ServeEngine B=1 P={GSPMD_SERVE['long']}: "
+            f"generate {new} tokens {t_long:.3f} s eager; peak GB by rank "
+            f"(static runs) {[f'{x:.3f}' for x in peaks]}")
+        eng.close()
+        del packed
+        torch.cuda.empty_cache()
+        out["dense"] = gspmd_dense(torch, device, mesh, ctx, cfg)
+    finally:
+        mesh.close()
+    del model
+    torch.cuda.empty_cache()
+    log(f"[gspmd serve] ok in {time.perf_counter() - t_phase:.1f} s: "
+        f"internlm2-1.8b ({n_layers} layers) on (2, 2): ContinuousEngine "
+        "kv16/kv4 H=8/H=1 and ServeEngine B=8 and B=1 x 1024 against one "
+        f"device; the dense tree ({GSPMD_SERVE['dense_layers']} layers) "
+        "too; every rank's launches exact, no process left")
+    return out
+
+
+def gspmd_dense(torch, device, mesh, ctx, cfg):
+    """Phase 18 (d): ``ServeEngine(parallel=ctx)`` on a dense bf16 tree of
+    ``cfg`` cut to ``GSPMD_SERVE["dense_layers"]`` layers (random, seed
+    0), which the resolver places ZeRO-3 over data and heads over model:
+    B=8 x ``dense_prompt``, every rank's D once a layer at its 4 rows and
+    8 of 16 heads (4 of 8 KV heads), no other kernel, tokens against one
+    device under the near-tie rule. Returns the per-rank launches."""
+    import dataclasses
+    from repro_torch.core import map_tensors
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+    n_layers = GSPMD_SERVE["dense_layers"]
+    b, p = GSPMD_SERVE["batch"], GSPMD_SERVE["dense_prompt"]
+    new = GSPMD_SERVE["dense_new"]
+    model = Model(dataclasses.replace(cfg, n_layers=n_layers))
+    dense = map_tensors(
+        lambda t: t.to(cfg.dtype) if t.is_floating_point() else t,
+        model.init(torch.Generator(device=device).manual_seed(0), device))
+    prompts = np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (b, p)).astype(np.int32)
+    want = ServeEngine(model, dense, max_seq=p + new,
+                       device=device).generate(prompts, new)
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, dense, max_seq=p + new, parallel=ctx)
+    t_place = time.perf_counter() - t0
+    mesh.gather(rank_launches, True)
+    mesh.gather(rank_peak, True)
+    mesh.gather(rank_d_shapes, True)
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, new)
+    t_gen = time.perf_counter() - t0
+    shapes = mesh.gather(rank_d_shapes)
+    counts = mesh.gather(rank_launches, True)
+    peaks = mesh.gather(rank_peak)
+    eng.close()
+    name = f"gspmd (2, 2) dense ServeEngine B={b} P={p} generate"
+    gspmd_counts_ok(name, counts, {
+        "flash_attention_fwd": n_layers, "msb_matmul": 0, "msb_unembed": 0,
+        "paged_attention_decode": 0})
+    hd = cfg.head_dim_
+    at = ((b // 2, cfg.n_heads // 2, p, hd), (b // 2, cfg.n_kv_heads // 2,
+                                               p, hd))
+    for r, got in enumerate(shapes):
+        if got != [at] * n_layers:
+            fail(f"{name}: rank {r} launched D at (q, k) {got}, want "
+                 f"{[at] * n_layers}")
+    log(f"  {name}: every rank's D at (q, k) {at}, its rows and heads")
+    compare_tokens(torch, f"{name} vs one device",
+                   {i: toks[i] for i in range(b)},
+                   {i: want[i] for i in range(b)}, list(prompts), model,
+                   dense, device)
+    log(f"  gspmd (2, 2) dense bf16, {n_layers} layers: placed in "
+        f"{t_place:.2f} s, generate {new} tokens {t_gen:.3f} s eager (the "
+        f"K/V re-cut to kv_seq, the weights gathered each step); peak GB "
+        f"by rank {[f'{x:.3f}' for x in peaks]}")
+    del dense, eng
+    torch.cuda.empty_cache()
+    return counts
+
+
 def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
                 q_counts, s_counts, f_counts, st_counts, grad_row, train,
-                tp_counts, off_rows, gspmd):
+                tp_counts, off_rows, gspmd, gs_counts):
     """The kernel table as the JSON line's rows: each kernel at its main
     path's representative shape (A at decode and at M=4096, and its expert
     batch at granite-moe's and jamba's decode; the unembedding's kernel at
@@ -4088,6 +4400,43 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
     rows.append(row("paged_attention_decode_quant_kv4_tp2", pa_src, c_tpu,
                     tp_launches(4, "paged_attention_decode_quant"), paq_tp,
                     paq_tp["max_abs_err"]))
+    # GSPMD serving (phase 18): the four ranks' launches. The continuous
+    # engine's model_shard runs the tp = 2 shard shapes (A at the wq
+    # slice, the unembedding on half the table, B and C at a rank's
+    # heads); the static engine D at a (2, 2) rank's prefill, at the
+    # B=1 x 1024 prompt and at a rank's heads of the dense tree
+    def gs_launches(key, name):
+        return sum(c[name] for c in gs_counts[key])
+
+    def gs_row(name, key, kernel, r, err, source=mm_src, replaces=a_tpu):
+        return dict(row(name, source, replaces, gs_launches(key, kernel), r,
+                        err),
+                    launches_by_rank=[c[kernel] for c in gs_counts[key]])
+
+    rows += [
+        gs_row("msb_matmul_gspmd", 16, "msb_matmul",
+               mm_row(8, *TP2_SHAPES[0]), mm_err),
+        gs_row("msb_unembed_kblocked_gspmd", 16, "msb_unembed",
+               un_row("internlm2_tp2"), un_err),
+        gs_row("paged_attention_decode_gspmd", 16, "paged_attention_decode",
+               next(r for r in pa_rows if r.get("tp2")), pa_err, pa_src,
+               b_tpu),
+        gs_row("paged_attention_decode_quant_kv4_gspmd", 4,
+               "paged_attention_decode_quant", paq_tp,
+               paq_tp["max_abs_err"], pa_src, c_tpu),
+        gs_row("flash_attention_fwd_gspmd_rank", "static",
+               "flash_attention_fwd",
+               next(r for r in fa_rows if r["name"] == "gspmd rank B=4 S=512"),
+               fa_err, src + "flash_attention.cu", d_tpu),
+        gs_row("flash_attention_fwd_gspmd_b1", "long", "flash_attention_fwd",
+               next(r for r in fa_rows if r["name"] == "gspmd B=1 S=1024"),
+               fa_err, src + "flash_attention.cu", d_tpu),
+        gs_row("flash_attention_fwd_gspmd_dense", "dense",
+               "flash_attention_fwd",
+               next(r for r in fa_rows
+                    if r["name"] == "gspmd dense rank B=4 S=256"),
+               fa_err, src + "flash_attention.cu", d_tpu),
+    ]
     for r in rows:
         if not r["launches"] > 0:
             fail(f"{r['name']}: no launch on its path")
@@ -4127,9 +4476,11 @@ def main():
     st_counts = phase_state_stacks(torch, device)
     train = phase_train(torch, device)
     gspmd = phase_gspmd(torch, device)
+    gs_counts = phase_gspmd_serve(torch, device)
     kernels = kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows,
                           counts, q_counts, s_counts, f_counts, st_counts,
-                          grad_row, train, tp_counts, off_rows, gspmd)
+                          grad_row, train, tp_counts, off_rows, gspmd,
+                          gs_counts)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

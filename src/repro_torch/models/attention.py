@@ -47,6 +47,7 @@ from ..kernels.flash_attention.ops import flash_attention_fwd
 from ..kernels.paged_attention.ops import (paged_attention_decode,
                                            paged_attention_decode_quant)
 from ..kernels.paged_attention.ref import quant_gather
+from ..parallel import sharding as shd
 
 _NEG_INF = -2.0e38
 
@@ -176,14 +177,25 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 
 def decode_attention(q, k_cache, v_cache, positions, cur_pos, *, window=0,
-                     softcap=0.0, scale=None):
+                     softcap=0.0, scale=None, combine=None):
     """Single-token attention against a ring-buffer cache. q: (B, 1, H, d);
     caches (B, S, KV, d); positions (B, S) int32 position of each cache
     entry (-1 = empty); cur_pos (B,). Entry s is visible when ``0 <=
     positions[b, s] <= cur_pos[b]`` (and inside the window). Products of
     cache-type values summed in f32 — here by upcasting to f32, which is
     exact — and ``p`` rounded to the cache's type before the PV product, as
-    the reference computes it."""
+    the reference computes it.
+
+    ``combine`` = (a rank's ``ParallelContext``, mesh axes): the caches
+    and positions are this rank's block of a sequence cut over those axes
+    (a ``kv_seq`` ring), and the flash-decode combine the reference
+    leaves to XLA runs here: the row maxima are maxed over the group
+    first, so every rank weighs its block by the global ``M`` (``p``
+    rounded as above), then the sums of ``p`` and of ``p V`` are summed
+    over the group in rank order. A block with no visible entry gives
+    ``p = exp(-2e38 - M) = 0``, never a NaN; where no rank sees one, ``M``
+    is the mask value on every rank and each entry weighs 1, as in the
+    reference."""
     b, _, kv, d = k_cache.shape
     h = q.shape[2]
     rep = h // kv
@@ -200,10 +212,16 @@ def decode_attention(q, k_cache, v_cache, positions, cur_pos, *, window=0,
     sc = torch.where(valid[:, None, None, :], sc,
                      torch.tensor(_NEG_INF, device=sc.device))
     m = sc.amax(dim=-1, keepdim=True)
+    if combine is not None:
+        m = shd.raw_pmax(combine[0], m, combine[1])
     p = torch.exp(sc - m)
     l = p.sum(dim=-1)
     out = torch.einsum("bkrs,bskd->bkrd", p.to(v_cache.dtype).to(f32),
                        v_cache.to(f32))
+    if combine is not None:
+        lo = shd.raw_psum(combine[0], torch.cat([l[..., None], out], -1),
+                          combine[1])
+        l, out = lo[..., 0], lo[..., 1:]
     out = out / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, 1, h, d).to(q.dtype)
 

@@ -348,7 +348,7 @@ class Spmd:
     with its periods dim). The residual stream is the rank's batch rows
     and, with ``sp``, its rows of the sequence."""
 
-    def __init__(self, ctx, seq, specs=None):
+    def __init__(self, ctx, seq, specs=None, batch=None):
         self.ctx = ctx
         self.seq = int(seq)
         self.tp = ctx.tp_size
@@ -357,6 +357,17 @@ class Spmd:
                                 ctx)
         self.sp = len(spec) > 1 and spec[1] is not None
         self.specs = specs
+        self.serving = batch is not None
+        # serving: the global batch, which the data axes cut only where it
+        # divides (else every data rank holds it whole and does the same
+        # work); the loss always cuts it
+        bspec = (shd.resolve_spec(("batch",), (batch,), ctx)
+                 if batch is not None else (tuple(ctx.dp_axes),))
+        self.bspec = bspec[0] if bspec and ctx.dp_size > 1 else None
+
+    def gbatch(self, b):
+        """The global batch of a stream of ``b`` local rows."""
+        return b * self.ctx.size(shd._axes(self.bspec))
 
     @property
     def rows(self):
@@ -400,6 +411,8 @@ class Spmd:
         which stays the rank's share (column- or row-parallel). A leaf
         replicated over ``model`` that enters work differing by rank
         passes ``pvary``."""
+        if not isinstance(t, torch.Tensor):
+            return t                  # a quantized leaf, held whole
         ctx, on_model = self.ctx, False
         for dim, entry in enumerate(spec):
             axes = shd._axes(entry)
@@ -462,14 +475,25 @@ def _cp_attention(q, k, v, parallel, *, causal, window, softcap, scale):
                            softcap=softcap, scale=scale, q_offset=off)
 
 
-def spmd_attention(p, ps, h, cfg, sm, positions, *, window, causal):
+def spmd_attention(p, ps, h, cfg, sm, positions, *, window, causal,
+                   cache_spec=None):
     """Self-attention of a block under ``Spmd`` ``sm``: ``p`` the layer's
     local blocks, ``ps`` their specs, ``h`` the normed stream. Heads
     sharded (column-parallel q/k/v, row-parallel ``wo``, a psum or SP's
     reduce-scatter), else context-parallel on the rank's rows, else every
     ``model`` rank computes it whole. Returns the block's output in the
-    stream's layout."""
+    stream's layout; with ``cache_spec`` (prefill: a K/V cache leaf's spec
+    without its periods dim) also the roped {"k", "v"} re-cut from the
+    attention's layout into the cache's (``sharding.reshard``: heads over
+    ``model`` to a ``kv_seq`` cut is one all_to_all)."""
     ctx = sm.ctx
+    bsp = sm.bspec
+
+    def out(y, k, v, src):
+        if cache_spec is None:
+            return y
+        return y, {"k": shd.reshard(k, ctx, src, cache_spec),
+                   "v": shd.reshard(v, ctx, src, cache_spec)}
     hd = cfg.head_dim_
     softcap = cfg.attn_softcap
     scale = hd ** -0.5 if cfg.query_scale == 0 else cfg.query_scale
@@ -484,16 +508,17 @@ def spmd_attention(p, ps, h, cfg, sm, positions, *, window, causal):
         q = dense(xf, w["wq"], w.get("bq")).reshape(b, s, -1, hd)
         k = dense(xf, w["wk"], w.get("bk")).reshape(b, s, -1, hd)
         v = dense(xf, w["wv"], w.get("bv")).reshape(b, s, -1, hd)
-        glob = (b * ctx.dp_size, s)
+        glob = (sm.gbatch(b), s)
         shd.constraint(q, qkv_ax, ctx, glob + (cfg.n_heads, hd))
         shd.constraint(k, qkv_ax, ctx, glob + (cfg.n_kv_heads, hd))
         shd.constraint(v, qkv_ax, ctx, glob + (cfg.n_kv_heads, hd))
         if rope_on:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=softcap, scale=scale)
-        return sm.from_partial(dense(out.reshape(b, s, -1), w["wo"]))
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap, scale=scale)
+        return out(sm.from_partial(dense(o.reshape(b, s, -1), w["wo"])),
+                   k, v, (bsp, None, sm.axis))
     if sm.tp > 1 and sm.sp and use_cp(ctx, qkv_ax, sm.seq, sm.seq, cfg):
         w = {n: sm.use(p[n], ps[n]) for n in p}
         b, s = h.shape[:2]
@@ -504,14 +529,92 @@ def spmd_attention(p, ps, h, cfg, sm, positions, *, window, causal):
             pos = positions[sm.rows]
             q = rope(q, pos, cfg.rope_theta)
             k = rope(k, pos, cfg.rope_theta)
-        out = _cp_attention(q, k, v, ctx, causal=causal, window=window,
-                            softcap=softcap, scale=scale)
-        return dense(out.reshape(b, s, -1), w["wo"])
+        o = _cp_attention(q, k, v, ctx, causal=causal, window=window,
+                          softcap=softcap, scale=scale)
+        return out(dense(o.reshape(b, s, -1), w["wo"]), k, v,
+                   (bsp, sm.axis))
     xf = sm.full(h, dup=True)
     w = {n: sm.use(p[n], ps[n], dup=True) for n in p}
-    y, _ = attention_layer(w, xf, cfg, positions, window=window,
-                           causal=causal)
-    return sm.from_full_dup(y)
+    y, kv = attention_layer(w, xf, cfg, positions, window=window,
+                            causal=causal)
+    return out(sm.from_full_dup(y), kv["k"], kv["v"], (bsp,))
+
+
+def write_ring_block(ring, new, slot, spec, ctx, dim=1):
+    """Write ``new`` (one entry along ``dim``) at global ring ``slot`` (a
+    (1,) device tensor) into this rank's block ``ring`` of a ring cut over
+    ``spec[dim]``'s axes: only the rank whose block holds the slot
+    changes (a masked write, decided on the device, no host sync)."""
+    axes = shd._axes(spec[dim]) if len(spec) > dim else ()
+    n = ring.shape[dim]
+    loc = slot.to(torch.int64) % (n * ctx.size(axes)) - ctx.index(axes) * n
+    inside = (loc >= 0) & (loc < n)
+    loc = torch.clamp(loc, 0, n - 1)
+    old = ring.index_select(dim, loc)
+    shape = [1] * ring.dim()
+    ring.index_copy_(dim, loc, torch.where(inside.reshape(shape),
+                                           new.to(ring.dtype), old))
+
+
+def spmd_attention_decode(p, ps, h, cfg, sm, cache, cache_spec, cur_pos,
+                          positions, *, window, cross=False, slot=None):
+    """One decode step of a block's attention under ``Spmd`` ``sm`` (S = 1:
+    the stream is whole on every ``model`` rank): ``cache`` the rank's
+    block of the K/V ring (or of whisper's static cross-attention K/V with
+    ``cross``), placed by ``cache_spec`` (a leaf's spec without its
+    periods dim), ``positions`` the rank's block of the position table.
+    Every rank projects q, k and v for its batch rows alike (the weights
+    gathered); the new entry lands at ring slot ``slot % S`` (``slot`` a
+    (1,) tensor, the global row 0's position) on the rank holding it
+    (``write_ring_block``); attention runs on the rank's
+    block of the sequence and the flash-decode combine
+    (``decode_attention``'s ``combine``) joins the blocks over the
+    ``kv_seq`` axes; a cache cut by heads attends the rank's heads and
+    gathers them. Returns (the block's output, the cache)."""
+    ctx = sm.ctx
+    hd = cfg.head_dim_
+    spec = tuple(cache_spec) + (None,) * (4 - len(cache_spec))
+    seq_ax, head_ax = shd._axes(spec[1]), shd._axes(spec[2])
+    if spec[3] is not None:
+        raise NotImplementedError(f"a decode cache cut over head_dim "
+                                  f"({cache_spec})")
+    w = sm.use_tree(p, ps, dup=True)
+    b = h.shape[0]
+    softcap = cfg.attn_softcap
+    scale = hd ** -0.5 if cfg.query_scale == 0 else cfg.query_scale
+    q = dense(h, w["wq"], w.get("bq")).reshape(b, 1, -1, hd)
+    nh = ctx.size(head_ax)
+    hi = ctx.index(head_ax) if head_ax else 0
+
+    def mine(t):                       # the rank's heads of a cache by heads
+        n = t.shape[2] // nh
+        return t[:, :, hi * n:(hi + 1) * n].contiguous()
+
+    combine = (ctx, seq_ax) if seq_ax else None
+    if cross:
+        s_l = cache["k"].shape[1]
+        off = (ctx.index(seq_ax) if seq_ax else 0) * s_l
+        s = s_l * ctx.size(seq_ax)
+        tab = torch.arange(off, off + s_l, dtype=torch.int32,
+                           device=h.device)[None].expand(b, s_l)
+        o = decode_attention(mine(q), cache["k"], cache["v"], tab,
+                             torch.full((b,), s - 1, dtype=torch.int32,
+                                        device=h.device),
+                             softcap=softcap, scale=scale, combine=combine)
+    else:
+        k = dense(h, w["wk"], w.get("bk")).reshape(b, 1, -1, hd)
+        v = dense(h, w["wv"], w.get("bv")).reshape(b, 1, -1, hd)
+        if cfg.use_rope:
+            q = rope(q, cur_pos[:, None], cfg.rope_theta)
+            k = rope(k, cur_pos[:, None], cfg.rope_theta)
+        write_ring_block(cache["k"], mine(k), slot, spec, ctx)
+        write_ring_block(cache["v"], mine(v), slot, spec, ctx)
+        o = decode_attention(mine(q), cache["k"], cache["v"], positions,
+                             cur_pos, window=window, softcap=softcap,
+                             scale=scale, combine=combine)
+    if head_ax:
+        o = shd.raw_all_gather(ctx, o, head_ax, 2)
+    return dense(o.reshape(b, 1, -1), w["wo"]), cache
 
 
 def spmd_mlp(p, ps, h, sm):

@@ -28,27 +28,37 @@ are the rank's blocks and the stacks run their GSPMD path
 (``transformer._block_spmd``); on the controller ``params`` is a
 ``sharding.Sharded`` tree and the loss runs on every rank. The loss is
 the global mean: each rank's NLL sum and token count are summed over the
-mesh. ``prefill``, ``decode_step`` and the paged steps refuse a
-``ParallelContext`` (ROADMAP item 11: their caches carry ``kv_seq``
-axes).
+mesh. ``prefill`` and ``decode_step`` take one too (GSPMD serving): on a
+rank they work on its blocks, the stack runs ``transformer.
+_block_spmd`` with the cache and the cache is the rank's blocks under
+``cache_specs`` (the reference's cache axes: K/V rings and whisper's
+cross-attention K/V cut by ``kv_seq``, mamba's state by channels over
+``model``); from the controller they run on every rank, return rank 0's
+logits (the whole batch) and keep the cache on the ranks, a
+``sharding.Sharded`` handle. The paged steps under a ``ParallelContext``
+run the tensor-parallel path over the ``model`` axis
+(``ParallelContext.model_shard``): params are the planner's slices
+(``place_paged``), pools a rank's KV heads, and every data rank runs the
+whole step.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..core.quantize import KVQuantSpec, PackedQTensor, QTensor, \
-    packed_gather
+    map_tensors, packed_gather
 from ..device import resolve_device
 from ..kernels.msb_matmul.ops import msb_unembed
 from . import ssm, xlstm
 from ..parallel import sharding as shd
 from ..parallel.sharding import ParallelContext
 from .layers import (Spmd, chunked_softmax_xent, heads_split, rms_norm,
-                     tp_of, xent_sums)
+                     tp_of, write_ring_block, xent_sums)
 from .transformer import (_require_attention_stack, forward_stack,
                           init_params, layer_plan, n_periods, param_axes,
                           param_shapes, supports_paged)
@@ -84,6 +94,20 @@ def _quant_paged(paged, kv_bits, slots, seg_off=None):
 
 
 @dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """The global sizes a static cache is cut from on a process mesh:
+    ``batch`` rows, ``seq`` ring entries and whisper's ``enc_seq``
+    cross-attention rows (None without an encoder)."""
+    batch: int
+    seq: int
+    enc_seq: Optional[int] = None
+
+
+def _quantized(t):
+    return isinstance(t, (QTensor, PackedQTensor))
+
+
+@dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
@@ -100,11 +124,25 @@ class Model:
         """Global shape (a tuple) of every param leaf."""
         return param_shapes(self.cfg)
 
-    def param_specs(self, ctx):
-        """``resolve_spec`` of every param leaf on ``ctx``'s mesh."""
-        return shd.tree_map_axes(
+    def param_specs(self, ctx, params=None):
+        """``resolve_spec`` of every param leaf on ``ctx``'s mesh; with
+        ``params``, a quantized leaf's is () (such leaves are placed
+        whole: ``sharding.device_put``)."""
+        specs = shd.tree_map_axes(
             lambda ax, shape: shd.resolve_spec(ax, shape, ctx),
             self.param_axes(), self.param_shapes())
+        if params is None:
+            return specs
+        return shd.tree_map_axes(lambda sp, t: () if _quantized(t) else sp,
+                                 specs, params)
+
+    def param_shardings(self, ctx, params=None):
+        """``NamedSharding`` of every param leaf (``param_specs``) for
+        ``sharding.device_put``."""
+        specs = self.param_specs(ctx, params)
+        return shd.tree_map_axes(
+            lambda sp, shape: shd.NamedSharding(ctx.mesh, sp, shape),
+            specs, self.param_shapes())
 
     # -- shared pieces -----------------------------------------------------
     def _embed(self, params, tokens):
@@ -245,20 +283,9 @@ class Model:
         the global gradient once the shares are reduced (``train.
         make_train_step``)."""
         cfg = self.cfg
-        specs = self.param_specs(ctx)
-        enc_out = None
-        if cfg.is_encdec:
-            frames = batch["frames"].to(cfg.dtype)
-            sme = Spmd(ctx, frames.shape[1], specs)
-            pos = torch.arange(frames.shape[1], device=frames.device)
-            xe = sme.from_full_dup(
-                frames + _sinusoid(pos, cfg.d_model)[None].to(cfg.dtype))
-            xe, _, _ = forward_stack(params["enc"], xe, cfg, stack="enc",
-                                     positions=pos, parallel=sme)
-            xe = rms_norm(xe, sme.use(params["enc_final_norm"],
-                                      specs["enc_final_norm"],
-                                      dup=not sme.sp), cfg.norm_eps)
-            enc_out = sme.full(xe, dup=True)
+        specs = self.param_specs(ctx, params)
+        enc_out = (self._encoder_spmd(params, batch, ctx, specs)
+                   if cfg.is_encdec else None)
         whole = {"embed": Spmd(ctx, 1).use(params["embed"], specs["embed"],
                                            dup=True)}
         x = self._assemble_inputs(whole, batch)
@@ -275,6 +302,8 @@ class Model:
                                dup=dup), cfg.norm_eps)
         name = "unembed" if "unembed" in params else "embed"
         w = sm.use(params[name], specs[name], dup=dup)
+        if _quantized(w):
+            w = self._unembed_vd({"embed": w})
         labels = batch["labels"].to(torch.int64)[:, sm.rows]
         tot, cnt = xent_sums(x, w, torch.clamp(labels, min=0),
                              (labels >= 0).to(torch.float32),
@@ -292,13 +321,26 @@ class Model:
         return loss, {"ce": ce, "router_aux": aux.detach()}
 
     # -- static serving: prefill + ring-buffer decode ------------------------
-    def prefill(self, params, batch, parallel=None):
+    def prefill(self, params, batch, parallel=None, *, global_batch=None):
         """Forward over ``batch`` ({"tokens" (B, S)}, with "patch_embeds"
         or "frames" as ``loss`` takes them) collecting the cache. Returns
         (last-position logits (B, V) f32, cache): cache["layers"] holds
         each slot's cache stacked over periods (``forward_stack``) and,
         where the stack has attention, cache["pos"] (B, S) int32 the
-        positions 0..S-1."""
+        positions 0..S-1.
+
+        Under a ``ParallelContext``: from the controller ``params`` is a
+        ``Sharded`` tree (``param_shardings``), ``batch`` global; every
+        rank runs the prefill and the result is (the whole batch's
+        logits, a ``Sharded`` cache handle). On a rank ``params`` and
+        ``batch`` are its blocks, ``global_batch`` the global rows (None:
+        ``batch`` is the rank's cut over the data axes), and the logits
+        and cache are its rows' and blocks (``cache_specs`` of
+        ``cache_layout``)."""
+        if isinstance(parallel, ParallelContext):
+            if not parallel.on_rank:
+                return _mesh_prefill(self, params, batch, parallel)
+            return self._prefill_spmd(params, batch, parallel, global_batch)
         cfg = self.cfg
         enc_out = (self._encoder(params, batch, parallel) if cfg.is_encdec
                    else None)
@@ -320,12 +362,30 @@ class Model:
                 b, s).contiguous()
         return logits, cache
 
-    def decode_step(self, params, cache, tokens, cur_pos, parallel=None):
+    def decode_step(self, params, cache, tokens, cur_pos, parallel=None, *,
+                    layout=None):
         """One decode step. tokens (B, 1), cur_pos (B,) on the cache's
         device. Every row writes ring slot ``cur_pos[0] % S`` (as the
         reference does), and ``cache`` — K/V rings, recurrent state and
         the ``pos`` table — is updated in place, with no host sync.
-        Returns (logits (B, V), cache)."""
+        Returns (logits (B, V), cache).
+
+        Under a ``ParallelContext``: from the controller ``cache`` is the
+        ``Sharded`` handle ``prefill`` gave and ``tokens``
+        / ``cur_pos`` global; on a rank everything is the rank's blocks
+        and ``layout`` (a ``CacheLayout``) the cache's global sizes. The
+        new entry lands on the rank whose block of the ring holds slot
+        ``cur_pos[0] % S`` of the global row 0, and attention joins the
+        ranks' blocks of the sequence by the flash-decode combine."""
+        if isinstance(parallel, ParallelContext):
+            if not parallel.on_rank:
+                return _mesh_decode(self, params, cache, tokens, cur_pos,
+                                    parallel)
+            if layout is None:
+                raise ValueError("decode_step on a rank needs the cache's "
+                                 "layout (a CacheLayout)")
+            return self._decode_spmd(params, cache, tokens, cur_pos,
+                                     parallel, layout)
         cfg = self.cfg
         x = self._embed(params, tokens)
         if (not cfg.use_rope or cfg.is_encdec) and _has_attn(cfg):
@@ -341,6 +401,137 @@ class Model:
                                 decode_positions=pos, parallel=parallel)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x[:, -1], parallel), cache
+
+    # -- static serving on a process mesh ------------------------------------
+    def cache_layout(self, batch, global_batch=None):
+        """The ``CacheLayout`` of a prefill over ``batch`` (its rows, or
+        ``global_batch``)."""
+        cfg = self.cfg
+        s = batch["frames" if cfg.frontend == "audio" and not cfg.is_encdec
+                  else "tokens"].shape[1]
+        if cfg.frontend == "vision":
+            s += batch["patch_embeds"].shape[1]
+        enc = batch["frames"].shape[1] if cfg.is_encdec else None
+        first = next(iter(batch.values()))
+        return CacheLayout(int(global_batch or first.shape[0]), int(s), enc)
+
+    def cache_axes(self):
+        """The logical axes of every cache leaf (the reference's third
+        ``cache_defs`` entry): K/V ("layers", "batch", "kv_seq", "heads",
+        "head_dim"), mamba's conv / ssm state channels on "mlp", xLSTM
+        state replicated past "batch", pos ("batch", "kv_seq")."""
+        kv = ("layers", "batch", "kv_seq", "heads", "head_dim")
+
+        def axes(path, shape):
+            if path[-1] in ("k", "v"):
+                return kv
+            if path[-1] == "pos":
+                return ("batch", "kv_seq")
+            if path[-2] == "mamba":
+                return {"conv": ("layers", "batch", None, "mlp"),
+                        "ssm": ("layers", "batch", "mlp", None)}[path[-1]]
+            return ("layers", "batch") + (None,) * (len(shape) - 2)
+        return _map_defs(axes, self.cache_defs(1, 1))
+
+    def cache_shapes(self, layout):
+        """The global shape of every cache leaf of ``layout`` (whisper's
+        cross-attention K/V ``enc_seq`` rows long)."""
+        def shape(path, shp):
+            if "xattn" in path:
+                shp = shp[:2] + (layout.enc_seq,) + shp[3:]
+            return shp
+        return _map_defs(shape, self.cache_defs(layout.batch, layout.seq))
+
+    def cache_specs(self, ctx, layout):
+        """``resolve_spec`` of every cache leaf of ``layout``: the blocks a
+        rank holds."""
+        return shd.tree_map_axes(
+            lambda ax, shp: shd.resolve_spec(ax, shp, ctx),
+            self.cache_axes(), self.cache_shapes(layout))
+
+    def cache_shardings(self, ctx, layout):
+        return shd.tree_shardings(ctx, self.cache_axes(),
+                                  self.cache_shapes(layout))
+
+    def _whole(self, params, specs, sm, names):
+        """The named top-level leaves gathered whole on every rank."""
+        return {n: sm.use(params[n], specs[n], dup=True) for n in names
+                if n in params}
+
+    def _encoder_spmd(self, params, batch, ctx, specs, gbatch=None):
+        """Whisper's encoder on a rank (its batch rows); returns its normed
+        output, the whole sequence, alike on every ``model`` rank."""
+        cfg = self.cfg
+        frames = batch["frames"].to(cfg.dtype)
+        sme = Spmd(ctx, frames.shape[1], specs, batch=gbatch)
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        xe = sme.from_full_dup(
+            frames + _sinusoid(pos, cfg.d_model)[None].to(cfg.dtype))
+        xe, _, _ = forward_stack(params["enc"], xe, cfg, stack="enc",
+                                 positions=pos, parallel=sme)
+        xe = rms_norm(xe, sme.use(params["enc_final_norm"],
+                                  specs["enc_final_norm"],
+                                  dup=not sme.sp), cfg.norm_eps)
+        return sme.full(xe, dup=True)
+
+    def _prefill_spmd(self, params, batch, ctx, global_batch):
+        cfg = self.cfg
+        specs = self.param_specs(ctx, params)
+        first = next(iter(batch.values()))
+        gb = global_batch or first.shape[0] * ctx.dp_size
+        layout = self.cache_layout(batch, gb)
+        enc_out = (self._encoder_spmd(params, batch, ctx, specs, gb)
+                   if cfg.is_encdec else None)
+        sm = Spmd(ctx, layout.seq, specs, batch=gb)
+        whole = self._whole(params, specs, sm, ("embed", "unembed"))
+        x = self._assemble_inputs(whole, batch)
+        s = x.shape[1]
+        positions = torch.arange(s, device=x.device)
+        if (not cfg.use_rope or cfg.is_encdec) and _has_attn(cfg):
+            x = x + _sinusoid(positions, cfg.d_model)[None].to(cfg.dtype)
+        cspecs = self.cache_specs(ctx, layout)
+        x, layer_cache, _ = forward_stack(
+            params["dec"], sm.from_full_dup(x), cfg, positions=positions,
+            enc_out=enc_out, collect_cache=True, parallel=sm,
+            cache_specs=cspecs["layers"])
+        x = rms_norm(sm.full(x, dup=True)[:, -1],
+                     sm.use(params["final_norm"], specs["final_norm"],
+                            dup=True), cfg.norm_eps)
+        cache = {"layers": layer_cache}
+        if _has_attn(cfg):
+            pos = positions.to(torch.int32)[None].expand(gb, s)
+            cache["pos"] = shd.local_block(pos, cspecs["pos"],
+                                           ctx).contiguous()
+        return self._logits(whole, x), cache
+
+    def _decode_spmd(self, params, cache, tokens, cur_pos, ctx, layout):
+        cfg = self.cfg
+        specs = self.param_specs(ctx, params)
+        cspecs = self.cache_specs(ctx, layout)
+        sm = Spmd(ctx, 1, specs, batch=layout.batch)
+        whole = self._whole(params, specs, sm, ("embed", "unembed"))
+        x = self._embed(whole, tokens)
+        if (not cfg.use_rope or cfg.is_encdec) and _has_attn(cfg):
+            x = x + _sinusoid(cur_pos[:, None], cfg.d_model).to(cfg.dtype)
+        pos = slot = None
+        if _has_attn(cfg):
+            pos = cache["pos"]
+            bax = shd._axes(sm.bspec)
+            # the position of the global row 0, which the first data rank
+            # holds: every row writes its ring slot
+            slot = (shd.raw_all_gather(ctx, cur_pos[:1], bax, 0)[:1]
+                    if bax else cur_pos[:1])
+            write_ring_block(pos, cur_pos[:, None], slot, cspecs["pos"],
+                             ctx)
+        x, _, _ = forward_stack(params["dec"], x, cfg,
+                                positions=cur_pos[:, None],
+                                cache=cache["layers"], cur_pos=cur_pos,
+                                decode_positions=pos, parallel=sm,
+                                cache_specs=cspecs["layers"],
+                                ring_slot=slot)
+        x = rms_norm(x, sm.use(params["final_norm"], specs["final_norm"],
+                               dup=True), cfg.norm_eps)
+        return self._logits(whole, x[:, -1]), cache
 
     def cache_defs(self, batch, seq_len):
         """(shape, dtype) per leaf of the decode cache, nested like it:
@@ -390,6 +581,19 @@ class Model:
         return build(self.cache_defs(batch, seq_len))
 
     # -- paged serving -------------------------------------------------------
+    def place_paged(self, params, ctx):
+        """The paged steps' params on ``ctx``'s process mesh, placed as
+        ``ContinuousEngine(parallel=)`` places them: ``shard_params`` over
+        the ``model`` axis (packed and ``QTensor`` trees keep their codes,
+        so kernel A runs on each rank's slice), replicated over the data
+        axes, each rank's slices installed by ``install_slices``. Returns
+        (a ``Sharded`` handle, the planner's report)."""
+        mesh = ctx.mesh
+        shards, report = shard_params(self, params, mesh, mesh.device, ctx)
+        key = mesh.new_key()
+        mesh.install(key, install_slices, [(shard,) for shard in shards])
+        return shd.Sharded(mesh, key, None), report
+
     def supports_paged(self):
         """Paged serving covers decoder-only attention stacks (any FFN
         kind); ssm/xlstm/enc-dec caches are per-sequence state, not pages.
@@ -411,9 +615,18 @@ class Model:
         1) plus scratch row 0. Under a ``TPShard`` whose size divides both
         head counts (``layers.heads_split``) a rank's pools hold its
         ``KV / size`` heads: the KV codec's groups never cross heads, so
-        every representation splits along them."""
+        every representation splits along them. Under a ``ParallelContext``
+        a rank's pools are those of its ``model_shard``; from the
+        controller every rank allocates its own and a ``Sharded`` handle
+        comes back."""
         cfg = self.cfg
         _require_attention_stack(cfg)
+        if isinstance(parallel, ParallelContext):
+            if not parallel.on_rank:
+                return _mesh_pools(self, parallel, num_pages=num_pages,
+                                   page_size=page_size, kv_bits=kv_bits,
+                                   max_seqs=max_seqs)
+            parallel = parallel.model_shard()
         dev = resolve_device(device)
         p, kv, hd = n_periods(cfg), cfg.n_kv_heads, cfg.head_dim_
         tp = tp_of(parallel)
@@ -451,7 +664,16 @@ class Model:
         last valid token (B, V) f32, pools). Pad rows give garbage logits
         the caller discards. ``kv_bits`` names the pools' representation
         (``init_paged_pools``); ``slots`` (B,) engine slot ids (-1 = pad
-        row) address the hot rows and are required when kv_bits < 16."""
+        row) address the hot rows and are required when kv_bits < 16.
+        Under a ``ParallelContext`` (``_paged_parallel``) the step runs
+        on every rank from the controller (``params`` from
+        ``place_paged``, ``pools`` from ``init_paged_pools``: handles)
+        and on a rank over its ``model_shard``."""
+        parallel, mesh_call = _paged_parallel(parallel)
+        if mesh_call:
+            return _mesh_paged(self, "paged_step", params, pools,
+                               (tokens, q_pos, kv_lens, block_tables),
+                               dict(kv_bits=kv_bits, slots=slots))
         cfg = self.cfg
         x = self._embed(params, torch.clamp(tokens, min=0))
         if not cfg.use_rope:
@@ -479,7 +701,13 @@ class Model:
         read), slots (engine slot ids, -1 = pad) and seg_off (packed index
         of the segment's first token); ``slots``/``seg_off`` serve
         quantized pools only. Returns (logits (S, V), pools), pools updated
-        in place."""
+        in place. A ``ParallelContext`` as ``paged_step`` takes it."""
+        parallel, mesh_call = _paged_parallel(parallel)
+        if mesh_call:
+            return _mesh_paged(self, "paged_prefill_packed", params, pools,
+                               (tokens, seg_ids, q_pos, kv_lens,
+                                block_tables, slots, last_idx, seg_off),
+                               dict(kv_bits=kv_bits))
         cfg = self.cfg
         x = self._embed(params, torch.clamp(tokens, min=0)[None])
         if not cfg.use_rope:
@@ -512,7 +740,14 @@ class Model:
         position (-1 = pad row); block_tables must cover the whole lease;
         n_left/eos_ids (B,). Returns (tokens (B, H) int32, valid (B, H)
         bool prefix masks, pools). Under a ``TPShard`` the logits, and so
-        the argmax, are the same on every rank."""
+        the argmax, are the same on every rank; a ``ParallelContext`` as
+        ``paged_step`` takes it."""
+        parallel, mesh_call = _paged_parallel(parallel)
+        if mesh_call:
+            return _mesh_paged(self, "paged_decode_horizon", params, pools,
+                               (tokens, start_pos, block_tables, n_left,
+                                eos_ids, int(horizon)),
+                               dict(kv_bits=kv_bits, slots=slots))
         tok = tokens.to(torch.int32)
         pos = start_pos.to(torch.int32)
         active = (start_pos >= 0) & (n_left > 0)
@@ -533,6 +768,13 @@ class Model:
             out_tok.append(torch.where(valid, nxt, torch.zeros_like(nxt)))
             out_valid.append(valid)
         return torch.stack(out_tok, 1), torch.stack(out_valid, 1), pools
+
+
+def _map_defs(fn, defs, path=()):
+    """``fn(path, shape)`` over a ``cache_defs`` tree, nested alike."""
+    if isinstance(defs, dict):
+        return {k: _map_defs(fn, v, path + (k,)) for k, v in defs.items()}
+    return fn(path, tuple(defs[0]))
 
 
 class _GlobalValue(torch.autograd.Function):
@@ -561,3 +803,188 @@ def _rank_loss(rctx, model, params, batch):
     batch = {k: v.to(dev) for k, v in batch.items()}
     with torch.no_grad():
         return model.loss(params.local(rctx), batch, rctx.par)
+
+
+# -- static serving from the controller --------------------------------------
+
+def _rows(ctx, t, gbatch):
+    """A rank's rows of a batch-major result -> the whole batch's (gathered
+    over the data axes where the batch is cut)."""
+    spec = shd.resolve_spec(("batch",), (gbatch,), ctx)
+    return shd.raw_all_gather(ctx, t, spec[0], 0) if spec else t
+
+
+def _to_device(batch, dev):
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def _mesh_prefill(model, params, batch, ctx):
+    """``Model.prefill`` from the controller: every rank prefills its rows
+    and keeps its blocks of the cache under a new key; returns (rank 0's
+    whole-batch logits, the cache's ``Sharded`` handle)."""
+    mesh = ctx.mesh
+    key = mesh.new_key()
+    gb = int(next(iter(batch.values())).shape[0])
+    logits, layout = mesh.run(_rank_prefill, model, shd._plain(params), key,
+                              gb, per_rank=shd.batch_blocks(ctx, batch,
+                                                            strict=False))
+    return logits, shd.Sharded(mesh, key,
+                               model.cache_shardings(ctx, layout))
+
+
+def _rank_prefill(rctx, model, params, key, gb, batch):
+    with torch.no_grad():
+        logits, cache = model.prefill(params.local(rctx),
+                                      _to_device(batch, rctx.device),
+                                      rctx.par, global_batch=gb)
+    rctx.states[key] = cache
+    return _rows(rctx.par, logits, gb), model.cache_layout(batch, gb)
+
+
+def layout_of(sharded):
+    """The ``CacheLayout`` of a static cache's ``Sharded`` handle."""
+    batch = seq = enc = None
+    for path, ns in _leaf_shardings(sharded.shardings):
+        if path[-1] == "pos":
+            batch, seq = ns.shape
+        elif path[-2:] in (("attn", "k"),):
+            batch, seq = ns.shape[1], ns.shape[2]
+        elif path[-2:] == ("xattn", "k"):
+            enc = ns.shape[2]
+        elif batch is None:
+            batch, seq = ns.shape[1], 1
+    return CacheLayout(batch, seq, enc)
+
+
+def _leaf_shardings(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_shardings(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _mesh_decode(model, params, cache, tokens, cur_pos, ctx):
+    """``Model.decode_step`` from the controller: every rank steps its
+    blocks of the cache in place; returns (rank 0's whole-batch logits,
+    the handle)."""
+    layout = layout_of(cache)
+    logits = ctx.mesh.run(
+        _rank_decode, model, shd._plain(params), shd._plain(cache), layout,
+        per_rank=shd.batch_blocks(ctx, {"tokens": tokens,
+                                        "cur_pos": cur_pos}, strict=False))
+    return logits, cache
+
+
+def _rank_decode(rctx, model, params, cache, layout, inputs):
+    x = _to_device(inputs, rctx.device)
+    with torch.no_grad():
+        logits, _ = model.decode_step(params.local(rctx), cache.local(rctx),
+                                      x["tokens"], x["cur_pos"], rctx.par,
+                                      layout=layout)
+    return _rows(rctx.par, logits, layout.batch)
+
+
+# -- paged serving on a process mesh ------------------------------------------
+
+def model_index(ctx, rank):
+    """Rank ``rank``'s index along ``ctx``'s ``model`` axis."""
+    return dataclasses.replace(ctx, coords=ctx.mesh.coords(rank)).index(
+        ctx.tp_axis)
+
+
+def _paged_parallel(parallel):
+    """A paged step's ``parallel``: a rank's ``ParallelContext`` becomes
+    its ``model_shard``; (parallel, whether the controller runs the step
+    on every rank)."""
+    if isinstance(parallel, ParallelContext):
+        if not parallel.on_rank:
+            return parallel, True
+        return parallel.model_shard(), False
+    return parallel, False
+
+
+def shard_params(model, params, mesh, device, ctx=None):
+    """Partition ``params`` (on ``device``, rank 0's) for ``mesh``
+    (``core.policy.tp_partition_params``) and cut every rank's slices
+    (``tp_shard``): rank 0's stay on ``device``, the others' move to the
+    CPU, to be sent to their ranks. With ``ctx`` (a ``ParallelContext``
+    on ``mesh``) the partition is over its ``model`` axis and rank r
+    takes the slices of its ``model`` index. Returns (every rank's
+    slices, the planner's report)."""
+    from ..core.policy import tp_partition_params, tp_shard
+    if mesh.device != device:
+        raise ValueError(f"the engine's device {device} is not rank 0's "
+                         f"{mesh.device}")
+    tp = mesh.size if ctx is None else ctx.tp_size
+    tree, specs, report = tp_partition_params(params, tp, cfg=model.cfg)
+    index = [r if ctx is None else model_index(ctx, r)
+             for r in range(mesh.size)]
+    shards = [tp_shard(tree, specs, index[0], tp)]
+    for r in range(1, mesh.size):
+        shards.append(map_tensors(lambda t: t.cpu(),
+                                  tp_shard(tree, specs, index[r], tp)))
+    return shards, report
+
+
+def install_slices(rctx, params):
+    """On a mesh rank: its slices of ``shard_params`` on its device,
+    localized (``core.policy.tp_localize``); every mesh engine's and
+    ``place_paged``'s install."""
+    from ..core.policy import tp_localize
+    return tp_localize(map_tensors(lambda t: t.to(rctx.device), params))
+
+
+def _mesh_pools(model, ctx, **kw):
+    """Every rank's pools (its ``model_shard``'s KV heads) under a new
+    key; the ``Sharded`` handle (placements: the heads' dim over
+    ``model`` where they split)."""
+    mesh = ctx.mesh
+    key = mesh.new_key()
+    mesh.install(key, _install_pools, [()] * mesh.size, model, kw)
+    whole = model.init_paged_pools(device="meta", **kw)
+    split = heads_split(model.cfg, shd.TPShard(size=ctx.tp_size))
+
+    def sharding(path, t):
+        spec = ()
+        if split:        # the KV-heads dim: 2 of the scales, 3 else
+            spec = (None,) * (2 if path[-1].endswith("scales") else 3) + (
+                ctx.tp_axis,)
+        return shd.NamedSharding(mesh, spec, tuple(t.shape))
+    return shd.Sharded(mesh, key, _map_path(sharding, whole))
+
+
+def _map_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _install_pools(rctx, model, kw):
+    return model.init_paged_pools(device=rctx.device, parallel=rctx.par,
+                                  **kw)
+
+
+def _mesh_paged(model, name, params, pools, args, kw):
+    """A paged step from the controller: ``args`` (host or any device's
+    tensors, ints) sent to every rank, which runs ``name`` on its params
+    and pools; returns rank 0's outputs with the pools' handle last."""
+    args = tuple(a.detach().cpu() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    kw = {k: (v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+          for k, v in kw.items()}
+    out = pools.mesh.run(_rank_paged, model, name, shd._plain(params),
+                         shd._plain(pools), args, kw)
+    return tuple(out) + (pools,)
+
+
+def _rank_paged(rctx, model, name, params, pools, args, kw):
+    dev = rctx.device
+    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    kw = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+          for k, v in kw.items()}
+    with torch.no_grad():
+        out = getattr(model, name)(params.local(rctx), pools.local(rctx),
+                                   *args, parallel=rctx.par, **kw)
+    return out[:-1]

@@ -198,18 +198,39 @@ def _moe_spmd(p, x, cfg, sm, ps):
     and cut to the rank's block, as the reference dequantizes them before
     its collectives), ``x`` the rank's stream. Expert-parallel
     (``_moe_ep``) when the experts divide over ``model`` and the stream
-    is held in rows (or ``model`` has one rank); else every rank routes
-    the global batch."""
+    is held in rows (or ``model`` has one rank), or over the rank's share
+    of its tokens where the stream is whole on every ``model`` rank and
+    the tokens divide (decode), both only where the batch is cut over the
+    data axes; else every rank routes the global batch. Capacity comes
+    from the tokens a rank routes."""
     ctx = sm.ctx
     p = dict(p)
     for n in ("wg", "wi", "wo"):
         if isinstance(p[n], (QTensor, PackedQTensor)):
             p[n] = shd.local_block(p[n].dequantize(), ps[n], ctx)
-    if cfg.n_experts_padded % sm.tp == 0 and (sm.tp == 1 or sm.sp):
+    # the reference's expert parallelism needs the tokens cut over every
+    # axis (its shard_map's P(dp, model) blocks): a batch held whole on
+    # every data rank routes globally, as one device does
+    ep = cfg.n_experts_padded % sm.tp == 0 and (
+        ctx.dp_size == 1 or sm.bspec is not None)
+    if ep and (sm.tp == 1 or sm.sp):
         return _moe_ep(p, x, cfg, sm, ps)
-    xg = shd.all_gather(sm.full(x, dup=True), ctx, ctx.dp_axes, 0)
+    b, s, d = x.shape
+    if ep and sm.serving and (b * s) % sm.tp == 0:
+        # a stream whole on every model rank (decode): each rank routes
+        # its share of the tokens, as in rows, and the outputs are
+        # gathered back
+        mine = shd.slice_rank(x.reshape(1, b * s, d), ctx, sm.axis, 1)
+        y, aux = _moe_ep(p, mine, cfg, sm, ps)
+        y = shd.all_gather(y, ctx, sm.axis, 1, dup=True)
+        return y.reshape(b, s, d), aux
+    bax = shd._axes(sm.bspec)
+    xg = shd.all_gather(sm.full(x, dup=True), ctx, bax, 0) if bax else \
+        sm.full(x, dup=True)
     y, aux = moe_layer(sm.use_tree(p, ps, dup=True), xg, cfg)
-    return sm.from_full_dup(shd.slice_rank(y, ctx, ctx.dp_axes, 0)), aux
+    if bax:
+        y = shd.slice_rank(y, ctx, bax, 0)
+    return sm.from_full_dup(y), aux
 
 
 def _moe_ep(p, x, cfg, sm, ps):

@@ -94,20 +94,21 @@ def _chunk(s, chunk):
     return ck
 
 
-def mamba_layer(p, x, cfg, cache=None, parallel=None):
+def mamba_layer(p, x, cfg, cache=None, parallel=None, gbatch=None):
     """x: (B, S, D) -> (B, S, D), and the recurrent state {"conv" (B, K-1,
     d_inner) in x's type, "ssm" (B, d_inner, N) f32}. ``cache`` (decode)
     is that state; S == 1 with a cache runs the single-step branch.
     ``parallel`` (a rank's ``ParallelContext``): ``p`` holds the rank's
     channels, ``x`` the whole sequence of its batch rows; the output is
-    the rank's partial sum of ``out_proj``."""
+    the rank's partial sum of ``out_proj``, and ``gbatch`` the global
+    batch (default: ``x``'s rows cut over the data axes)."""
     b, s, _ = x.shape
     n, r = cfg.mamba_d_state, cfg.mamba_dt_rank
     f32 = torch.float32
     xi = dense(x, p["in_proj_x"])                        # (B, S, d_in)
     z = dense(x, p["in_proj_z"])
     if parallel is not None:
-        glob = (b * parallel.dp_size, s, cfg.mamba_d_inner)
+        glob = (gbatch or b * parallel.dp_size, s, cfg.mamba_d_inner)
         xi = shd.constraint(xi, ("batch", None, "mlp"), parallel, glob)
         z = shd.constraint(z, ("batch", None, "mlp"), parallel, glob)
     xi, new_conv = _causal_conv1d(xi, p["conv_w"],
@@ -182,14 +183,33 @@ _MLP_DIMS = {"in_proj_x": 1, "in_proj_z": 1, "conv_w": 1, "x_proj": 0,
              "out_proj": 0}
 
 
-def spmd_mamba(p, ps, h, cfg, sm):
+def spmd_mamba(p, ps, h, cfg, sm, cache=None, cache_specs=None):
     """The mamba mixer under a block's ``Spmd`` ``sm``: on the rank's
     inner channels when ``model`` shards them, else the whole layer alike
-    on every ``model`` rank. Returns the output in the stream's layout."""
-    if sm.tp > 1 and all(sm.sharded(ps[k], d) for k, d in _MLP_DIMS.items()):
+    on every ``model`` rank. Returns the output in the stream's layout;
+    with ``cache_specs`` (serving: the {"conv", "ssm"} state's specs
+    without the periods dim) also the new state in that layout, and
+    ``cache`` (decode) is the rank's block of the state before the step."""
+    ctx, bsp = sm.ctx, sm.bspec
+    sharded = sm.tp > 1 and all(sm.sharded(ps[k], d)
+                                for k, d in _MLP_DIMS.items())
+    ch = sm.axis if sharded else None
+    lay = {"conv": (bsp, None, ch), "ssm": (bsp, ch)}
+
+    def moved(state, src, dst):
+        return None if state is None else {
+            k: shd.reshard(state[k], ctx, src[k], dst[k]) for k in state}
+
+    st = moved(cache, cache_specs, lay) if cache_specs else None
+    if sharded:
         w = sm.use_tree(p, ps, keep=True)
-        y, _ = mamba_layer(w, sm.full(h, dup=False), cfg, parallel=sm.ctx)
-        return sm.from_partial(y)
-    y, _ = mamba_layer(sm.use_tree(p, ps, dup=True), sm.full(h, dup=True),
-                       cfg)
-    return sm.from_full_dup(y)
+        y, new = mamba_layer(w, sm.full(h, dup=False), cfg, st,
+                             parallel=ctx, gbatch=sm.gbatch(h.shape[0]))
+        y = sm.from_partial(y)
+    else:
+        y, new = mamba_layer(sm.use_tree(p, ps, dup=True),
+                             sm.full(h, dup=True), cfg, st)
+        y = sm.from_full_dup(y)
+    if cache_specs is None:
+        return y
+    return y, moved(new, lay, cache_specs)

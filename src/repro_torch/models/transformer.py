@@ -29,7 +29,8 @@ from ..device import resolve_device
 from ..parallel import sharding as shd
 from . import ssm, xlstm
 from .layers import (Spmd, attention_layer, grad_on, mlp_layer, remat,
-                     rms_norm, spmd_attention, spmd_mlp, tp_of)
+                     rms_norm, spmd_attention, spmd_attention_decode,
+                     spmd_mlp, tp_of)
 from .moe import _capacity, moe_layer
 
 
@@ -321,7 +322,8 @@ def _strip_layer(specs):
 
 
 def _block_spmd(x, lp, ls, cfg, mixer, ffn, *, window, positions, enc_out,
-                cross, sm):
+                cross, sm, cs=None, cache=None, cur_pos=None,
+                decode_positions=None, ring_slot=None):
     """``_block`` on a rank under ``Spmd`` ``sm``: ``lp`` the layer's local
     blocks, ``ls`` their specs, ``x`` the rank's residual stream (its
     batch rows; its rows of the sequence under SP). Attention, mamba, the
@@ -329,35 +331,77 @@ def _block_spmd(x, lp, ls, cfg, mixer, ffn, *, window, positions, enc_out,
     ``ssm.spmd_mamba``, ``spmd_mlp``, ``moe_layer``); xLSTM's mixers and
     whisper's cross-attention run whole and alike on every ``model`` rank
     (the reference shards no activation of theirs over ``model`` here).
-    Norms and residual adds run on the stream as it lies. Returns (x,
-    aux)."""
+    Norms and residual adds run on the stream as it lies.
+
+    Serving passes ``cs``, the layer cache's specs without the periods dim
+    (``Model.cache_specs``): prefill (``cache`` None) then collects the
+    layer's cache in that layout, decode (S = 1, ``cache`` the rank's
+    blocks) steps it. Attention leaves its K/V cut by ``kv_seq`` and
+    decodes through the flash-decode combine
+    (``layers.spmd_attention_decode``, ring slot ``ring_slot % S``); mamba
+    keeps its state on the rank's channels; xLSTM's state and the
+    cross-attention K/V go between the cache's layout and the whole
+    sequence of the rank's rows (``sharding.reshard``). Returns (x, the
+    layer's new cache (None for the loss), aux)."""
     ctx, dup = sm.ctx, not sm.sp
+    serve, decode = cs is not None, cache is not None
+    rows = (sm.bspec,)              # the batch rows' layout, whole inside
 
     def norm(t, name):
         return rms_norm(t, sm.use(lp[name], ls[name], dup=dup),
                         cfg.norm_eps)
 
+    def moved(tree, specs, src_rows):
+        """A state tree between its cache specs and ``rows``."""
+        if isinstance(tree, dict):
+            return {k: moved(tree[k], specs[k], src_rows) for k in tree}
+        src, dst = (rows, specs) if src_rows else (specs, rows)
+        return shd.reshard(tree, ctx, src, dst)
+
     def whole(fn, name, h, **kw):
         w = sm.use_tree(lp[name], ls[name], dup=True)
-        y, _ = fn(w, sm.full(h, dup=True), cfg, **kw)
-        return sm.from_full_dup(y)
+        y, state = fn(w, sm.full(h, dup=True), cfg, **kw)
+        return sm.from_full_dup(y), state
 
-    aux = None
+    aux, new_cache = None, {} if serve else None
     h = norm(x, "norm1")
-    if mixer in ("attn", "enc_attn"):
+    if mixer in ("attn", "enc_attn") and decode:
+        y, new_cache["attn"] = spmd_attention_decode(
+            lp["attn"], ls["attn"], h, cfg, sm, cache["attn"],
+            cs["attn"]["k"], cur_pos, decode_positions, window=window,
+            slot=ring_slot)
+    elif mixer in ("attn", "enc_attn"):
         y = spmd_attention(lp["attn"], ls["attn"], h, cfg, sm, positions,
-                           window=window, causal=mixer == "attn")
+                           window=window, causal=mixer == "attn",
+                           cache_spec=cs["attn"]["k"] if serve else None)
+        if serve:
+            y, new_cache["attn"] = y
     elif mixer == "mamba":
-        y = ssm.spmd_mamba(lp["mamba"], ls["mamba"], h, cfg, sm)
+        y = ssm.spmd_mamba(lp["mamba"], ls["mamba"], h, cfg, sm,
+                           cache=cache["mamba"] if decode else None,
+                           cache_specs=cs["mamba"] if serve else None)
+        if serve:
+            y, new_cache["mamba"] = y
     else:
         fn = xlstm.slstm_layer if mixer == "slstm" else xlstm.mlstm_layer
-        y = whole(fn, mixer, h)
+        st = moved(cache[mixer], cs[mixer], False) if decode else None
+        y, state = whole(fn, mixer, h, cache=st)
+        if serve:
+            new_cache[mixer] = moved(state, cs[mixer], True)
     if cfg.post_norm:
         y = norm(y, "norm1b")
     x = x + y
-    if cross:
-        y = whole(attention_layer, "xattn", norm(x, "normx"),
-                  positions=positions, xattn_kv=enc_out, causal=False)
+    if cross and decode:
+        y, new_cache["xattn"] = spmd_attention_decode(
+            lp["xattn"], ls["xattn"], norm(x, "normx"), cfg, sm,
+            cache["xattn"], cs["xattn"]["k"], cur_pos, None, window=0,
+            cross=True)
+        x = x + y
+    elif cross:
+        y, kv = whole(attention_layer, "xattn", norm(x, "normx"),
+                      positions=positions, xattn_kv=enc_out, causal=False)
+        if serve:
+            new_cache["xattn"] = moved(kv, cs["xattn"], True)
         x = x + y
     if ffn != "none":
         h = norm(x, "norm2")
@@ -368,9 +412,9 @@ def _block_spmd(x, lp, ls, cfg, mixer, ffn, *, window, positions, enc_out,
         if cfg.post_norm:
             y = norm(y, "norm2b")
         x = x + y
-    b = x.shape[0] * ctx.dp_size
+    b = sm.gbatch(x.shape[0])
     shd.constraint(x, ("batch", "sp", None), ctx, (b, sm.seq, x.shape[2]))
-    return x, aux
+    return x, new_cache, aux
 
 
 def _write_state(view, new):
@@ -408,7 +452,8 @@ def _window_array(cfg, stack="dec"):
 
 def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
                   cache=None, cur_pos=None, enc_out=None, collect_cache=False,
-                  decode_positions=None, paged=None, parallel=None):
+                  decode_positions=None, paged=None, parallel=None,
+                  cache_specs=None, ring_slot=None):
     """Run a layer stack, ``stack`` "dec" or "enc" (whisper's encoder; the
     reference's scan is a loop over layer slices). Returns (x, cache,
     aux): ``aux`` the router losses summed over layers (f32 scalar, 0
@@ -428,6 +473,13 @@ def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
     * paged: ``cache`` = the pools' ``layers`` subtree and ``paged``; each
       layer writes its slice of the stacked pools in place.
 
+    Under a ``layers.Spmd`` view (a rank of a process mesh) prefill and
+    decode run ``_block_spmd`` on the rank's blocks, with
+    ``cache_specs`` the cache's ``layers`` spec tree (``Model.
+    cache_specs``): the collected cache leaves, and the decode cache is,
+    the rank's blocks under those specs; decode writes ring slot
+    ``ring_slot % S`` (a (1,) tensor).
+
     Each layer's window is a Python int from ``_window_array``: constant
     per layer, so a captured CUDA graph holds it as it holds a shape.
 
@@ -438,13 +490,10 @@ def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
     checkpoints. Serving paths never remat."""
     if paged is not None:
         _require_attention_stack(cfg)
-    if isinstance(parallel, shd.ParallelContext) or (
-            isinstance(parallel, Spmd)
-            and (cache is not None or collect_cache)):
-        raise NotImplementedError(
-            "a ParallelContext runs the loss only: prefill and decode under "
-            "GSPMD parallelism are ROADMAP item 11 (their caches carry "
-            "kv_seq axes)")
+    if isinstance(parallel, shd.ParallelContext):
+        raise TypeError("forward_stack takes a rank's ParallelContext "
+                        "through a layers.Spmd view (Model's methods make "
+                        "it)")
     plan = layer_plan(cfg, stack)
     wins = _window_array(cfg, stack)
     cross = cfg.is_encdec and stack == "dec"
@@ -457,19 +506,33 @@ def forward_stack(params_stack, x, cfg, *, stack="dec", positions=None,
         cfg, plan, x.shape[0] * x.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     collected = {f"s{slot}": [] for slot in range(len(plan))}
+    spmd = isinstance(parallel, Spmd)
+    if spmd and (paged is not None or cache_specs is None):
+        raise ValueError("a ParallelContext's cached stack needs the "
+                         "cache's specs and runs no paged step")
     for period in range(n_periods(cfg, stack)):
         for slot, (mixer, ffn) in enumerate(plan):
             name = f"s{slot}"
             lp = map_tensors(lambda t: t[period], params_stack[name])
             layer_cache = (None if cache is None else
                            map_tensors(lambda t: t[period], cache[name]))
-            x, nc, a = _block(x, lp, cfg, mixer, ffn,
-                              window=wins[period][slot],
-                              positions=positions, cur_pos=cur_pos,
-                              cache=layer_cache, enc_out=enc_out,
-                              cross=cross,
-                              decode_positions=decode_positions, paged=paged,
-                              mean_pads=mean_pads, parallel=parallel)
+            if spmd:
+                x, nc, a = _block_spmd(
+                    x, lp, _strip_layer(parallel.specs[stack][name]), cfg,
+                    mixer, ffn, window=wins[period][slot],
+                    positions=positions, enc_out=enc_out, cross=cross,
+                    sm=parallel, cs=_strip_layer(cache_specs[name]),
+                    cache=layer_cache, cur_pos=cur_pos,
+                    decode_positions=decode_positions, ring_slot=ring_slot)
+            else:
+                x, nc, a = _block(x, lp, cfg, mixer, ffn,
+                                  window=wins[period][slot],
+                                  positions=positions, cur_pos=cur_pos,
+                                  cache=layer_cache, enc_out=enc_out,
+                                  cross=cross,
+                                  decode_positions=decode_positions,
+                                  paged=paged, mean_pads=mean_pads,
+                                  parallel=parallel)
             if a is not None:
                 aux = aux + a
             if collect_cache:
@@ -500,7 +563,7 @@ def _loss_stack(params_stack, x, cfg, plan, wins, cross, stack, positions,
         mixer, ffn = plan[slot]
         lp = map_tensors(lambda t: t[period], params_stack[f"s{slot}"])
         if isinstance(parallel, Spmd):
-            y, a = _block_spmd(
+            y, _, a = _block_spmd(
                 x_, lp, _strip_layer(parallel.specs[stack][f"s{slot}"]),
                 cfg, mixer, ffn, window=wins[period][slot],
                 positions=positions, enc_out=enc_out, cross=cross,

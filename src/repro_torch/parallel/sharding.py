@@ -49,6 +49,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.quantize import map_tensors
+
 
 @dataclasses.dataclass(frozen=True)
 class TPShard:
@@ -196,6 +198,15 @@ class ParallelContext:
         if self.size(key) == 1:
             return None
         return self.groups[key]
+
+    def model_shard(self):
+        """This rank's ``TPShard`` over the ``model`` axis: the manual
+        tensor parallelism of the paged serving path (the planner's
+        slices, KV heads over ``model``), one such group for each
+        coordinate on the data axes, which all run the same step."""
+        return TPShard(axis=self.tp_axis, size=self.tp_size,
+                       rank=self.index(self.tp_axis),
+                       group=self.group(self.tp_axis))
 
 
 def from_mesh(mesh) -> ParallelContext:
@@ -412,6 +423,40 @@ def raw_permute(ctx, x, axis, shift):
     send.wait()
     recv.wait()
     return out.to(x.device)
+
+
+def reshard(x, ctx, src, dst, fn=None, dims=()):
+    """A rank's block ``x`` of a leaf placed by spec ``src`` -> its block
+    under spec ``dst`` (no autograd; the serving caches' layouts). A mesh
+    axis that moves from one dim to another, all else alike, is one
+    all_to_all; otherwise each dim whose placement changes is gathered
+    whole over its axes and the rank's block of ``dst`` is cut from it.
+    ``fn`` maps the leaf so gathered to a new leaf whose ``dims`` may
+    change size (the grown ring buffers): those dims are gathered whole
+    first and cut after."""
+    def entries(spec):
+        return [_axes(spec[i]) if i < len(spec) else () for i in
+                range(x.dim())]
+    se, de = entries(src), entries(dst)
+    if fn is None and se == de:
+        return x
+    moved = [i for i in range(x.dim()) if se[i] != de[i]]
+    if (fn is None and len(moved) == 2 and all(len(se[i]) + len(de[i]) == 1
+                                               for i in moved)):
+        a, b = moved if se[moved[0]] else moved[::-1]
+        if se[a] == de[b] and x.shape[b] % ctx.size(de[b]) == 0:
+            return raw_all_to_all(ctx, x.contiguous(), se[a], b, a)
+    change = sorted(set(moved) | set(dims))
+    for i in change:
+        if se[i]:
+            x = raw_all_gather(ctx, x.contiguous(), se[i], i)
+    if fn is not None:
+        x = fn(x)
+    for i in change:
+        if de[i]:
+            n = x.shape[i] // ctx.size(de[i])
+            x = x.narrow(i, ctx.index(de[i]) * n, n)
+    return x.contiguous()
 
 
 def _split(ctx, axes):
@@ -633,6 +678,10 @@ def _tree_blocks(tree, shardings, ctx, coords):
     if isinstance(tree, dict):
         return {k: _tree_blocks(tree[k], shardings[k], ctx, coords)
                 for k in tree}
+    if not isinstance(tree, torch.Tensor) and hasattr(tree, "dequantize"):
+        if shardings.spec:            # quantized leaves go whole
+            raise ValueError(f"a quantized leaf placed as {shardings.spec}")
+        return map_tensors(lambda t: t.detach().to("cpu").clone(), tree)
     t = torch.as_tensor(tree).detach().to("cpu")
     if tuple(t.shape) != tuple(shardings.shape):
         raise ValueError(f"leaf of shape {tuple(t.shape)} placed as "
@@ -655,11 +704,13 @@ def device_put(tree, shardings, mesh=None):
     return Sharded(mesh, key, shardings)
 
 
-def batch_blocks(ctx, batch):
+def batch_blocks(ctx, batch, strict=True):
     """Each rank's batch rows of a global batch (a dict of numpy arrays or
     tensors, batch-major) as ``per_rank`` arguments of a mesh call, in rank
     order; refused where the batch does not divide over the data-parallel
-    axes (every rank would then see all of it)."""
+    axes (every rank would then see all of it), unless ``strict`` is off:
+    serving then gives every rank the whole batch, as the resolver
+    replicates a ``batch`` dim that does not divide."""
     out = []
     for r in range(ctx.mesh.size):
         coords = ctx.mesh.coords(r)
@@ -667,7 +718,7 @@ def batch_blocks(ctx, batch):
         for k, v in batch.items():
             t = torch.as_tensor(v)
             spec = resolve_spec(("batch",), t.shape[:1], ctx)
-            if ctx.dp_size > 1 and not spec:
+            if strict and ctx.dp_size > 1 and not spec:
                 raise ValueError(f"batch[{k!r}] has {t.shape[0]} rows, "
                                  f"which do not divide over dp = "
                                  f"{ctx.dp_size}")
@@ -683,7 +734,7 @@ def _first_mesh(shardings):
 
 
 def _install_blocks(rctx, tree):
-    return _map(lambda t: t.to(rctx.device), tree)
+    return map_tensors(lambda t: t.to(rctx.device), tree)
 
 
 def _map(fn, tree):

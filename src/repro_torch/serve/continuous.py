@@ -39,8 +39,19 @@ its own pools (KV/tp heads where the head counts divide the mesh), and
 every dispatch runs on every rank with collectives inside the model code
 (``serve/graphs.py:TPDispatch``, eagerly). The scheduler, allocator and
 sampling stay on this process, rank 0: greedy tokens are those of one
-device. ``parallel=`` (the reference's GSPMD ``ParallelContext``) raises
-``NotImplementedError`` (ROADMAP item 11).
+device.
+
+``parallel=`` (a ``ParallelContext`` of a process mesh, ``launch.mesh.
+make_host_mesh``) serves GSPMD-style with the layout the reference's
+constraints recommend for a paged step, q head-sharded over ``model``
+and the pools unconstrained: the weights are partitioned over the
+``model`` axis by the same planner (packed trees keep their codes, so
+kernel A runs on each rank's slice) and replicated over the data axes,
+each rank's pools hold its ``model`` index's KV heads, and every data
+rank runs each whole step (the ranks of one ``model`` index do the same
+work). Dispatches run eagerly, as on a ``mesh=``: gloo's collectives
+cannot be captured, so ``warmup()`` reports 0 graphs. ``mesh=`` with
+``parallel=`` is refused.
 """
 from __future__ import annotations
 
@@ -80,24 +91,27 @@ class ContinuousEngine:
     device: object = None             # None = the card
 
     def __post_init__(self):
-        from .engine import check_mesh, resolve_execution, shard_params
+        from ..models.model import shard_params
+        from .engine import check_mesh, resolve_execution
         check_mesh(self.mesh, self.parallel)
         if not self.model.supports_paged():
             raise ValueError(
                 f"{self.model.cfg.name}: paged serving needs a decoder-only "
                 "attention stack (ssm/xlstm/enc-dec caches are not paged)")
-        if self.mesh is not None and self.device is None:
-            self.device = self.mesh.device
+        host = self.mesh if self.parallel is None else self.parallel.mesh
+        if host is not None and self.device is None:
+            self.device = host.device
         self.device = resolve_device(self.device)
         self.execution, self.params = resolve_execution(
             self.execution, self.params, self.device)
         self.tp_report = {}
         shards = None
-        if self.mesh is not None:
-            # tensor parallelism (DESIGN.md Sec. 10): partition once; this
-            # process keeps rank 0's slices
+        if host is not None:
+            # tensor parallelism (DESIGN.md Sec. 10): partition once (over
+            # the context's model axis under parallel=); this process
+            # keeps rank 0's slices
             shards, self.tp_report = shard_params(
-                self.model, self.params, self.mesh, self.device)
+                self.model, self.params, host, self.device, self.parallel)
             self.params = shards[0]
         self.decode_horizon = int(self.decode_horizon)
         if self.decode_horizon < 1:
@@ -118,7 +132,8 @@ class ContinuousEngine:
             max_seqs=self.max_batch, max_pages_per_seq=mpps,
             prefix_cache=self.prefix_cache, faults=self.faults,
             kv_bits=self.kv_bits, device=self.device,
-            parallel=None if self.mesh is None else self.mesh.shard)
+            parallel=None if host is None else (
+                host.shard if self.parallel is None else host.ctx.par))
         # packed ragged prefill: the bucket ladder is the set of packed
         # token lengths, three powers-of-two steps from prefill_chunk
         # unless prefill_buckets= says otherwise
@@ -137,10 +152,10 @@ class ContinuousEngine:
                                    decode_horizon=self.decode_horizon,
                                    max_waiting=self.max_waiting,
                                    prefill_buckets=self.prefill_buckets)
-        if self.mesh is None:
+        if host is None:
             self.graphs = DispatchGraphs(self)
         else:
-            self._init_tensor_parallel(shards)
+            self._init_tensor_parallel(host, shards)
         self._next_id = 0
         self._seqs: Dict[int, Sequence] = {}
         self._finished: Dict[int, np.ndarray] = {}
@@ -162,18 +177,20 @@ class ContinuousEngine:
         self.last_step_rids: Tuple[int, ...] = ()
         self.last_step_kind: str = ""
 
-    def _init_tensor_parallel(self, shards):
+    def _init_tensor_parallel(self, mesh, shards):
         """Install every rank's slices and pools on the mesh (rank 0's are
         this engine's own) and dispatch through ``TPDispatch``; the fork's
-        pool copy runs on every rank (``PagedKVCache.remote``)."""
-        mesh = self.mesh
+        pool copy runs on every rank (``PagedKVCache.remote``). Under
+        ``parallel=`` each rank steps with its ``ParallelContext``, which
+        the model runs over the ``model`` axis."""
         key = mesh.new_key()
         pool_kw = dict(num_pages=self.num_pages, page_size=self.page_size,
                        kv_bits=self.kv_bits, max_seqs=self.max_batch)
         per_rank = [(shards[0], self.cache.pools)] + [
             (shard, None) for shard in shards[1:]]
         mesh.install(key, tp_install_paged, per_rank, self.model,
-                     self.kv_bits, self.decode_horizon, pool_kw)
+                     self.kv_bits, self.decode_horizon, pool_kw,
+                     self.parallel is not None)
         self.params = mesh.ctx.states[key].params
         self.graphs = TPDispatch(mesh, key)
         self.cache.remote = (

@@ -14,11 +14,11 @@ not. Production traffic goes through ``ContinuousEngine``; both give the
 same greedy tokens in either mode.
 
 Both engines take ``mesh=`` (``launch.mesh.make_tp_mesh``) for tensor
-parallelism (DESIGN.md Sec. 10): ``shard_params`` partitions the weights
-once and cuts each rank's slices; here every rank runs the whole
-``generate`` (prefill, ring decode and sampling, with collectives inside
-the model code) or ``score`` on its shard in one call to the mesh, and
-rank 0's result comes back.
+parallelism (DESIGN.md Sec. 10): ``models.model.shard_params``
+partitions the weights once and cuts each rank's slices; here every rank
+runs the whole ``generate`` (prefill, ring decode and sampling, with
+collectives inside the model code) or ``score`` on its shard in one call
+to the mesh, and rank 0's result comes back.
 """
 from __future__ import annotations
 
@@ -30,39 +30,31 @@ import torch
 
 from ..core.quantize import map_tensors
 from ..device import resolve_device
-from ..parallel.spmd import TPMesh
+from ..models.model import install_slices, shard_params
+from ..parallel import sharding as shd
+from ..parallel.sharding import ParallelContext
+from ..parallel.spmd import ProcessMesh, TPMesh
 
 
 def check_mesh(mesh, parallel):
-    """The engines' refusals: ``parallel=`` (the reference's GSPMD
-    ``ParallelContext``) is ROADMAP item 11; a ``mesh=`` that
-    ``make_tp_mesh`` did not make is a TypeError."""
-    if parallel is not None:
-        raise NotImplementedError(
-            "parallel=: GSPMD parallelism (ParallelContext) is ROADMAP item "
-            "11; tensor-parallel serving takes mesh=")
+    """The engines' refusals, the reference's where it has them: ``mesh=``
+    with ``parallel=`` is a ValueError; a ``mesh=`` that ``make_tp_mesh``
+    did not make, or a ``parallel=`` that is not a controller's
+    ``ParallelContext`` on a process mesh (``launch.mesh.
+    make_host_mesh``; ``parallel.sharding.from_mesh``), is a
+    TypeError."""
+    if mesh is not None and parallel is not None:
+        raise ValueError("pass either mesh= (manual TP) or parallel= "
+                         "(GSPMD), not both")
     if mesh is not None and not isinstance(mesh, TPMesh):
         raise TypeError(f"mesh= takes a mesh of launch.mesh.make_tp_mesh, "
                         f"got {type(mesh).__name__}")
-
-
-def shard_params(model, params, mesh, device):
-    """Partition ``params`` (on ``device``, rank 0's) for ``mesh``
-    (``core.policy.tp_partition_params``) and cut every rank's slices
-    (``tp_shard``): rank 0's stay on ``device``, the others' move to the
-    CPU, to be sent to their ranks. Returns (every rank's slices, the
-    planner's report)."""
-    from ..core.policy import tp_partition_params, tp_shard
-    if mesh.device != device:
-        raise ValueError(f"the engine's device {device} is not rank 0's "
-                         f"{mesh.device}")
-    tree, specs, report = tp_partition_params(params, mesh.size,
-                                              cfg=model.cfg)
-    shards = [tp_shard(tree, specs, 0, mesh.size)]
-    for r in range(1, mesh.size):
-        shards.append(map_tensors(lambda t: t.cpu(),
-                                  tp_shard(tree, specs, r, mesh.size)))
-    return shards, report
+    if parallel is not None and not (
+            isinstance(parallel, ParallelContext) and not parallel.on_rank
+            and isinstance(parallel.mesh, ProcessMesh)):
+        raise TypeError(f"parallel= takes a ParallelContext of a process "
+                        f"mesh (from_mesh(make_host_mesh(...))), got "
+                        f"{type(parallel).__name__}")
 
 
 def resolve_execution(execution, params, device):
@@ -100,7 +92,20 @@ class ServeEngine:
     caches hold a rank's heads when attention's weights shard, tokens are
     those of one device and ``score`` is within float rounding of it;
     ``tp_report`` is the planner's. ``close()`` frees the ranks' state.
-    ``parallel=`` is ROADMAP item 11.
+
+    ``parallel=`` (a ``ParallelContext`` of a process mesh) serves
+    GSPMD-style: the weights are placed once by the resolver
+    (``Model.param_shardings``: dense leaves cut over ``data`` and
+    ``model``, quantized leaves whole on every rank), and every rank runs
+    ``generate`` on its batch rows (the whole batch where it does not
+    divide over the data axes) in one call: the prefill keeps its blocks
+    of the cache (K/V cut by ``kv_seq``), ``_grow_cache`` re-places them
+    as ``max_seq`` rings (``grow_cache_spmd``), and each decode step's
+    attention joins the blocks by the flash-decode combine; sampling
+    reads the whole batch's logits, alike on every rank. ``score`` is
+    ``Model.loss`` on the context (a batch that divides over the data
+    axes). Tokens are those of one device; ``mesh=`` with ``parallel=``
+    is refused.
     """
     model: object
     params: object
@@ -112,14 +117,23 @@ class ServeEngine:
 
     def __post_init__(self):
         check_mesh(self.mesh, self.parallel)
-        if self.mesh is not None and self.device is None:
-            self.device = self.mesh.device
+        host = self.mesh if self.parallel is None else self.parallel.mesh
+        if host is not None and self.device is None:
+            self.device = host.device
         self.device = resolve_device(self.device)
         self.execution, self.params = resolve_execution(
             self.execution, self.params, self.device)
         self.tp_report = {}
         self._key, self._closed = None, False
-        if self.mesh is not None:
+        if self.parallel is not None:
+            # GSPMD: each rank holds its blocks of every dense leaf (the
+            # resolver's) and quantized leaves whole
+            cpu = map_tensors(lambda t: t.detach().to("cpu"), self.params)
+            self.params = shd.device_put(
+                cpu, self.model.param_shardings(self.parallel, cpu),
+                host)
+            self._key = self.params.key
+        elif self.mesh is not None:
             shards, self.tp_report = shard_params(
                 self.model, self.params, self.mesh, self.device)
             self._key = self.mesh.new_key()
@@ -133,7 +147,7 @@ class ServeEngine:
         raise. A no-op without a mesh."""
         if self._key is not None and not self._closed:
             self._closed = True
-            self.mesh.drop(self._key)
+            (self.mesh or self.parallel.mesh).drop(self._key)
 
     def _mesh_key(self):
         if self._closed:
@@ -162,6 +176,15 @@ class ServeEngine:
         On a mesh every rank runs the loop, the workers from ``generator``'s
         state, so every rank draws the same noise."""
         prompts = np.asarray(prompts)
+        if self.parallel is not None:
+            self._mesh_key()
+            ctx = self.parallel
+            state = None if generator is None else generator.get_state()
+            blocks = shd.batch_blocks(ctx, {"tokens": prompts}, strict=False)
+            return ctx.mesh.run(_gspmd_generate, self.model,
+                                shd._plain(self.params), prompts.shape[0],
+                                int(n_tokens), temperature, state,
+                                self.max_seq, per_rank=blocks)
         if self.mesh is None:
             return _generate(self.model, self.params, prompts, n_tokens,
                              temperature, generator, self.max_seq,
@@ -178,6 +201,10 @@ class ServeEngine:
         every rank with each chunk's logits gathered over the vocab
         shards."""
         tokens = np.asarray(tokens)
+        if self.parallel is not None:
+            self._mesh_key()
+            return _score(self.model, self.params, tokens, "cpu",
+                          self.parallel)
         if self.mesh is None:
             return _score(self.model, self.params, tokens, self.device)
         return self.mesh.run(_tp_score, self._mesh_key(), tokens)
@@ -241,12 +268,93 @@ def _score(model, params, tokens, device, parallel=None):
     return float(loss)
 
 
+def grow_cache_spmd(model, cache, ctx, layout, max_seq):
+    """``grow_cache`` of a rank's blocks of a prefill cache (``layout``,
+    a ``models.model.CacheLayout``): every K/V ring and the position
+    table are re-placed for ``max_seq`` entries (a ``kv_seq`` cut of the
+    longer ring gives a rank other positions than the prompt's block
+    did: each ring is gathered along the sequence, grown and cut again),
+    other leaves moved to their specs of the grown layout. Returns (the
+    grown blocks, the grown layout)."""
+    grown = dataclasses.replace(layout, seq=int(max_seq))
+    src = model.cache_specs(ctx, layout)
+    dst = model.cache_specs(ctx, grown)
+    p = layout.seq
+
+    def ring(t, fill, dim):
+        shape = list(t.shape)
+        shape[dim] = max_seq
+        out = torch.full(shape, fill, dtype=t.dtype, device=t.device)
+        out.narrow(dim, 0, p).copy_(t)
+        return out
+
+    def grow(node, s_node, d_node, path=()):
+        if isinstance(node, dict):
+            return {k: grow(v, s_node[k], d_node[k], path + (k,))
+                    for k, v in node.items()}
+        if path[-2:] in (("attn", "k"), ("attn", "v")):
+            return shd.reshard(node, ctx, s_node, d_node,
+                               fn=lambda t: ring(t, 0, 2), dims=(2,))
+        if path == ("pos",):
+            return shd.reshard(node, ctx, s_node, d_node,
+                               fn=lambda t: ring(t, -1, 1), dims=(1,))
+        return shd.reshard(node, ctx, s_node, d_node)
+    return grow(cache, src, dst), grown
+
+
 # -- the functions a ServeEngine's mesh ranks run ---------------------------
 
+def _gspmd_generate(rctx, model, params, gb, n_tokens, temperature, state,
+                    max_seq, batch):
+    """``ServeEngine.generate`` on a rank of a ``ParallelContext``: its
+    rows' prefill, the grown cache, then the decode loop; every rank
+    samples the whole batch from the same logits and noise and feeds its
+    rows back. Returns the (B, n_tokens) tokens."""
+    from ..models.model import _rows
+    ctx, dev = rctx.par, rctx.device
+    prompts = torch.as_tensor(batch["tokens"], dtype=torch.int32,
+                              device=dev)
+    b, p = prompts.shape
+    assert p + n_tokens <= max_seq
+    local = params.local(rctx)
+    spec = shd.resolve_spec(("batch",), (gb,), ctx)
+    generator = None
+    if temperature > 0:
+        generator = torch.Generator(device=dev)
+        if state is None:
+            generator.manual_seed(0)
+        else:
+            generator.set_state(state)
+    with torch.no_grad():
+        logits, cache = model.prefill(local, {"tokens": prompts}, ctx,
+                                      global_batch=gb)
+        cache, layout = grow_cache_spmd(
+            model, cache, ctx, model.cache_layout({"tokens": prompts}, gb),
+            max_seq)
+        cur = torch.full((b,), p, dtype=torch.int32, device=dev)
+        out = []
+        for _ in range(int(n_tokens)):
+            logits = _rows(ctx, logits, gb)
+            if temperature > 0:
+                u = torch.rand(logits.shape, generator=generator, device=dev)
+                tok = torch.argmax(logits / temperature
+                                   - torch.log(-torch.log(u)), dim=-1)
+            else:
+                tok = torch.argmax(logits, dim=-1)
+            tok = tok.to(torch.int32)
+            out.append(tok)
+            mine = shd.local_block(tok, spec, ctx).contiguous()
+            logits, cache = model.decode_step(local, cache, mine[:, None],
+                                              cur, ctx, layout=layout)
+            cur = cur + 1
+    if not out:
+        return np.zeros((gb, 0), np.int32)
+    return torch.stack(out, dim=1).cpu().numpy()
+
+
 def _tp_install_static(ctx, model, max_seq, params):
-    from ..core.policy import tp_localize
-    params = tp_localize(map_tensors(lambda t: t.to(ctx.device), params))
-    return {"model": model, "params": params, "max_seq": max_seq}
+    return {"model": model, "params": install_slices(ctx, params),
+            "max_seq": max_seq}
 
 
 def _tp_generate(ctx, key, prompts, n_tokens, temperature, state,

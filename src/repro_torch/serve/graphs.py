@@ -368,26 +368,30 @@ class TPDispatch:
 
 class TPPagedRank:
     """One rank's state of a ``ContinuousEngine`` on a mesh: the model, the
-    rank's localized weights, its pools, the pools' precision and the
-    decode horizon."""
+    rank's localized weights, its pools, the pools' precision, the decode
+    horizon and the ``parallel=`` its steps take (its ``TPShard``, or its
+    ``ParallelContext`` under GSPMD serving)."""
 
-    def __init__(self, model, params, pools, kv_bits, horizon):
+    def __init__(self, model, params, pools, kv_bits, horizon, parallel):
         self.model, self.params, self.pools = model, params, pools
         self.kv_bits, self.horizon = kv_bits, horizon
+        self.parallel = parallel
 
 
-def tp_install_paged(ctx, model, kv_bits, horizon, pool_kw, params, pools):
+def tp_install_paged(ctx, model, kv_bits, horizon, pool_kw, gspmd, params,
+                     pools):
     """Install function of a ``ContinuousEngine`` (``TPMesh.install``):
     ``params`` the rank's slices (moved to its device, then localized);
     ``pools`` rank 0's own, or None on a worker, which allocates its
-    rank's pools from ``pool_kw``."""
-    from ..core.policy import tp_localize
-    from ..core.quantize import map_tensors
-    params = tp_localize(map_tensors(lambda t: t.to(ctx.device), params))
+    rank's pools from ``pool_kw``; ``gspmd``: the steps take the rank's
+    ``ParallelContext``, else its ``TPShard``."""
+    from ..models.model import install_slices
+    params = install_slices(ctx, params)
+    parallel = ctx.par if gspmd else ctx.tp
     if pools is None:
-        pools = model.init_paged_pools(device=ctx.device, parallel=ctx.tp,
+        pools = model.init_paged_pools(device=ctx.device, parallel=parallel,
                                        **pool_kw)
-    return TPPagedRank(model, params, pools, kv_bits, horizon)
+    return TPPagedRank(model, params, pools, kv_bits, horizon, parallel)
 
 
 def _tp_dispatch(ctx, key, kind, inputs, rows):
@@ -398,7 +402,7 @@ def _tp_dispatch(ctx, key, kind, inputs, rows):
     bt = torch.from_numpy(rows).to(dev)
     outputs, _ = dispatch_forward(st.model, st.params, st.kv_bits,
                                   st.horizon, kind, x, bt, st.pools,
-                                  parallel=ctx.tp)
+                                  parallel=st.parallel)
     return outputs
 
 

@@ -1479,3 +1479,75 @@ def test_gspmd_loss_on_one_card(cuda):
     assert abs(loss / want_loss - 1) <= 1e-4
     for k in ("loss", "grad_norm"):
         assert abs(float(got[k]) / float(want[k]) - 1) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_gspmd_serving_on_one_card(cuda):
+    """internlm2's smoke config, 4b/64 quantized, on a (2, 2) process mesh
+    of four ranks on cuda:0: ``ContinuousEngine(parallel=)`` (kv16, H=4)
+    and ``ServeEngine(parallel=)`` ``generate`` give the tokens of the
+    same engines on one device on the card, and every rank launched A,
+    the unembedding's kernel and B (continuous) or D (static). On the
+    dense tree, which the resolver cuts (ZeRO-3 over data, heads over
+    model), ``ServeEngine(parallel=)`` gives one device's tokens too, each
+    rank launching D once a layer and no other kernel."""
+    import test_torch_gspmd_ranks as ranks
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import ServeEngine
+    cfg = smoke_config("internlm2-1.8b")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    qp, _ = quantize_params(params, QuantPolicy(bits=4, block=64,
+                                                solver="kmeans",
+                                                min_size=1024), device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 8)
+            for n in (5, 12, 9, 16)]
+    prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    kw = dict(max_batch=4, page_size=4, num_pages=64, max_seq=64,
+              prefill_chunk=8, decode_horizon=4)
+
+    def serve(**extra):
+        eng = ContinuousEngine(model, qp, **kw, **extra)
+        for r in reqs:
+            eng.submit(*r)
+        out = eng.run()
+        eng.close()
+        return out
+
+    want = serve(device=cuda)
+    want_static = ServeEngine(model, qp, max_seq=64,
+                              device=cuda).generate(prompts, 8)
+    want_dense = ServeEngine(model, params, max_seq=64,
+                             device=cuda).generate(prompts, 8)
+    mesh = make_host_mesh((2, 2), devices=["cuda:0"] * 4)
+    try:
+        ctx = shd.from_mesh(mesh)
+        mesh.gather(ranks.launches, True)
+        got = serve(parallel=ctx)
+        paged = mesh.gather(ranks.launches, True)
+        eng = ServeEngine(model, qp, max_seq=64, parallel=ctx)
+        got_static = eng.generate(prompts, 8)
+        static = mesh.gather(ranks.launches, True)
+        eng.close()
+        eng = ServeEngine(model, params, max_seq=64, parallel=ctx)
+        mesh.gather(ranks.launches, True)
+        got_dense = eng.generate(prompts, 8)
+        dense_counts = mesh.gather(ranks.launches, True)
+        eng.close()
+    finally:
+        mesh.close()
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    np.testing.assert_array_equal(got_static, want_static)
+    for counts in paged:
+        assert counts["msb_matmul"] > 0 and counts["msb_unembed"] > 0
+        assert counts["paged_attention_decode"] > 0
+    for counts in static:
+        assert counts["msb_matmul"] > 0 and counts["msb_unembed"] > 0
+        assert counts["flash_attention_fwd"] == cfg.n_layers
+    np.testing.assert_array_equal(got_dense, want_dense)
+    for counts in dense_counts:
+        assert counts["flash_attention_fwd"] == cfg.n_layers
+        assert counts["msb_matmul"] == counts["msb_unembed"] == 0

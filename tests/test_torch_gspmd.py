@@ -196,19 +196,41 @@ def test_sharded_loss_matches_reference(arch):
 
 
 def test_cached_steps_refuse_a_parallel_context():
-    """``prefill`` and ``decode_step`` under a ``ParallelContext`` stay
-    ROADMAP item 11 (their caches carry ``kv_seq`` axes)."""
+    """The cached steps under a ``ParallelContext`` (ROADMAP item 11, now
+    served) equal the unsharded ones: ``prefill`` then two
+    ``decode_step``s on (2, 2) from the controller, logits within 1e-5 of
+    their largest and the gathered cache within 1e-5, and a foreign
+    ``parallel=`` object is still refused."""
     _, tc = setup.smoke("internlm2-1.8b")
     tm = TModel(tc)
     params = tm.init(torch.Generator().manual_seed(0), "cpu")
-    ctx, _ = _contexts("2x2")
-    tokens = torch.zeros((2, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.prefill(params, {"tokens": tokens}, parallel=ctx)
-    cache = tm.init_cache(2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.decode_step(params, cache, tokens[:, :1],
-                       torch.zeros(2, dtype=torch.int32), parallel=ctx)
+    mesh = setup.mesh((2, 2))
+    ctx = shd.from_mesh(mesh)
+    placed = shd.device_put(params, tm.param_shardings(ctx), mesh)
+    tokens = torch.from_numpy(setup.batch(tc, 4, 8)["tokens"])
+    with torch.no_grad():
+        want, cache = tm.prefill(params, {"tokens": tokens})
+    got, handle = tm.prefill(placed, {"tokens": tokens}, parallel=ctx)
+    cur = torch.full((4,), 8, dtype=torch.int32)
+    for _ in range(3):
+        fin = torch.isfinite(want)
+        assert (got[fin] - want[fin]).abs().max() <= \
+            1e-5 * want[fin].abs().max()
+        tok = torch.argmax(want, -1).to(torch.int32)[:, None]
+        with torch.no_grad():
+            want, cache = tm.decode_step(params, cache, tok, cur)
+        got, handle = tm.decode_step(placed, handle, tok, cur, parallel=ctx)
+        cur = cur + 1
+    for path, leaf in setup.leaves(shd.gather(handle)):
+        ref = cache
+        for k in path:
+            ref = ref[k]
+        assert (leaf.double() - ref.double()).abs().max() <= \
+            1e-5 * max(ref.double().abs().max(), 1e-30)
+    handle.drop()
+    placed.drop()
+    with pytest.raises(TypeError, match="TPShard or a ParallelContext"):
+        tm.prefill(params, {"tokens": tokens}, parallel=object())
 
 
 def test_sp_holds_the_residual_stream_in_rows():

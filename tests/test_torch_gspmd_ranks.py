@@ -39,9 +39,9 @@ def residual_shapes(rctx, model, key, batch):
     inner = transformer._block_spmd
 
     def record(*args, **kw):
-        x, aux = inner(*args, **kw)
+        x, cache, aux = inner(*args, **kw)
         seen.append((tuple(x.shape), kw["sm"].sp))
-        return x, aux
+        return x, cache, aux
 
     transformer._block_spmd = record
     try:
@@ -68,3 +68,46 @@ def test_one_rank_context_collectives_are_the_identity():
     assert shd.all_to_all(x, ctx, "model", 0, 1) is x
     assert shd.ppermute(x, ctx, "model") is x
     assert shd.pvary(x, ctx, "model") is x
+
+
+def block_shapes(rctx, key):
+    """The shapes of the blocks a rank holds under ``key`` (a cache or
+    pools placed on the mesh), by path."""
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+        else:
+            out[path] = tuple(tree.shape)
+    walk(rctx.states[key], ())
+    return out
+
+
+def kv_seq_combine(rctx, q, k, v, pos, cur):
+    """``decode_attention`` on the rank's block of a ring cut over every
+    mesh axis (row-major), joined by the flash-decode combine."""
+    from repro_torch.models.attention import decode_attention
+    ctx = rctx.par
+    axes = ctx.mesh.axis_names
+    spec = (None, axes)
+    kb = shd.local_block(k, spec, ctx)
+    vb = shd.local_block(v, spec, ctx)
+    pb = shd.local_block(pos, spec, ctx)
+    return decode_attention(q, kb, vb, pb, cur, combine=(ctx, axes))
+
+
+def launches(rctx, zero=False):
+    """The rank's kernel launch counters, then zeroed when ``zero``."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.msb_matmul import ops as mm
+    from repro_torch.kernels.paged_attention import ops as pa
+    fns = {"msb_matmul": mm.msb_matmul, "msb_unembed": mm.msb_unembed,
+           "paged_attention_decode": pa.paged_attention_decode,
+           "flash_attention_fwd": fa.flash_attention_fwd}
+    out = {name: fn.launches for name, fn in fns.items()}
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+    return out

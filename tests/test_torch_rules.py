@@ -117,15 +117,21 @@ def test_cpu_tensors_take_the_plain_versions():
             fa_ops.flash_attention_fwd.launches) == before
 
 
-UNPORTED = {
-    "parallel": (dict(parallel=object()), "item 11"),
+UNPORTED = {  # engine options the engines refuse, with the reference's
+    "parallel": (dict(parallel=object()), TypeError, "ParallelContext"),
+    "mesh+parallel": (dict(mesh=object(), parallel=object()), ValueError,
+                      "not both"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_engine_options_name_their_roadmap_item(name):
-    kwargs, item = UNPORTED[name]
-    with pytest.raises(NotImplementedError, match=item):
+    """Every engine option is served (ROADMAP item 11 closed with GSPMD
+    serving); what is left is refused as the reference refuses it: a
+    ``parallel=`` that is not a ``ParallelContext`` of a process mesh
+    (TypeError), ``mesh=`` with ``parallel=`` (ValueError)."""
+    kwargs, error, match = UNPORTED[name]
+    with pytest.raises(error, match=match):
         ContinuousEngine(_tiny(), {}, device="cpu", **kwargs)
 
 

@@ -188,11 +188,13 @@ def test_temperature_sampling_is_reproducible(engines):
 
 @pytest.mark.parametrize("option", ["mesh", "parallel"])
 def test_tensor_parallel_options_name_item_11(setup, option):
-    """``parallel=`` (GSPMD) is ROADMAP item 11; ``mesh=`` is served, and
-    refuses (TypeError) a mesh that ``make_tp_mesh`` did not make."""
+    """``mesh=`` and ``parallel=`` (GSPMD, ROADMAP item 11) are served;
+    each refuses (TypeError) an object that is not its kind of mesh or
+    context: a mesh ``make_tp_mesh`` did not make, a ``parallel=`` that is
+    not a ``ParallelContext`` of a process mesh."""
     _, tm, _ = setup
     error, match = ((TypeError, "make_tp_mesh") if option == "mesh"
-                    else (NotImplementedError, "item 11"))
+                    else (TypeError, "ParallelContext"))
     with pytest.raises(error, match=match):
         ServeEngine(tm, {}, max_seq=8, device="cpu", **{option: object()})
 

@@ -400,7 +400,7 @@ def test_mesh_refusals(dense):
     _, _, tm, tq = dense
     with pytest.raises(TypeError, match="make_tp_mesh"):
         ContinuousEngine(tm, tq, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="ParallelContext"):
         ContinuousEngine(tm, tq, parallel=object(), device="cpu")
     with pytest.raises(ValueError, match="needs 2 devices"):
         make_tp_mesh(2, devices=["cpu"])
