@@ -24,10 +24,10 @@ one line each (details indented), any failure exits non-zero:
    and 17 bitwise those at 512; the unembedding's kernel
    (``msb_unembed``) at internlm2's (whole, and one rank's half at
    tp = 2) and jamba's k-blocked tables and
-   gemma2's and qwen1.5-0.5b's tied tables at M = 1,
-   8 and 64, with its plain version, ``torch.matmul`` on the
-   pre-dequantized f32 table and its bound; rows at M = 1 and 8
-   bit-identical to the same rows at M = 64
+   gemma2's and qwen1.5-0.5b's tied tables (all of ``UNEMBED_TABLES``)
+   at M = 1, 2, 4, 8 and 64, every row tile, with its plain version,
+   ``torch.matmul`` on the pre-dequantized f32 table and its bound; rows
+   at M < 64 bit-identical to the same rows at M = 64
 4. paged_attention_decode (split-KV) vs its plain version on full-width
    bf16 pools and at a 512-token packed-prefill wave, and with gemma2's
    sliding window (d=256, KV=4, softcap 50, rows to 8192 keys, windows
@@ -182,6 +182,23 @@ one line each (details indented), any failure exits non-zero:
    cuts (ZeRO-3 over data, heads over model): every rank's D once a layer
    at its rows and 8 of 16 heads, the K/V re-cut to ``kv_seq``, the
    weights gathered each decode step, tokens against one device
+19. head_dim — (a) whisper-large-v3 at full width cut to
+   ``HEADDIM["enc_layers"]`` encoder and ``HEADDIM["layers"]`` decoder
+   layers (random weights, seed 0, 4-bit block-64 DP, packed) on a (1, 8)
+   mesh of eight ranks on the one card: 20 KV heads, a 67-entry ring and
+   1500 encoder rows divide 8 ways nowhere, so every K/V cache leaf is
+   cut over ``head_dim`` (8 dims a rank); B=2 prompts of 63 tokens over
+   1500 frames, the cache grown to 67 entries, 4 greedy ``decode_step``s
+   under the context (partial scores summed over the ranks' slices of d,
+   the output's slices gathered): tokens against one device (identical,
+   or the first divergence at a top-2 gap < 1e-2), logits within
+   ``TP_LOGIT_TOL[16]``, each rank's A and D launches exactly one
+   device's (every rank projects and attends whole), ms a decode step
+   and peak GB a rank as checks; (b) a CPU check, not a card one: the
+   dry-run's two test cells run in this process on fake CPU tensors
+   (``launch/dryrun.run_cell``:
+   internlm2-1.8b ``decode_32k --quantized`` and whisper-large-v3
+   ``decode_32k`` on the single-pod mesh), their records printed
 
 Windowed B/C cases (phases 4-5) and D at d=256 and without the causal
 mask (phase 6) also hold every output row within ``ROW_REL_TOL`` of its
@@ -202,7 +219,10 @@ rank's half of the table, B and C kv4 at a rank's heads; D with
 B=4, 256 of 768 rows a rank; phase 18's rows: A, the unembedding, B
 and C kv4 at the tp = 2 shard shapes its model shards run, D at a (2, 2)
 rank's prefill, at the B=1 x 1024 prompt and at a rank's 8 heads of the
-dense tree, with the four ranks' launches); the last line
+dense tree, with the four ranks' launches; phase 19's rows: A at
+whisper's M=2 decode shape, the unembedding's kernel at M=2 on whisper's
+tied table and D at its encoder, with the eight ranks' launches); the
+last line
 is ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
 stream is timed cold (L2 flushed before every launch), as decode meets it.
 Phases 3-6 report the median of 20 launches (the mean beside it) for the
@@ -365,12 +385,13 @@ def phase_msb_matmul(torch, timer, device):
     # its prefill M (the batch's rows): jamba's mamba in/out, attention q,
     # k/v and dense MLP (B=4, 4 x 512); whisper's attention and MLP (B=4,
     # the decoder's 4 x 64, the encoder's 4 x 1500; K=1280 is 20
-    # k-blocks); xlstm's sLSTM w_in and its 768-wide projections (B=8,
+    # k-blocks; phase 19's B=2: 2, 2 x 63 and 2 x 1500); xlstm's sLSTM
+    # w_in and its 768-wide projections (B=8,
     # 8 x 512); internvl's q/o, k/v and MLP (B=2, 2 x 1088)
     cases += [(k, n, False, bf16, (4, 2048)) for k, n in
               ((4096, 8192), (8192, 4096), (4096, 4096), (4096, 1024),
                (4096, 14336), (14336, 4096))]
-    cases += [(k, n, False, bf16, (4, 256, 6000)) for k, n in
+    cases += [(k, n, False, bf16, (2, 4, 126, 256, 3000, 6000)) for k, n in
               ((1280, 1280), (1280, 5120), (5120, 1280))]
     cases += [(k, n, False, bf16, (8, 4096)) for k, n in
               ((768, 3072), (768, 768))]
@@ -459,9 +480,10 @@ UNEMBED_TABLES = [("internlm2", 92672, 2048, True, "float32"),
 
 def phase_msb_unembed(torch, timer, device):
     """The unembedding's kernel against its plain version at the tables
-    the engines serve (``UNEMBED_TABLES``), M = 1, 8 and 64, each within
-    1e-5 of the plain result's largest value; rows at M = 1 and 8
-    bit-identical to the same rows at M = 64. Kernel and library
+    the engines serve (``UNEMBED_TABLES``), M = 1, 2, 4, 8 and 64 (every
+    row tile ``unembed_plan`` takes: 1, 2, 4 and 8), each within 1e-5 of
+    the plain result's largest value; rows at M < 64 bit-identical to the
+    same rows at M = 64. Kernel and library
     (``torch.matmul`` of x against the pre-dequantized f32 table,
     transposed for the tied layout) are medians of 20 cold launches; the
     plain version 2 launches."""
@@ -478,7 +500,7 @@ def phase_msb_unembed(torch, timer, device):
         wt = w if kb else w.t()
         x = torch.randn((64, d), generator=gen, device=device)
         y64 = ops.msb_unembed(x, pq)
-        for m in (1, 8, 64):
+        for m in (1, 2, 4, 8, 64):
             xm = x[:m].contiguous()
             y = ops.msb_unembed(xm, pq)
             y_ref = ref.msb_unembed_ref(xm, pq)
@@ -510,8 +532,8 @@ def phase_msb_unembed(torch, timer, device):
         del packed, scales, pq, w, wt, x, y64
         torch.cuda.empty_cache()
     log(f"[msb_unembed] {len(rows)} shapes agree with the plain version "
-        "(1e-5 of its largest value); rows at M = 1 and 8 bit-identical to "
-        "the same rows at M=64")
+        "(1e-5 of its largest value); rows at M = 1, 2, 4 and 8 "
+        "bit-identical to the same rows at M=64")
     return rows
 
 
@@ -1150,6 +1172,14 @@ def phase_flash_attention(torch, timer, device):
         # and its dense tree's: a (2, 2) rank's 4 rows, 8 of 16 heads
         ("gspmd dense rank B=4 S=256", 4, 8, 4, 256, 256, 128, bf16, True, 0,
          0.0, False),
+        # phase 19's whisper on every (1, 8) rank (whole heads): the
+        # encoder, the decoder's 63-token prompt and its cross-attention
+        ("headdim whisper encoder B=2 S=1500", 2, 20, 20, 1500, 1500, 64,
+         bf16, False, 0, 0.0, False),
+        ("headdim whisper decoder B=2 S=63", 2, 20, 20, 63, 63, 64, bf16,
+         True, 0, 0.0, False),
+        ("headdim whisper cross B=2 Sq=63 Skv=1500", 2, 20, 20, 63, 1500, 64,
+         bf16, False, 0, 0.0, False),
     ]
     rows = []
     for name, b, h, kv, sq, s, d, dt, causal, window, softcap, seg in cases:
@@ -4263,9 +4293,190 @@ def gspmd_dense(torch, device, mesh, ctx, cfg):
     return counts
 
 
+HEADDIM = {"enc_layers": 2, "layers": 2, "batch": 2, "prompt": 63,
+           "max_seq": 67, "new": 4, "mesh": (1, 8)}
+
+
+def rank_headdim_decode(ctx, model, key, gb, max_seq, n, batch):
+    """On a mesh rank: ``Model.prefill`` of its rows of ``batch`` (the
+    whole batch: the data axis is 1), the cache grown to ``max_seq``
+    (``grow_cache_spmd``), then ``n`` greedy ``decode_step``s under the
+    rank's context. Returns (tokens (B, n), the logits each was drawn
+    from on the CPU, ms a decode step, each K/V leaf's block shape)."""
+    import torch
+    from repro_torch.serve.engine import grow_cache_spmd
+    par, dev = ctx.par, ctx.device
+    params = ctx.states[key]
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    logits, cache = model.prefill(params, batch, par, global_batch=gb)
+    cache, layout = grow_cache_spmd(model, cache, par,
+                                    model.cache_layout(batch, gb), max_seq)
+    cur = torch.full((logits.shape[0],), batch["tokens"].shape[1],
+                     dtype=torch.int32, device=dev)
+    toks, seen = [], []
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda _: None
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        seen.append(logits.float())
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok)
+        logits, cache = model.decode_step(params, cache, tok[:, None], cur,
+                                          par, layout=layout)
+        cur = cur + 1
+    sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    blocks = {path: tuple(t.shape) for path, t in _leaves(cache)
+              if path.endswith(("/k", "/v"))}
+    return (torch.stack(toks, 1).cpu().numpy(), [x.cpu() for x in seen], ms,
+            blocks)
+
+
+def phase_headdim(torch, device):
+    """Phase 19: a decode cache cut over ``head_dim`` on the card, and
+    the dry-run. (a) whisper-large-v3 at full width cut to
+    ``HEADDIM["enc_layers"]`` + ``HEADDIM["layers"]`` layers (random
+    weights, seed 0, 4-bit block-64 DP, packed) on a (1, 8) mesh of eight
+    ranks on the one card: neither 20 KV heads, nor the 67-entry ring,
+    nor 1500 encoder rows divide 8 ways, so the self-attention ring and
+    the cross-attention K/V are both cut over ``head_dim``. Prefill of
+    B=2 x 63 tokens over 1500 frames, the cache grown to 67 entries, 4
+    greedy ``decode_step``s: tokens against one device's (identical, or
+    the first divergence at a top-2 gap < 1e-2), the logits each token
+    was drawn from within ``TP_LOGIT_TOL[16]`` up to a divergence, every
+    rank's A and D launches exactly one device's (packed leaves are whole
+    on every rank, and every rank projects and attends whole; the counts
+    zeroed just before each run). Seconds, ms a decode step and peak GB a
+    rank are checks: eight contexts share one card. (b) a CPU check, not
+    a card one: the dry-run's two test cells (which
+    ``tests/test_torch_dryrun.py`` also runs) in this process on fake CPU
+    tensors, no kernel launches: internlm2-1.8b ``decode_32k
+    --quantized`` and whisper-large-v3 ``decode_32k`` on the single-pod
+    mesh; their records printed. Returns the ranks' launches of (a)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as shd
+    t_phase = time.perf_counter()
+    hd = HEADDIM
+    cfg = dataclasses.replace(get_config("whisper-large-v3"),
+                              n_layers=hd["layers"],
+                              n_enc_layers=hd["enc_layers"])
+    model, packed = build_leafwise(torch, cfg, device)
+    b, p, n = hd["batch"], hd["prompt"], hd["new"]
+    batch = frontend_batch(torch, cfg, b, p, device,
+                           torch.Generator(device=device).manual_seed(19))
+    # one device on the card: the reference run and its launches
+    zero_launch_counters()
+    logits, cache, cur = grown_prefill(torch, model, packed, batch,
+                                       hd["max_seq"])
+    one_toks, one_seen = decode_greedy(torch, model, packed, logits, cache,
+                                       cur, n, keep_logits=True)
+    one = read_launch_counters()
+    del logits, cache
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(hd["mesh"], devices=[str(device)] * 8)
+    log(f"[head_dim] (1, 8) mesh of 8 ranks on {device} up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    try:
+        ctx = shd.from_mesh(mesh)
+        layout = model.cache_layout(batch, b)
+        specs = model.cache_specs(ctx, dataclasses.replace(
+            layout, seq=hd["max_seq"]))
+        cut = {path: sp for path, sp in _leaves(specs)
+               if path.endswith(("/k", "/v"))}
+        if not cut or any(sp != (None, None, None, None, "model")
+                          for sp in cut.values()):
+            fail(f"head_dim: the K/V leaves are not cut over head_dim: "
+                 f"{cut}")
+        placed = shd.device_put(packed, model.param_shardings(ctx, packed),
+                                mesh)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        mesh.gather(rank_launches, True)
+        mesh.gather(rank_peak, True)
+        t0 = time.perf_counter()
+        res = mesh.gather(rank_headdim_decode, model, placed.key, b,
+                          hd["max_seq"], n,
+                          per_rank=shd.batch_blocks(ctx, cpu_batch,
+                                                    strict=False))
+        t_run = time.perf_counter() - t0
+        counts = mesh.gather(rank_launches, True)
+        peaks = mesh.gather(rank_peak)
+        placed.drop()
+    finally:
+        mesh.close()
+    for r, (toks, _, _, blocks) in enumerate(res):
+        if not np.array_equal(toks, res[0][0]):
+            fail(f"head_dim: rank {r}'s tokens {toks} differ from rank 0's")
+        if any(shp[-1] != cfg.head_dim_ // 8 for shp in blocks.values()):
+            fail(f"head_dim: rank {r}'s K/V blocks {blocks} do not hold "
+                 f"{cfg.head_dim_ // 8} dims")
+    toks, seen, _, blocks = res[0]
+    want = {k: one[k] for k in ("msb_matmul", "msb_unembed",
+                                "flash_attention_fwd")}
+    for r, c in enumerate(counts):
+        got = {k: c[k] for k in want}
+        if got != want or not all(v > 0 for v in got.values()):
+            fail(f"head_dim: rank {r} launches {got}, one device {want}")
+    split = first_divergences({i: toks[i] for i in range(b)},
+                              {i: one_toks[i] for i in range(b)})
+    for i in range(b):
+        j = split.get(i)
+        upto = n if j is None else j + 1
+        for step in range(upto):
+            a, ref = seen[step][i], one_seen[step][i]
+            fin = torch.isfinite(ref)
+            rel = float((a[fin] - ref[fin]).abs().max()
+                        / ref[fin].abs().max())
+            if not rel <= TP_LOGIT_TOL[16]:
+                fail(f"head_dim: row {i} step {step} logits differ from one "
+                     f"device's by {rel} of their largest")
+        if j is not None:
+            gap = top2_gap(one_seen[j][i])
+            log(f"  row {i}: first divergence at step {j}, top-2 gap "
+                f"{gap:.3g}")
+            if not gap < 1e-2:
+                fail(f"head_dim: row {i} diverges at step {j} from one "
+                     f"device's tokens at a top-2 gap of {gap}")
+    log(f"  (1, 8) whisper-large-v3 ({hd['enc_layers']} + {hd['layers']} "
+        f"layers, packed) B={b} x {p} tokens over {WHISPER_FRAMES} frames, "
+        f"ring {hd['max_seq']}: every K/V leaf (None, None, None, None, "
+        f"'model'), rank 0's blocks {sorted(set(blocks.values()))}; "
+        f"prefill + grow + {n} decode steps {t_run:.2f} s; ms a decode step "
+        f"by rank {[f'{x[2]:.1f}' for x in res]}; peak GB by rank "
+        f"{[f'{x:.3f}' for x in peaks]}; A launches by rank "
+        f"{[c['msb_matmul'] for c in counts]}, D by rank "
+        f"{[c['flash_attention_fwd'] for c in counts]} (one device: A "
+        f"{one['msb_matmul']}, D {one['flash_attention_fwd']}); tokens "
+        f"{'identical' if not split else split}")
+    del packed, model
+    torch.cuda.empty_cache()
+    # (b) the dry-run's two test cells, in this process: a CPU check (fake
+    # CPU tensors, nothing runs on the card)
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, quantized in (("internlm2-1.8b", True),
+                                ("whisper-large-v3", False)):
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, "decode_32k", quantized=quantized,
+                                  out_dir=tmp, verbose=False)
+            mem = rec["memory_analysis"]
+            if not all(isinstance(v, int) for v in mem.values()):
+                fail(f"dry-run {arch}: memory_analysis {mem}")
+            log(f"  dry-run {arch} decode_32k"
+                f"{' --quantized' if quantized else ''} single pod (a CPU "
+                f"check, {time.perf_counter() - t0:.1f} s; the roofline "
+                f"modelled for the H100 SXM5 datasheet, not measured): "
+                f"{json.dumps(rec)}")
+    log(f"[head_dim] ok in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
                 q_counts, s_counts, f_counts, st_counts, grad_row, train,
-                tp_counts, off_rows, gspmd, gs_counts):
+                tp_counts, off_rows, gspmd, gs_counts, hd_counts):
     """The kernel table as the JSON line's rows: each kernel at its main
     path's representative shape (A at decode and at M=4096, and its expert
     batch at granite-moe's and jamba's decode; the unembedding's kernel at
@@ -4304,8 +4515,8 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
     mm_err = max(r["max_abs_err"] for r in mm_rows)
     un_err = max(r["max_abs_err"] for r in un_rows)
 
-    def un_row(table):
-        return next(r for r in un_rows if (r["table"], r["m"]) == (table, 8))
+    def un_row(table, m=8):
+        return next(r for r in un_rows if (r["table"], r["m"]) == (table, m))
 
     plain_pa = [r for r in pa_rows
                 if not r.get("window") and not r.get("tp2")]
@@ -4437,6 +4648,25 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
                     if r["name"] == "gspmd dense rank B=4 S=256"),
                fa_err, src + "flash_attention.cu", d_tpu),
     ]
+    # the head_dim cut (phase 19): the eight ranks' launches. Every rank
+    # runs A at whisper's decode shape (M=2) among others, the
+    # unembedding's kernel at M=2 on whisper's tied table (row tile 2),
+    # and D at the encoder over 1500 frames among others
+    def hd_row(name, kernel, r, err, source=mm_src, replaces=a_tpu):
+        launches = [c[kernel] for c in hd_counts]
+        return dict(row(name, source, replaces, sum(launches), r, err),
+                    launches_by_rank=launches)
+
+    rows += [
+        hd_row("msb_matmul_headdim", "msb_matmul", mm_row(2, 1280, 1280),
+               mm_err),
+        hd_row("msb_unembed_headdim", "msb_unembed", un_row("whisper", 2),
+               un_err),
+        hd_row("flash_attention_fwd_headdim_encoder", "flash_attention_fwd",
+               next(r for r in fa_rows
+                    if r["name"] == "headdim whisper encoder B=2 S=1500"),
+               fa_err, src + "flash_attention.cu", d_tpu),
+    ]
     for r in rows:
         if not r["launches"] > 0:
             fail(f"{r['name']}: no launch on its path")
@@ -4477,10 +4707,11 @@ def main():
     train = phase_train(torch, device)
     gspmd = phase_gspmd(torch, device)
     gs_counts = phase_gspmd_serve(torch, device)
+    hd_counts = phase_headdim(torch, device)
     kernels = kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows,
                           counts, q_counts, s_counts, f_counts, st_counts,
                           grad_row, train, tp_counts, off_rows, gspmd,
-                          gs_counts)
+                          gs_counts, hd_counts)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

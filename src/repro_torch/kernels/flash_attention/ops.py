@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, check_use_kernel
 from .ref import flash_attention_ref, flash_attention_segmented_ref
 
 
@@ -140,3 +140,15 @@ def flash_attention_fwd(q, k, v, q_segs=None, kv_segs=None, *, causal=True,
 
 
 flash_attention_fwd.launches = 0
+
+
+def attention(q, k, v, *, q_segs=None, kv_segs=None, causal=True, window=0,
+              softcap=0.0, scale=None, use_kernel=None):
+    """The reference's dispatcher of kernel D, an alias of
+    ``flash_attention_fwd``: the kernel on a CUDA tensor, its plain
+    versions on a CPU one (``use_kernel`` may only confirm that:
+    ``check_use_kernel``). Pass both ``q_segs`` and ``kv_segs``, or
+    neither (ValueError)."""
+    check_use_kernel(q, use_kernel, "attention")
+    return flash_attention_fwd(q, k, v, q_segs, kv_segs, causal=causal,
+                               window=window, softcap=softcap, scale=scale)

@@ -29,7 +29,8 @@ import torch
 from .. import _build
 from ...core.quantize import (PACK_BLOCK, PACK_LEVELS, PackedQTensor,
                               QTensor, pack_codes_int4, pack_qtensor)
-from .ref import msb_matmul_experts_ref, msb_matmul_ref, msb_unembed_ref
+from .ref import (BLOCK, LEVELS, msb_matmul_experts_ref, msb_matmul_ref,
+                  msb_unembed_ref)
 
 
 def k_splits(k, n):

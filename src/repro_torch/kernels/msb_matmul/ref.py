@@ -6,7 +6,16 @@ from __future__ import annotations
 
 import torch
 
-from ...core.quantize import PACK_BLOCK, PackedQTensor, packed_dequantize
+from ...core.quantize import (PACK_BLOCK, PACK_LEVELS, PackedQTensor,
+                              _unpack_nibbles, packed_dequantize)
+
+BLOCK, LEVELS = PACK_BLOCK, PACK_LEVELS     # the reference's names
+
+
+def unpack_ref(packed, n):
+    """uint8 (K, N/2) -> (level (K, n) int32, sign (K, n) f32)."""
+    level, sign = _unpack_nibbles(packed)
+    return level[:, :n].to(torch.int32), sign[:, :n]
 
 
 def dequant_ref(packed, scales, kblocked=False):

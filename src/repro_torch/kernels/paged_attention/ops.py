@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, check_use_kernel
 from ...core.quantize import KVQuantSpec
 from .ref import paged_attention_decode_quant_ref, paged_attention_decode_ref
 
@@ -239,3 +239,26 @@ def paged_attention_decode_quant(q, k_codes, k_scales, v_codes, v_scales,
 
 
 paged_attention_decode_quant.launches = 0
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, kv_lens, *, softcap=0.0,
+                    scale=None, use_kernel=None):
+    """The reference's dispatcher of kernel B, an alias of
+    ``paged_attention_decode`` (``use_kernel``: ``check_use_kernel``)."""
+    check_use_kernel(q, use_kernel, "paged_attention")
+    return paged_attention_decode(q, k_pool, v_pool, block_tables, kv_lens,
+                                  softcap=softcap, scale=scale)
+
+
+def paged_attention_kv_quant(q, k_codes, k_scales, v_codes, v_scales, k_hot,
+                             v_hot, block_tables, kv_lens, hot_rows, *,
+                             kv_bits, softcap=0.0, scale=None,
+                             use_kernel=None):
+    """The reference's dispatcher of kernel C (fused-dequant decode over
+    MSB-quantized pools, kv_bits 8|4), an alias of
+    ``paged_attention_decode_quant`` and its argument layout
+    (``use_kernel``: ``check_use_kernel``)."""
+    check_use_kernel(q, use_kernel, "paged_attention_kv_quant")
+    return paged_attention_decode_quant(
+        q, k_codes, k_scales, v_codes, v_scales, k_hot, v_hot, block_tables,
+        kv_lens, hot_rows, kv_bits=kv_bits, softcap=softcap, scale=scale)

@@ -12,6 +12,13 @@ Port of ``repro.launch.mesh``:
 
 This process is rank 0 of every mesh; the others are worker processes it
 spawns. Nothing chooses the CPU on its own.
+
+The dry-run's roofline (``launch/roofline.py``) reads the card's rates
+below: NVIDIA H100 SXM5 80GB at 700 W, from NVIDIA's H100 Tensor Core GPU
+datasheet. ``ICI_BW`` keeps the reference's name for its one
+interconnect figure; here it is NVLink 4's, between the cards of one
+host. A mesh across hosts goes over InfiniBand, which is slower (NDR
+400 Gb/s, 50 GB/s a port), and the figure then overstates its rate.
 """
 from __future__ import annotations
 
@@ -94,3 +101,10 @@ def make_production_mesh(*, multi_pod: bool = False) -> ProcessMesh:
         raise ValueError(f"make_production_mesh{shape} needs {n} devices, "
                          f"have {have}")
     return make_host_mesh(shape, axes)
+
+
+# NVIDIA H100 SXM5 80GB (700 W), NVIDIA's H100 datasheet: the roofline's
+# rates for one card
+PEAK_FLOPS_BF16 = 989.4e12      # dense bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12                # HBM3 bytes/s
+ICI_BW = 450e9                  # NVLink 4 bytes/s a direction: 18 x 25 GB/s

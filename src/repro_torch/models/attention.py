@@ -177,7 +177,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 
 def decode_attention(q, k_cache, v_cache, positions, cur_pos, *, window=0,
-                     softcap=0.0, scale=None, combine=None):
+                     softcap=0.0, scale=None, combine=None, dsum=None):
     """Single-token attention against a ring-buffer cache. q: (B, 1, H, d);
     caches (B, S, KV, d); positions (B, S) int32 position of each cache
     entry (-1 = empty); cur_pos (B,). Entry s is visible when ``0 <=
@@ -195,14 +195,27 @@ def decode_attention(q, k_cache, v_cache, positions, cur_pos, *, window=0,
     over the group in rank order. A block with no visible entry gives
     ``p = exp(-2e38 - M) = 0``, never a NaN; where no rank sees one, ``M``
     is the mask value on every rank and each entry weighs 1, as in the
-    reference."""
+    reference.
+
+    ``dsum`` = (a rank's ``ParallelContext``, mesh axes): q and the caches
+    hold this rank's slice of d, cut over those axes (a ``head_dim``
+    cut); the partial scores are summed over the group in rank order
+    before the scale, so every rank weighs the same ``p``, and the
+    output is the rank's slice of d (``scale`` must then be given: the
+    local d is not the head's)."""
+    if dsum is not None and scale is None:
+        raise ValueError("decode_attention: a head_dim cut (dsum) needs the "
+                         "head's scale: the local d is a slice of it")
     b, _, kv, d = k_cache.shape
     h = q.shape[2]
     rep = h // kv
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     f32 = torch.float32
     qh = q.reshape(b, kv, rep, d).to(k_cache.dtype).to(f32)
-    sc = torch.einsum("bkrd,bskd->bkrs", qh, k_cache.to(f32)) * scale
+    sc = torch.einsum("bkrd,bskd->bkrs", qh, k_cache.to(f32))
+    if dsum is not None:
+        sc = shd.raw_psum(dsum[0], sc, dsum[1])
+    sc = sc * scale
     if softcap > 0:
         sc = softcap * torch.tanh(sc / softcap)
     cur = cur_pos.to(positions.dtype)[:, None]

@@ -570,27 +570,32 @@ def spmd_attention_decode(p, ps, h, cfg, sm, cache, cache_spec, cur_pos,
     block of the sequence and the flash-decode combine
     (``decode_attention``'s ``combine``) joins the blocks over the
     ``kv_seq`` axes; a cache cut by heads attends the rank's heads and
-    gathers them. Returns (the block's output, the cache)."""
+    gathers them. A cache cut over ``head_dim`` holds the rank's slice of
+    d: q, k and v are projected and roped whole (RoPE pairs dims across
+    d), then sliced; the partial scores over the slice are summed over
+    the ``head_dim`` axes in rank order before the softcap, the mask and
+    the softmax (``decode_attention``'s ``dsum``), and the rank's slice of
+    the output, weighed from its slice of V, is gathered along d.
+    Returns (the block's output, the cache)."""
     ctx = sm.ctx
     hd = cfg.head_dim_
     spec = tuple(cache_spec) + (None,) * (4 - len(cache_spec))
-    seq_ax, head_ax = shd._axes(spec[1]), shd._axes(spec[2])
-    if spec[3] is not None:
-        raise NotImplementedError(f"a decode cache cut over head_dim "
-                                  f"({cache_spec})")
+    seq_ax, head_ax, dim_ax = (shd._axes(spec[i]) for i in (1, 2, 3))
     w = sm.use_tree(p, ps, dup=True)
     b = h.shape[0]
     softcap = cfg.attn_softcap
     scale = hd ** -0.5 if cfg.query_scale == 0 else cfg.query_scale
     q = dense(h, w["wq"], w.get("bq")).reshape(b, 1, -1, hd)
-    nh = ctx.size(head_ax)
+    nh, nd = ctx.size(head_ax), ctx.size(dim_ax)
     hi = ctx.index(head_ax) if head_ax else 0
+    di = ctx.index(dim_ax) if dim_ax else 0
 
-    def mine(t):                       # the rank's heads of a cache by heads
-        n = t.shape[2] // nh
-        return t[:, :, hi * n:(hi + 1) * n].contiguous()
+    def mine(t):                # the rank's heads and slice of d of a cache
+        n, m = t.shape[2] // nh, t.shape[3] // nd
+        return t[:, :, hi * n:(hi + 1) * n, di * m:(di + 1) * m].contiguous()
 
     combine = (ctx, seq_ax) if seq_ax else None
+    dsum = (ctx, dim_ax) if dim_ax else None
     if cross:
         s_l = cache["k"].shape[1]
         off = (ctx.index(seq_ax) if seq_ax else 0) * s_l
@@ -600,7 +605,8 @@ def spmd_attention_decode(p, ps, h, cfg, sm, cache, cache_spec, cur_pos,
         o = decode_attention(mine(q), cache["k"], cache["v"], tab,
                              torch.full((b,), s - 1, dtype=torch.int32,
                                         device=h.device),
-                             softcap=softcap, scale=scale, combine=combine)
+                             softcap=softcap, scale=scale, combine=combine,
+                             dsum=dsum)
     else:
         k = dense(h, w["wk"], w.get("bk")).reshape(b, 1, -1, hd)
         v = dense(h, w["wv"], w.get("bv")).reshape(b, 1, -1, hd)
@@ -611,7 +617,9 @@ def spmd_attention_decode(p, ps, h, cfg, sm, cache, cache_spec, cur_pos,
         write_ring_block(cache["v"], mine(v), slot, spec, ctx)
         o = decode_attention(mine(q), cache["k"], cache["v"], positions,
                              cur_pos, window=window, softcap=softcap,
-                             scale=scale, combine=combine)
+                             scale=scale, combine=combine, dsum=dsum)
+    if dim_ax:
+        o = shd.raw_all_gather(ctx, o, dim_ax, 3)
     if head_ax:
         o = shd.raw_all_gather(ctx, o, head_ax, 2)
     return dense(o.reshape(b, 1, -1), w["wo"]), cache

@@ -580,6 +580,51 @@ class Model:
             return torch.zeros(shape, dtype=dt, device=dev)
         return build(self.cache_defs(batch, seq_len))
 
+    # -- dry-run input specs -------------------------------------------------
+    def input_specs(self, shape):
+        """Shape stand-ins (``torch.empty(..., device="meta")``) and
+        logical axes of every entry point's arguments at ``shape`` (a
+        ``configs.ShapeConfig``), leaf for leaf the reference's: for
+        train and prefill the batch ("tokens", with "labels" to train,
+        internvl's "patch_embeds" before S - P tokens, whisper's
+        "frames"), for decode {"cache", "tokens" (B, 1), "cur_pos" (B,)}
+        with the cache of ``cache_defs(B, S)`` (whisper's cross-attention
+        K/V S rows long, as the reference's). Returns (specs, axes)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32, dt = torch.int32, cfg.dtype
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            batch, axes = {}, {}
+            n_tok = s
+            if cfg.frontend == "vision":
+                p = cfg.n_frontend_tokens
+                n_tok = s - p
+                batch["patch_embeds"] = meta((b, p, cfg.d_model), dt)
+                axes["patch_embeds"] = ("batch", None, None)
+            elif cfg.is_encdec:
+                batch["frames"] = meta((b, s, cfg.d_model), dt)
+                axes["frames"] = ("batch", None, None)
+            batch["tokens"] = meta((b, n_tok), i32)
+            axes["tokens"] = ("batch", None)
+            if shape.kind == "train":
+                batch["labels"] = meta((b, s), i32)
+                axes["labels"] = ("batch", None)
+            return batch, axes
+
+        def build(d):
+            if isinstance(d, dict):
+                return {k: build(v) for k, v in d.items()}
+            return meta(*d)
+        return ({"cache": build(self.cache_defs(b, s)),
+                 "tokens": meta((b, 1), i32),
+                 "cur_pos": meta((b,), i32)},
+                {"cache": self.cache_axes(), "tokens": ("batch", None),
+                 "cur_pos": ("batch",)})
+
     # -- paged serving -------------------------------------------------------
     def place_paged(self, params, ctx):
         """The paged steps' params on ``ctx``'s process mesh, placed as

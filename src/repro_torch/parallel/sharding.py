@@ -191,9 +191,9 @@ class ParallelContext:
         return idx
 
     def group(self, axes):
-        """The gloo group of this rank's ranks along ``axes``, or None
-        when there is only this rank. Members are ordered row-major over
-        the axes in mesh order."""
+        """The group (``GlooGroup``) of this rank's ranks along ``axes``,
+        or None when there is only this rank. Members are ordered
+        row-major over the axes in mesh order."""
         key = self._mesh_order(axes)
         if self.size(key) == 1:
             return None
@@ -319,16 +319,75 @@ def constraint(x, axes, ctx: Optional[ParallelContext], shape=None):
 # collectives on a rank's context (raw, then with their transposes)
 # ---------------------------------------------------------------------------
 
+class GlooGroup:
+    """The collectives of one gloo process group ``pg`` (its members in
+    group order), staged through the host; each returns on ``x``'s device
+    and gives the same bits on every rank. ``launch/dryrun.py``'s
+    ``RecordingGroup`` has the same methods."""
+
+    def __init__(self, pg):
+        self.pg = pg
+
+    def size(self):
+        return self.pg.size()
+
+    def _parts(self, x):
+        """Every rank's ``x`` as host tensors, in group order."""
+        h = _host(x)
+        parts = [torch.empty_like(h) for _ in range(self.size())]
+        self.pg.allgather([parts], [h]).wait()
+        return parts
+
+    def _exchange(self, chunks):
+        """alltoall of equal host chunks: chunk j to rank j; returns what
+        every rank sent this one, in rank order."""
+        inp = torch.cat([c.reshape(-1) for c in chunks])
+        out = torch.empty_like(inp)
+        self.pg.alltoall_base(out, inp, [], []).wait()
+        return [o.reshape(chunks[0].shape)
+                for o in torch.chunk(out, len(chunks))]
+
+    def all_gather(self, x, dim):
+        """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+        return torch.cat([p.to(x.device) for p in self._parts(x)], dim=dim)
+
+    def psum(self, x):
+        """The sum of the ranks' ``x``, added in rank order."""
+        return _fold(torch.add, self._parts(x), x.device)
+
+    def pmax(self, x):
+        return _fold(torch.maximum, self._parts(x), x.device)
+
+    def reduce_scatter(self, x, dim):
+        """The sum of the rank's chunk of ``dim``: every rank's partial of
+        that chunk (an alltoall, 1/n of ``x`` a peer), added in rank
+        order: the bits of the psum's chunk."""
+        chunks = [_host(c) for c in torch.chunk(x, self.size(), dim=dim)]
+        return _fold(torch.add, self._exchange(chunks), x.device)
+
+    def all_to_all(self, x, split_dim, concat_dim):
+        """``split_dim`` cut into one chunk a rank, chunk j sent to rank
+        j, the chunks received concatenated along ``concat_dim``."""
+        chunks = [_host(c) for c in torch.chunk(x, self.size(),
+                                                dim=split_dim)]
+        return torch.cat([r.to(x.device) for r in self._exchange(chunks)],
+                         dim=concat_dim)
+
+    def permute(self, x, shift):
+        """Send ``x`` to the rank ``shift`` places on, return what the
+        rank ``shift`` places back sent."""
+        n, i = self.size(), self.pg.rank()
+        h = _host(x)
+        out = torch.empty_like(h)
+        send = self.pg.send([h], (i + shift) % n, 0)
+        recv = self.pg.recv([out], (i - shift) % n, 0)
+        send.wait()
+        recv.wait()
+        return out.to(x.device)
+
+
 def _host(x):
     return x.detach().to("cpu").contiguous()
-
-
-def _gather_parts(group, x):
-    """Every rank's ``x`` in ``group`` as host tensors, in group order."""
-    h = _host(x)
-    parts = [torch.empty_like(h) for _ in range(group.size())]
-    group.allgather([parts], [h]).wait()
-    return parts
 
 
 def _fold(fn, parts, device):
@@ -342,18 +401,13 @@ def _fold(fn, parts, device):
 def group_all_gather(group, x, dim):
     """The ranks' ``x`` in ``group`` (None: this rank alone) concatenated
     along ``dim`` in rank order, on ``x``'s device."""
-    if group is None:
-        return x
-    return torch.cat([p.to(x.device) for p in _gather_parts(group, x)],
-                     dim=dim)
+    return x if group is None else group.all_gather(x, dim)
 
 
 def group_psum(group, x):
     """The sum of the ranks' ``x`` in ``group``, in rank order on ``x``'s
     device: the same bits on every rank."""
-    if group is None:
-        return x
-    return _fold(torch.add, _gather_parts(group, x), x.device)
+    return x if group is None else group.psum(x)
 
 
 def raw_all_gather(ctx, x, axes, dim):
@@ -366,9 +420,7 @@ def raw_psum(ctx, x, axes):
 
 def raw_pmax(ctx, x, axes):
     group = ctx.group(axes)
-    if group is None:
-        return x
-    return _fold(torch.maximum, _gather_parts(group, x), x.device)
+    return x if group is None else group.pmax(x)
 
 
 def _my_chunk(ctx, x, axes, dim):
@@ -376,53 +428,24 @@ def _my_chunk(ctx, x, axes, dim):
     return x.narrow(dim, ctx.index(ctx._mesh_order(axes)) * n, n)
 
 
-def _exchange(group, chunks):
-    """alltoall of equal host chunks: chunk j to rank j; returns what
-    every rank sent this one, in rank order."""
-    inp = torch.cat([c.reshape(-1) for c in chunks])
-    out = torch.empty_like(inp)
-    group.alltoall_base(out, inp, [], []).wait()
-    return [o.reshape(chunks[0].shape)
-            for o in torch.chunk(out, len(chunks))]
-
-
 def raw_reduce_scatter(ctx, x, axes, dim):
-    """The sum over ``axes`` of the rank's chunk of ``dim``: every rank's
-    partial of that chunk (an alltoall, 1/n of ``x`` a peer), added in
-    rank order on ``x``'s device: the bits of the psum's chunk."""
+    """The sum over ``axes`` of the rank's chunk of ``dim``."""
     group = ctx.group(axes)
-    if group is None:
-        return x
-    chunks = [_host(c) for c in torch.chunk(x, group.size(), dim=dim)]
-    return _fold(torch.add, _exchange(group, chunks), x.device)
+    return x if group is None else group.reduce_scatter(x, dim)
 
 
 def raw_all_to_all(ctx, x, axes, split_dim, concat_dim):
-    """Tiled all_to_all: ``x``'s ``split_dim`` cut into one chunk a rank,
-    chunk j sent to rank j, the chunks received concatenated along
-    ``concat_dim`` in rank order."""
+    """Tiled all_to_all over ``axes`` (``GlooGroup.all_to_all``)."""
     group = ctx.group(axes)
-    if group is None:
-        return x
-    chunks = [_host(c) for c in torch.chunk(x, group.size(), dim=split_dim)]
-    return torch.cat([r.to(x.device) for r in _exchange(group, chunks)],
-                     dim=concat_dim)
+    return (x if group is None
+            else group.all_to_all(x, split_dim, concat_dim))
 
 
 def raw_permute(ctx, x, axis, shift):
     """Ring shift along ``axis``: send ``x`` to the rank ``shift`` places
     on, return what the rank ``shift`` places back sent."""
     group = ctx.group(axis)
-    if group is None:
-        return x
-    n, i = group.size(), ctx.index(axis)
-    h = _host(x)
-    out = torch.empty_like(h)
-    send = group.send([h], (i + shift) % n, 0)
-    recv = group.recv([out], (i - shift) % n, 0)
-    send.wait()
-    recv.wait()
-    return out.to(x.device)
+    return x if group is None else group.permute(x, shift)
 
 
 def reshard(x, ctx, src, dst, fn=None, dims=()):

@@ -50,8 +50,8 @@ import weakref
 
 import torch
 
-from .sharding import (MeshShape, TPShard, from_mesh, make_groups,
-                       mesh_coords)
+from .sharding import (GlooGroup, MeshShape, TPShard, from_mesh,
+                       make_groups, mesh_coords)
 
 
 # seconds any collective, and rank 0's wait for a worker's reply, may take
@@ -70,7 +70,7 @@ def _gloo(store, rank, size):
     opts._timeout = datetime.timedelta(seconds=TIMEOUT_S)
     opts._devices = [dist.ProcessGroupGloo.create_device(
         hostname="127.0.0.1")]
-    return dist.ProcessGroupGloo(store, rank, size, opts)
+    return GlooGroup(dist.ProcessGroupGloo(store, rank, size, opts))
 
 
 def join_mesh(store_path, rank, size, mesh_shape, device):

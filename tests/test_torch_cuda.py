@@ -151,16 +151,17 @@ UNEMBED_TABLES = {  # name: (V, D, kblocked, table dtype)
 def test_unembed_kernel_matches_plain_and_rows_do_not_depend_on_m(cuda,
                                                                   name):
     """The unembedding's kernel against its plain version (1e-5 of the
-    largest logit: f32 products summed in another order) at M = 1, 3, 8,
-    17 and 64, both layouts, the tied one with f32 and bf16 codebooks;
-    every row bit-identical to the same row at M=64."""
+    largest logit: f32 products summed in another order) at M = 1, 2, 3,
+    4, 8, 17 and 64 (every row tile: 1, 2, 4, 8), both layouts, the tied
+    one with f32 and bf16 codebooks; every row bit-identical to the same
+    row at M=64."""
     v, d, kb, dtype = UNEMBED_TABLES[name]
     rng = np.random.default_rng(v)
     pq = _unembed_table(rng, v, d, kb, dtype, cuda)
     x = torch.from_numpy(rng.standard_normal((64, d)).astype(
         np.float32)).to(cuda)
     full = mm_ops.msb_unembed(x, pq)
-    for m in (1, 3, 8, 17, 64):
+    for m in (1, 2, 3, 4, 8, 17, 64):
         before = mm_ops.msb_unembed.launches
         y = mm_ops.msb_unembed(x[:m], pq)
         assert mm_ops.msb_unembed.launches == before + 1
@@ -603,6 +604,50 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     qt = q.transpose(1, 2).contiguous().transpose(1, 2)
     out2 = fa_ops.flash_attention_fwd(qt, k, v, **kw)
     assert torch.equal(out2, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [None, True])
+def test_public_dispatchers_launch_the_kernels(cuda, use_kernel):
+    """The reference's dispatchers on CUDA tensors: ``paged_attention``
+    launches B, ``paged_attention_kv_quant`` C, ``attention`` D, one
+    launch each, bitwise the direct calls; ``use_kernel=False`` raises
+    ValueError and launches nothing (no plain version on the card)."""
+    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_kv_quant)
+    rng = np.random.default_rng(26)
+    dt = torch.bfloat16
+    q, kp, vp, bt, lens = _kv16_case(rng, dt, [1, 40, 0, 130], cuda)
+    cases = []
+    cases.append((pa_ops.paged_attention_decode,
+                  lambda **f: paged_attention(q, kp, vp, bt, lens, **f),
+                  lambda: pa_ops.paged_attention_decode(q, kp, vp, bt,
+                                                        lens)))
+    for bits in (8, 4):
+        args, _ = _quant_case(rng, bits, dt, [1, 40, 0, 130], cuda)
+        cases.append((
+            pa_ops.paged_attention_decode_quant,
+            lambda args=args, bits=bits, **f: paged_attention_kv_quant(
+                *args, kv_bits=bits, **f),
+            lambda args=args, bits=bits: pa_ops.paged_attention_decode_quant(
+                *args, kv_bits=bits)))
+    fq, fk, fv = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device=cuda, dtype=dt)
+        for shape in ((2, 8, 96, 64), (2, 2, 96, 64), (2, 2, 96, 64)))
+    cases.append((fa_ops.flash_attention_fwd,
+                  lambda **f: attention(fq, fk, fv, window=17, **f),
+                  lambda: fa_ops.flash_attention_fwd(fq, fk, fv,
+                                                     window=17)))
+    for wrapper, public, direct in cases:
+        before = wrapper.launches
+        out = public(use_kernel=use_kernel)
+        assert wrapper.launches == before + 1
+        assert torch.equal(out, direct())
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="use_kernel=False"):
+            public(use_kernel=False)
+        assert wrapper.launches == before
 
 
 @pytest.mark.cuda

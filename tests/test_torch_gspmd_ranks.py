@@ -111,3 +111,17 @@ def launches(rctx, zero=False):
         for fn in fns.values():
             fn.launches = 0
     return out
+
+
+def head_dim_split(rctx, q, k, v, pos, cur, kw):
+    """``decode_attention`` on the rank's slice of d of q, k and v (cut
+    over every mesh axis, row-major), the partial scores summed over
+    them (``dsum``), the rank's slice of the output gathered along d."""
+    from repro_torch.models.attention import decode_attention
+    ctx = rctx.par
+    axes = ctx.mesh.axis_names
+    spec = (None, None, None, axes)
+    o = decode_attention(*(shd.local_block(t, spec, ctx)
+                           for t in (q, k, v)), pos, cur,
+                         dsum=(ctx, axes), **kw)
+    return shd.raw_all_gather(ctx, o, axes, 3)

@@ -56,12 +56,28 @@ def test_port_imports_with_jax_blocked():
             "None\nimport repro_torch.serve, repro_torch.convert, "
             "repro_torch.core, repro_torch.kernels._build, "
             "repro_torch.train, repro_torch.data, "
-            "repro_torch.launch.train\nprint('ok')")
+            "repro_torch.launch.train, repro_torch.launch.dryrun\n"
+            "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"}, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_no_call_site_passes_use_kernel_false():
+    """The port's dispatchers raise on ``use_kernel=False`` with a CUDA
+    tensor (the device decides), which the CPU tests cannot see: so no
+    call site of the package passes it."""
+    bad = []
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Call) and any(
+                    kw.arg == "use_kernel" and isinstance(
+                        kw.value, ast.Constant) and kw.value.value is False
+                    for kw in node.keywords):
+                bad.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+    assert not bad, bad
 
 
 def _tiny():
