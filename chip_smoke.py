@@ -199,6 +199,22 @@ one line each (details indented), any failure exits non-zero:
    (``launch/dryrun.run_cell``:
    internlm2-1.8b ``decode_32k --quantized`` and whisper-large-v3
    ``decode_32k`` on the single-pod mesh), their records printed
+20. programs — the five programs of ``examples_torch`` on the card, each
+   loaded by path and called as ``main([..., "--device", "cuda"])`` with
+   the launch counters zeroed just before it: ``serve_api --self-check``
+   and ``--self-check --chaos`` (crashes at step and apply, OOM at alloc,
+   through captured graphs; the device memory in use may not grow by
+   more than one incarnation's graph pool), ``train_quantize_serve
+   --preset 100m --steps 40`` and its relaunch with ``--steps 50`` on
+   the same directory (resumed from step 25, finite losses that fall,
+   D exactly twice a layer a step and once a layer in each held-out NLL
+   and the serve's prefill; step ms, tok/s, peak GB), ``serve_quantized``
+   (continuous against static tokens up to near ties),
+   ``distributed_quantize`` (eight ranks on the card, 0 collectives, each
+   rank bitwise the single-device solve of its shard) and ``quickstart``
+   on a (128, 2048) weight (DP's MSE at or below every other 4b/64 row);
+   meanwhile ``serve_api.py --port`` runs as a process of its own:
+   ``/healthz`` from warming to ok, one request answered, SIGTERM, exit 0
 
 Windowed B/C cases (phases 4-5) and D at d=256 and without the causal
 mask (phase 6) also hold every output row within ``ROW_REL_TOL`` of its
@@ -221,8 +237,11 @@ and C kv4 at the tp = 2 shard shapes its model shards run, D at a (2, 2)
 rank's prefill, at the B=1 x 1024 prompt and at a rank's 8 heads of the
 dense tree, with the four ranks' launches; phase 19's rows: A at
 whisper's M=2 decode shape, the unembedding's kernel at M=2 on whisper's
-tied table and D at its encoder, with the eight ranks' launches); the
-last line
+tied table and D at its encoder, with the eight ranks' launches; phase
+20's rows: A at the 100m preset's gate/up projection and the
+unembedding's kernel on its tied f32 table at M=4, D with its lse at its
+train shape, B at serve_api's page size 4 and serve_quantized's 8,
+each with its kernel's launches in every program); the last line
 is ``{"ok": true, "device": {...}}``. Times come from CUDA events; a weight
 stream is timed cold (L2 flushed before every launch), as decode meets it.
 Phases 3-6 report the median of 20 launches (the mean beside it) for the
@@ -401,7 +420,11 @@ def phase_msb_matmul(torch, timer, device):
     # (phase 16): k/v N 512, attention wo K 1024, gate/up N 4096, the MLP's
     # wo K 4096 (q's 2048 x 1024 is above), decode, packed-prefill M
     cases += [(k, n, False, bf16, TP2_M) for k, n in TP2_SHAPES[1:]]
-    biased = {(2048, 1024, 8), (1024, 1024, 8)}
+    # phase 20's 100m preset (qwen-style, d=768): q/k/v/o (q, k, v with
+    # their bias), gate/up, down at its serve's decode M (4 prompts) and
+    # prefill M (4 x 16)
+    cases += [(k, n, False, bf16, E2E_M) for k, n in E2E_SHAPES]
+    biased = {(2048, 1024, 8), (1024, 1024, 8), (768, 768, 4)}
     rows, worst = [], 0.0
     for k, n, kb, xdt, ms_ in cases:
         packed, scales = rand_packed(torch, gen, k, n, kb, device)
@@ -463,11 +486,16 @@ def phase_msb_matmul(torch, timer, device):
 TP2_SHAPES = [(2048, 1024), (2048, 512), (1024, 2048), (2048, 4096),
               (4096, 2048)]
 TP2_M = (1, 8, 512)
+# the 100m preset's projections (K, N): attention, gate/up, down; the M
+# its serve runs them at
+E2E_SHAPES = [(768, 768), (768, 2048), (2048, 768)]
+E2E_M = (4, 64)
 
 # the unembedding's tables: (name, V, D, k-blocked, table dtype) —
 # internlm2-1.8b's, jamba-v0.1-52b's and internvl2-76b's untied tables,
 # gemma2-2b's, qwen1.5-0.5b's, xlstm-125m's and whisper-large-v3's tied
-# ones, and one rank's half of internlm2's at tp = 2 (92672 / 2 columns)
+# ones, one rank's half of internlm2's at tp = 2 (92672 / 2 columns), and
+# the tied f32 table of phase 20's 100m preset
 UNEMBED_TABLES = [("internlm2", 92672, 2048, True, "float32"),
                   ("internlm2_tp2", 46336, 2048, True, "float32"),
                   ("jamba", 65536, 4096, True, "float32"),
@@ -475,7 +503,8 @@ UNEMBED_TABLES = [("internlm2", 92672, 2048, True, "float32"),
                   ("gemma2", 256000, 2304, False, "bfloat16"),
                   ("qwen", 151936, 1024, False, "bfloat16"),
                   ("xlstm", 50432, 768, False, "bfloat16"),
-                  ("whisper", 51968, 1280, False, "bfloat16")]
+                  ("whisper", 51968, 1280, False, "bfloat16"),
+                  ("e2e_100m", 32000, 768, False, "float32")]
 
 
 def phase_msb_unembed(torch, timer, device):
@@ -672,39 +701,49 @@ def expert_shape_cases(torch, timer, device, gen, model, e, n_real, topk,
 
 
 def kv16_pools(torch, gen, lens, device, h=16, kv=8, d=128, ps=16,
-               width=None):
-    """Random bf16 pools, block tables ``width`` pages wide (default: the
-    longest row's), each row on its own pages, and bf16 queries."""
+               width=None, dtype=None):
+    """Random pools (bf16 unless ``dtype``), block tables ``width`` pages
+    wide (default: the longest row's), each row on its own pages, and
+    queries of the same dtype."""
+    dtype = dtype or torch.bfloat16
     b = len(lens)
     width = width or max(1, -(-max(lens) // ps))
     n_pages = 1 + b * width
     k_pool = torch.randn((n_pages, ps, kv, d), generator=gen,
-                         device=device).to(torch.bfloat16)
+                         device=device).to(dtype)
     v_pool = torch.randn((n_pages, ps, kv, d), generator=gen,
-                         device=device).to(torch.bfloat16)
+                         device=device).to(dtype)
     perm = torch.randperm(n_pages - 1, generator=gen, device=device) + 1
     bt = perm[:b * width].reshape(b, width).to(torch.int32)
     kv_lens = torch.tensor(lens, dtype=torch.int32, device=device)
-    q = torch.randn((b, h, d), generator=gen, device=device).to(torch.bfloat16)
+    q = torch.randn((b, h, d), generator=gen, device=device).to(dtype)
     return q, k_pool, v_pool, bt, kv_lens
 
 
 def phase_paged_attention(torch, timer, device):
     """Kernel B against its plain version on full-width bf16 pools (one
-    row of 2048 keys; the decode shape, rows of 0-2048 keys), every row
-    bit-identical alone and in the batch, then the 512-token packed-prefill
-    wave kv16 prefill launches. Kernel and SDPA: medians of 20."""
+    row of 2048 keys; the decode shape, rows of 0-2048 keys), at one tp = 2
+    rank's heads and on the f32 pools of phase 20's smoke engines (page
+    sizes 4 and 8, d=16), every row bit-identical alone and in the batch,
+    then the 512-token packed-prefill wave kv16 prefill launches. Kernel
+    and SDPA: medians of 20."""
     from repro_torch.kernels.paged_attention import ops, ref
     gen = torch.Generator(device=device).manual_seed(2)
-    d, ps = 128, 16
     decode = [0, 1, 17, 100, 513, 1000, 1999, 2048]
+    bf16, f32 = torch.bfloat16, torch.float32
     rows = []
-    # (heads, KV heads, lens): the decode shape, and one rank's heads at
-    # tp = 2 (phase 16)
-    for h, kv, lens in ((16, 8, [2048]), (16, 8, decode), (8, 4, decode)):
+    # (heads, KV heads, head_dim, page size, dtype, lens): the decode
+    # shape, one rank's heads at tp = 2 (phase 16), and phase 20's
+    # serve_api engine (smoke internlm2, f32, page size 4, max_seq 128)
+    # and serve_quantized's (smoke gemma2, page size 8, max_seq 40)
+    for h, kv, d, ps, dt, lens in (
+            (16, 8, 128, 16, bf16, [2048]), (16, 8, 128, 16, bf16, decode),
+            (8, 4, 128, 16, bf16, decode),
+            (4, 2, 16, 4, f32, [0, 1, 5, 17, 33, 64, 100, 128]),
+            (4, 2, 16, 8, f32, [1, 9, 12, 20, 36, 40])):
         b = len(lens)
-        q, k_pool, v_pool, bt, kv_lens = kv16_pools(torch, gen, lens, device,
-                                                    h=h, kv=kv)
+        q, k_pool, v_pool, bt, kv_lens = kv16_pools(
+            torch, gen, lens, device, h=h, kv=kv, d=d, ps=ps, dtype=dt)
         for softcap in (0.0, 30.0):
             out = ops.paged_attention_decode(q, k_pool, v_pool, bt, kv_lens,
                                              softcap=softcap)
@@ -744,13 +783,15 @@ def phase_paged_attention(torch, timer, device):
             q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
         del kg, vg
         tokens = sum(lens)
-        nbytes = (2 * tokens * kv * d * 2 + q.numel() * 2 * 2
+        el = q.element_size()
+        nbytes = (2 * tokens * kv * d * el + q.numel() * 2 * el
                   + sum(-(-n // ps) for n in lens) * 4 + b * 4)
-        b_ms, b_by = bound(nbytes, 4.0 * tokens * h * d, "bfloat16")
-        row = dict(shape=f"B={b} H={h} KV={kv} d={d} ps={ps} bf16 "
-                   f"kv_lens={lens}", max_abs_err=err, ms=ms,
+        b_ms, b_by = bound(nbytes, 4.0 * tokens * h * d, str(dt)[6:])
+        row = dict(shape=f"B={b} H={h} KV={kv} d={d} ps={ps} "
+                   f"{str(dt)[6:]} kv_lens={lens}", max_abs_err=err, ms=ms,
                    plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                   bound_by=b_by, tp2=kv == 4)
+                   bound_by=b_by, tp2=(h, kv) == (8, 4), ps4=ps == 4,
+                   ps8=ps == 8)
         rows.append(row)
         log(f"  paged_attention {row['shape']}: err {err:.3g} kernel "
             f"{ms:.4f} ms median of 20 (mean {ms_mean:.4f}) | plain "
@@ -761,7 +802,7 @@ def phase_paged_attention(torch, timer, device):
     q, k_pool, v_pool, bt, _ = kv16_pools(torch, gen, [128, 384, 256],
                                           device, width=64)
     packed_prefill_case(torch, timer, device, gen, ops, ref, 16,
-                        (k_pool, v_pool), bt, ps)
+                        (k_pool, v_pool), bt, 16)
     del q, k_pool, v_pool
     rows += window_cases(torch, timer, device, gen, 16)
     log(f"[paged_attention] {len(rows)} cases agree with the plain version "
@@ -1375,7 +1416,11 @@ GRAD_CASES = [  # name, B, H, KV, Sq, Skv, d, causal, window, softcap
      0.0),
     ("whisper cross B=2 Sq=64 Skv=1500", 2, 20, 20, 64, 1500, 64, False, 0,
      0.0),
+    # phase 20's 100m preset (qwen-style, 12 heads of 64, bf16)
+    ("e2e 100m train B=32 S=1024", 32, 12, 12, 1024, 1024, 64, True, 0, 0.0),
 ]
+# the cases timed (D+lse, the backward, SDPA): the train shapes
+TIMED_GRAD = ("internlm2 train B=2 S=4096", "e2e 100m train B=32 S=1024")
 
 
 def phase_flash_grad(torch, timer, device):
@@ -1384,17 +1429,18 @@ def phase_flash_grad(torch, timer, device):
     ``flash_attention_bwd`` backward) against autograd through the plain
     version on the same bf16 inputs on the card, at internlm2's train
     shape, gemma2's windowed softcapped d=256 prefill and whisper's
-    encoder and cross-attention: dq/dk/dv within 2e-2 of each tensor's
-    largest |value|, none missing or all zero. At the train shape: D+lse,
-    the backward alone and SDPA forward+backward timed (median of 5).
-    Returns the train shape's row."""
+    encoder and cross-attention, and phase 20's 100m preset: dq/dk/dv
+    within 2e-2 of each tensor's largest |value|, none missing or all
+    zero. At the train shapes (``TIMED_GRAD``): D+lse, the backward alone
+    and SDPA forward+backward timed (median of 5). Returns their rows by
+    name."""
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.models.attention import (flash_attention,
                                               flash_attention_bwd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=device).manual_seed(6)
     bf16 = torch.bfloat16
-    row = None
+    rows = {}
     for name, b, h, kv, sq, skv, d, causal, window, softcap in GRAD_CASES:
         def leaf(shape):
             return torch.randn(shape, generator=gen, device=device).to(
@@ -1426,7 +1472,7 @@ def phase_flash_grad(torch, timer, device):
             errs.append(rel)
         log(f"  flash grad {name} H={h} KV={kv} d={d}: dq/dk/dv err / max "
             f"{errs[0]:.3g} {errs[1]:.3g} {errs[2]:.3g} (tol 2e-2)")
-        if row is None:             # the train shape
+        if name in TIMED_GRAD:
             qh, kh, vh = (t.detach().transpose(1, 2) for t in (q, k, v))
             lse = torch.empty((b, h, sq), device=device)
             ms, _ = timer.stats(lambda: ops.flash_attention_fwd(
@@ -1456,12 +1502,12 @@ def phase_flash_grad(torch, timer, device):
             bwd_bytes = (4 * q.numel() + 4 * k.numel()) * 2 + 4 * b * h * sq
             bb_ms, bb_by = bound(bwd_bytes, 10.0 * pairs * h * d,
                                  "bfloat16")
-            row = dict(shape=f"{name} H={h} KV={kv} d={d} bf16 causal",
-                       name=name, max_abs_err=max(errs), ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_fwd, bound_ms=b_ms,
-                       bound_by=b_by, bwd_ms=bwd_ms,
-                       bwd_bound_ms=bb_ms, sdpa_fwd_bwd_ms=lib_ms)
-            log(f"  D+lse at the train shape: {ms:.4f} ms median of 5 | "
+            rows[name] = dict(
+                shape=f"{name} H={h} KV={kv} d={d} bf16 causal", name=name,
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by,
+                bwd_ms=bwd_ms, bwd_bound_ms=bb_ms, sdpa_fwd_bwd_ms=lib_ms)
+            log(f"  D+lse at {name}: {ms:.4f} ms median of 5 | "
                 f"plain {plain_ms:.4f} | bound {b_ms:.4f} ({b_by}), "
                 f"{100 * b_ms / ms:.1f} % of it | SDPA forward "
                 f"{lib_fwd:.4f} ms | backward "
@@ -1472,9 +1518,9 @@ def phase_flash_grad(torch, timer, device):
         del q, k, v, dout, got
     torch.cuda.empty_cache()
     log("[flash grad] kernel D under its autograd Function: gradients agree "
-        "with autograd through the plain version at 4 shapes (tol 2e-2 of "
-        "each tensor's largest)")
-    return row
+        f"with autograd through the plain version at {len(GRAD_CASES)} "
+        "shapes (tol 2e-2 of each tensor's largest)")
+    return rows
 
 
 def next_logits(torch, model, params, tokens, device, ps=16, kv_bits=16,
@@ -2979,9 +3025,10 @@ def phase_quantizer(torch, device):
 FAMILY_ENGINE = dict(SERVE_ENGINE, max_seq=4736)
 # phase 13's depth (gemma2 26, granite-moe 32 layers) and phase 12's
 # (internlm2 24), cut to keep the smoke within its time limit on a busy
-# host: widths, windows (on even layers) and the expert count stay
-FAMILY_LAYERS = 8
-QUANT_LAYERS = 8
+# host: widths, windows (on even layers) and the expert count stay.
+# Phases 12 and 13 gave phase 20 its time: 8 layers each until then
+FAMILY_LAYERS = 2
+QUANT_LAYERS = 2
 LONG_PROMPT = 4500           # one of phase 13's gemma2 requests
 STATIC_PROMPT = 4608         # gemma2's static prefill: D with the window
 
@@ -3699,6 +3746,8 @@ def train_full_width(torch, device):
     busy, _ = device_breakdown(prof, pwall, 1,
                                "full-width train step profile")
     params = state["params"]
+    for _, p in _leaves(params):      # a step leaves them not requiring grad
+        p.requires_grad_(True)
     tb = {k: torch.as_tensor(v).to(device) for k, v in
           stream.batch(n + 1).items()}
     zero_launch_counters()
@@ -3794,34 +3843,36 @@ def train_checkpoint_round_trip(torch, device, tmp):
 def train_launchers(torch, tmp):
     """(d): ``launch.train --smoke --steps 30`` on the card, checkpoints
     every 10 steps: its final loss below its first; then ``launch.serve
-    --smoke --ckpt-dir`` restores step 30 and serves."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    --smoke --ckpt-dir`` restores step 30 and serves. Each launcher's
+    ``main`` runs in this process, its output captured (phase 20 runs a
+    program as a process of its own)."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
     ck = os.path.join(tmp, "launch")
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "internlm2-1.8b", "--smoke", "--steps", "30", "--ckpt-dir", ck,
-           "--checkpoint-every", "10"]
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                         cwd=ROOT, timeout=600)
-    if out.returncode != 0:
-        fail(f"launch.train: {out.stderr[-2000:]}")
-    lines = out.stdout.splitlines()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_train.main(["--arch", "internlm2-1.8b", "--smoke", "--steps",
+                           "30", "--ckpt-dir", ck, "--checkpoint-every",
+                           "10"])
+    lines = out.getvalue().splitlines()
     first = float(lines[0].split(" loss ")[1].split()[0])
     final = float(lines[-1].split("final loss ")[1].split(",")[0])
     log(f"  launch.train --smoke --steps 30: first loss {first:.4f}, final "
         f"{final:.4f}; {lines[-1]} ({time.perf_counter() - t0:.1f} s)")
     if not final < first:
         fail(f"launch.train: final loss {final} not below first {first}")
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          "--arch", "internlm2-1.8b", "--smoke",
-                          "--ckpt-dir", ck], capture_output=True, text=True,
-                         env=env, cwd=ROOT, timeout=600)
-    if out.returncode != 0 or "[launch.serve] restored step 30" not in \
-            out.stdout:
-        fail(f"launch.serve --ckpt-dir: {out.stdout[-1000:]} "
-             f"{out.stderr[-2000:]}")
-    log(f"  launch.serve --ckpt-dir: {out.stdout.splitlines()[0]}; "
-        f"{len(out.stdout.splitlines()) - 2} requests served")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_serve.main(["--arch", "internlm2-1.8b", "--smoke",
+                           "--ckpt-dir", ck])
+    lines = out.getvalue().splitlines()
+    if "[launch.serve] restored step 30" not in lines:
+        fail(f"launch.serve --ckpt-dir: {lines[-10:]}")
+    log(f"  launch.serve --ckpt-dir: {lines[0]}; {len(lines) - 2} requests "
+        "served")
 
 
 def phase_train(torch, device):
@@ -4474,9 +4525,343 @@ def phase_headdim(torch, device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the example programs
+# ---------------------------------------------------------------------------
+
+PROGRAMS_DIR = os.path.join(ROOT, "examples_torch")
+E2E_STEPS = (40, 50)          # the 100m preset's run, then its relaunch
+SERVER_GRACE_S = 30.0         # APIServer.run's drain grace
+
+
+def load_program(name):
+    """``examples_torch/<name>.py`` loaded by path under its own name, its
+    directory on ``sys.path``: a mesh's spawned ranks import the functions
+    the program sends them by that name."""
+    import importlib.util
+    if name in sys.modules:
+        return sys.modules[name]
+    if PROGRAMS_DIR not in sys.path:
+        sys.path.insert(0, PROGRAMS_DIR)
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(PROGRAMS_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_program(torch, name, argv):
+    """``main(argv)`` of a program, the launch counters zeroed just before
+    it and read just after: (its result, the launches, seconds)."""
+    mod = load_program(name)
+    torch.cuda.synchronize()
+    zero_launch_counters()
+    t0 = time.perf_counter()
+    out = mod.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_launch_counters()
+    log(f"  {name} {' '.join(argv)}: {secs:.1f} s; launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    return out, counts, secs
+
+
+class HealthWatch:
+    """Polls ``/healthz`` of ``port`` every 50 ms on a thread and keeps
+    the statuses it saw, in order, each once ("down" before the socket
+    binds, then the body's ``status``)."""
+
+    def __init__(self, port):
+        import threading
+        self.port, self.seen = port, []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                status, _, body = http_call("127.0.0.1", self.port, "GET",
+                                            "/healthz", timeout=5)
+                state = json.loads(body).get("status", str(status))
+            except (OSError, ValueError):
+                state = "down"
+            if not self.seen or self.seen[-1] != state:
+                self.seen.append(state)
+            self._stop.wait(0.05)
+
+    def stop(self):
+        self._stop.set()
+        self._t.join(5)
+
+
+def start_server():
+    """``examples_torch/serve_api.py --port <free port>`` as a process on
+    the card, its output to a temp file, a ``HealthWatch`` on it."""
+    import socket
+    import tempfile
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = tempfile.TemporaryFile(mode="w+")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(PROGRAMS_DIR, "serve_api.py"),
+         "--port", str(port)], env=env, stdout=out,
+        stderr=subprocess.STDOUT, cwd=ROOT)
+    return proc, port, HealthWatch(port), out
+
+
+def finish_server(proc, port, watch, out, timeout=300.0):
+    """Wait for the server's ``/healthz`` to read ok, answer one request,
+    then SIGTERM: it must drain and exit 0 within the drain grace."""
+    import signal
+    t0 = time.perf_counter()
+    try:
+        while "ok" not in watch.seen:
+            if proc.poll() is not None:
+                fail(f"serve_api server exited with {proc.returncode} "
+                     "before /healthz read ok")
+            if time.perf_counter() - t0 > timeout:
+                fail(f"serve_api server: /healthz never ok ({watch.seen})")
+            time.sleep(0.05)
+        status, _, body = http_call("127.0.0.1", port, "POST",
+                                    "/v1/completions",
+                                    {"prompt": list(range(1, 10)),
+                                     "max_tokens": 16}, timeout=120)
+        toks = completion_tokens(status, body, False)
+        if len(toks) != 16:
+            fail(f"serve_api server answered {len(toks)} tokens of 16")
+        watch.stop()
+        proc.send_signal(signal.SIGTERM)
+        t1 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=SERVER_GRACE_S + 10)
+        except subprocess.TimeoutExpired:
+            fail("serve_api server did not exit within the drain grace")
+        out.seek(0)
+        tail = out.read().strip().splitlines()[-4:]
+        if rc != 0:
+            fail(f"serve_api server exited {rc} after SIGTERM: {tail}")
+        log(f"  serve_api server on port {port}: /healthz {watch.seen}; one "
+            f"request of 16 tokens answered; SIGTERM -> exit 0 in "
+            f"{time.perf_counter() - t1:.2f} s; last lines {tail}")
+        return {"healthz": watch.seen, "exit_s": time.perf_counter() - t1}
+    finally:
+        watch.stop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+
+
+def phase_programs(torch, device):
+    """Phase 20: the five programs of ``examples_torch`` on the card, each
+    loaded by path and called as ``main([..., "--device", "cuda"])``, the
+    launch counters zeroed just before each; the HTTP server as a process
+    of its own. The 100m preset's Markov chain (the program's
+    ``make_data``, built once a process) is drawn on a thread meanwhile:
+    its host draw takes ~25 s. Returns {program: launches} and the
+    numbers of each program."""
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.device import resolve_device
+    t_phase = time.perf_counter()
+    dev = ["--device", "cuda"]
+    counts, res = {}, {}
+    server = start_server()        # warms while the programs run
+    e2e = load_program("train_quantize_serve")
+    model, batch, seq = e2e.build_model("100m")
+    chain = {}
+
+    def draw():
+        try:
+            t0 = time.perf_counter()
+            e2e.make_data(model.cfg.vocab_size, seq, batch,
+                          resolve_device("cuda"))
+            chain["seconds"] = time.perf_counter() - t0
+        except BaseException as exc:          # re-raised on the main thread
+            chain["error"] = exc
+
+    drawer = threading.Thread(target=draw, daemon=True)
+    drawer.start()
+    try:
+        # serve_api: the self-check, then the chaos self-check
+        out, counts["serve_api"], _ = run_program(
+            torch, "serve_api", ["--self-check"] + dev)
+        res["self_check"] = out
+        out, c, _ = run_program(torch, "serve_api",
+                                ["--self-check", "--chaos"] + dev)
+        counts["serve_api"] = {k: v + c[k] for k, v in
+                               counts["serve_api"].items()}
+        res["chaos"] = check_chaos(out)
+
+        out, counts["serve_quantized"], _ = run_program(
+            torch, "serve_quantized", dev)
+        if not (counts["serve_quantized"]["paged_attention_decode"] and
+                counts["serve_quantized"]["flash_attention_fwd"] and
+                counts["serve_quantized"]["msb_matmul"]):
+            fail("serve_quantized: a kernel of its path was not launched")
+        log(f"  serve_quantized: agreement {out['agreement']:.3f}, "
+            f"continuous = static: {out['token_identical']}, divergences "
+            f"(request, token, top-2 gap) {out['divergences']}")
+        res["serve_quantized"] = out
+
+        out, counts["distributed_quantize"], _ = run_program(
+            torch, "distributed_quantize", dev)
+        check_distributed(torch, out, device)
+        res["distributed"] = out
+
+        # a quarter of the reference's 512 rows: the paper's CPU solver
+        # (WGM, numpy on the host) takes 10-16 s at the full shape
+        out, counts["quickstart"], _ = run_program(
+            torch, "quickstart", ["--shape", "128", "2048"] + dev)
+        rows = out["rows"]
+        dp = rows[0][3]
+        if not all(dp <= r[3] for r in rows[1:6]):
+            fail(f"quickstart: DP's MSE {dp} above another 4b/64 row: "
+                 f"{rows}")
+        log("  quickstart: " + "; ".join(
+            f"{n.split(' (')[0]} {t:.2f} s MSE {m:.5f}"
+            for n, _, t, m in rows))
+        res["quickstart"] = out
+
+        # train -> quantize -> serve at the 100m preset, then a relaunch
+        t0 = time.perf_counter()
+        drawer.join()
+        if "error" in chain:
+            raise chain["error"]
+        log(f"  the 100m preset's chain drawn in {chain['seconds']:.1f} s "
+            f"on a thread; waited {time.perf_counter() - t0:.1f} s for it")
+        ckpt = tempfile.mkdtemp(prefix="msb_e2e_")
+        try:
+            runs = []
+            for steps in E2E_STEPS:
+                runs.append(run_program(
+                    torch, "train_quantize_serve",
+                    ["--preset", "100m", "--steps", str(steps),
+                     "--ckpt-dir", ckpt] + dev))
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        if e2e.make_data.cache_info().hits < len(E2E_STEPS):
+            fail("e2e: a run drew the chain again")
+        res["e2e"] = check_e2e(runs)
+        counts["train_quantize_serve"] = runs[0][1]
+
+        res["server"] = finish_server(*server)
+    finally:
+        if server[0].poll() is None:
+            server[0].kill()
+            server[0].wait()
+    for name in ("serve_api", "train_quantize_serve", "serve_quantized"):
+        if not counts[name]["msb_matmul"]:
+            fail(f"{name}: kernel A not launched")
+    if not counts["serve_api"]["paged_attention_decode"]:
+        fail("serve_api: kernel B not launched")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[programs] five programs of examples_torch on the card in "
+        f"{res['seconds']:.1f} s: the server drained and exited 0 on "
+        "SIGTERM, the self-check and the chaos self-check (crashes at step "
+        "and apply, OOM at alloc, with graphs) passed, the 100m preset "
+        "trained, resumed, quantized and served, the (4, 2) quantize made "
+        "0 collectives")
+    return counts, res
+
+
+def check_chaos(out):
+    """The chaos run fired faults at step, apply and alloc, and the device
+    memory in use grew by at most one incarnation's graph pool (the last
+    crash's traceback may hold one), never by one a restart."""
+    growth = out["memory_at_end"] - out["memory_after_warmup"]
+    log(f"  chaos: {out['restarts']} restarts, "
+        f"{out['replayed_tokens']} tokens replayed, "
+        f"{out['warmup_traces']} captures in "
+        f"{out['warmup_seconds']:.2f} s; faults {out['faults_fired']}; "
+        f"device memory {out['memory_after_warmup'] / 1e6:.1f} MB after "
+        f"the first warm-up, {out['memory_at_end'] / 1e6:.1f} MB at the "
+        f"end, an incarnation's graph pool {out['graph_bytes'] / 1e6:.1f} MB")
+    sites = {s for s, _ in out["faults_fired"]}
+    if not {"step", "apply", "alloc"} <= sites:
+        fail(f"chaos: faults fired only at {sites}")
+    if growth > out["graph_bytes"] + (16 << 20):
+        fail(f"chaos: device memory grew {growth} B over "
+             f"{out['restarts']} restarts (graph pool {out['graph_bytes']} "
+             "B): abandoned incarnations keep memory")
+    return out
+
+
+def check_e2e(runs):
+    """The 100m preset's two runs: every loss finite and the loss falling,
+    the relaunch resumed from step 25, kernel D launched exactly twice a
+    layer a step (the forward and its remat recompute) and once a layer
+    in each held-out NLL and in the prefill of ``generate``."""
+    (first, c1, s1), (again, c2, s2) = runs
+    if again["resumed_from"] != 25:
+        fail(f"e2e relaunch resumed from {again['resumed_from']}, not 25")
+    for out, counts in ((first, c1), (again, c2)):
+        losses = [out["losses"][k] for k in sorted(out["losses"])]
+        if not all(np.isfinite(losses)):
+            fail(f"e2e: a loss is not finite: {losses}")
+        if not (np.isfinite(out["nll_fp"]) and np.isfinite(out["nll_q"])):
+            fail(f"e2e: held-out NLL fp {out['nll_fp']} 4-bit "
+                 f"{out['nll_q']}")
+        n_layers = out["n_layers"]
+        want = out["steps_run"] * 2 * n_layers + 3 * n_layers
+        if counts["flash_attention_fwd"] != want:
+            fail(f"e2e: {counts['flash_attention_fwd']} D launches, want "
+                 f"{want} ({out['steps_run']} steps x 2 x {n_layers} "
+                 f"layers + 3 x {n_layers})")
+        if not (counts["msb_matmul"] and counts["msb_unembed"]):
+            fail("e2e: the 4-bit serve launched no A or no unembedding")
+    losses = [first["losses"][k] for k in sorted(first["losses"])]
+    if not losses[-1] < losses[0]:
+        fail(f"e2e: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    log(f"  e2e 100m: first loss {losses[0]:.4f} (ln V "
+        f"{first['ln_vocab']:.4f}), step {E2E_STEPS[0]} loss "
+        f"{losses[-1]:.4f}; relaunch resumed from step 25, last loss "
+        f"{again['losses'][max(again['losses'])]:.4f}; median step "
+        f"{first['median_step_s'] * 1e3:.1f} ms "
+        f"({first['tokens_per_s']:.0f} tok/s; relaunch "
+        f"{again['median_step_s'] * 1e3:.1f} ms), peak "
+        f"{first['peak_bytes'] / 1e9:.2f} GB; held-out NLL fp "
+        f"{first['nll_fp']:.4f}, 4-bit {first['nll_q']:.4f} (floor "
+        f"{first['floor']:.4f}); {s1:.1f} s and {s2:.1f} s; D "
+        f"{c1['flash_attention_fwd']} and {c2['flash_attention_fwd']}")
+    return {"first_loss": losses[0], "ln_vocab": first["ln_vocab"],
+            "median_step_ms": first["median_step_s"] * 1e3,
+            "relaunch_median_step_ms": again["median_step_s"] * 1e3,
+            "tokens_per_s": first["tokens_per_s"],
+            "peak_gb": first["peak_bytes"] / 1e9, "nll_fp": first["nll_fp"],
+            "nll_q": first["nll_q"], "seconds": (s1, s2),
+            "d_launches": c1["flash_attention_fwd"]}
+
+
+def check_distributed(torch, out, device):
+    """Each rank's codes and scales bitwise the single-device
+    ``quantize_blockwise`` of its shard on the card; no collective."""
+    from repro_torch.core import quantize_blockwise
+    if out["collectives"] != 0:
+        fail(f"distributed_quantize: {out['collectives']} collectives")
+    prog = load_program("distributed_quantize")
+    shards = prog.shard(torch.from_numpy(out["weight"]), out["mesh"])
+    for r, ws in enumerate(shards):
+        q = quantize_blockwise(ws.to(device), bits=4, block=64, solver="dp")
+        if not (torch.equal(q.codes.cpu(), out["codes"][r]) and
+                torch.equal(q.scales.cpu(), out["scales"][r])):
+            fail(f"distributed_quantize: rank {r}'s codes or scales differ "
+                 "from the single-device solve of its shard")
+    log(f"  distributed_quantize {out['mesh']}: 0 collectives; every "
+        f"rank's codes and scales bitwise the single-device solve; "
+        f"{out['seconds'] * 1e3:.0f} ms, {out['blocks_per_s']:.0f} blocks/s,"
+        f" MSE {out['mse']:.4f}")
+
+
 def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
-                q_counts, s_counts, f_counts, st_counts, grad_row, train,
-                tp_counts, off_rows, gspmd, gs_counts, hd_counts):
+                q_counts, s_counts, f_counts, st_counts, grad_rows, train,
+                tp_counts, off_rows, gspmd, gs_counts, hd_counts,
+                prog_counts):
     """The kernel table as the JSON line's rows: each kernel at its main
     path's representative shape (A at decode and at M=4096, and its expert
     batch at granite-moe's and jamba's decode; the unembedding's kernel at
@@ -4518,8 +4903,8 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
     def un_row(table, m=8):
         return next(r for r in un_rows if (r["table"], r["m"]) == (table, m))
 
-    plain_pa = [r for r in pa_rows
-                if not r.get("window") and not r.get("tp2")]
+    plain_pa = [r for r in pa_rows if not (r.get("window") or r.get("tp2")
+                                           or r.get("ps4") or r.get("ps8"))]
     pa_w = next(r for r in pa_rows if r.get("window"))
     pa_err = max(r["max_abs_err"] for r in pa_rows)
     gem, moe = f_counts["gemma2"], f_counts["moe"]
@@ -4577,6 +4962,7 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
     # D with its lse at internlm2's train shape, launched by phase 15's
     # full-width run; the row also carries the backward's time (plain
     # torch, not a kernel) and SDPA's forward+backward
+    grad_row = grad_rows[TIMED_GRAD[0]]
     rows.append(dict(row("flash_attention_fwd_lse_train",
                          src + "flash_attention.cu", d_tpu,
                          train["d_launches"], grad_row,
@@ -4667,6 +5053,41 @@ def kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows, counts,
                     if r["name"] == "headdim whisper encoder B=2 S=1500"),
                fa_err, src + "flash_attention.cu", d_tpu),
     ]
+    # phase 20's programs: A at the 100m preset's gate/up projection and
+    # its tied f32 table at its serve's M=4, D with its lse at its train
+    # shape (the launches: its first run's), B at serve_api's page size 4
+    # (the self-check's and the chaos run's) and serve_quantized's 8; each
+    # row also carries the launches of its kernel in every program that
+    # launched it
+    e2e = prog_counts["train_quantize_serve"]
+
+    def prog_row(name, kernel, launches, r, err, source=mm_src,
+                 replaces=a_tpu):
+        return dict(row(name, source, replaces, launches, r, err),
+                    launches_by_program={p: c[kernel] for p, c in
+                                         prog_counts.items() if c[kernel]})
+
+    fa_e2e = grad_rows[TIMED_GRAD[1]]
+    rows += [
+        prog_row("msb_matmul_e2e_100m", "msb_matmul", e2e["msb_matmul"],
+                 mm_row(4, 768, 2048), mm_err),
+        prog_row("msb_unembed_tied_e2e_100m", "msb_unembed",
+                 e2e["msb_unembed"], un_row("e2e_100m", 4), un_err),
+        dict(prog_row("flash_attention_fwd_lse_e2e_100m",
+                      "flash_attention_fwd", e2e["flash_attention_fwd"],
+                      fa_e2e, fa_e2e["max_abs_err"],
+                      src + "flash_attention.cu", d_tpu),
+             bwd_ms=fa_e2e["bwd_ms"], bwd_bound_ms=fa_e2e["bwd_bound_ms"],
+             sdpa_fwd_bwd_ms=fa_e2e["sdpa_fwd_bwd_ms"]),
+        prog_row("paged_attention_decode_ps4", "paged_attention_decode",
+                 prog_counts["serve_api"]["paged_attention_decode"],
+                 next(r for r in pa_rows if r.get("ps4")), pa_err, pa_src,
+                 b_tpu),
+        prog_row("paged_attention_decode_ps8", "paged_attention_decode",
+                 prog_counts["serve_quantized"]["paged_attention_decode"],
+                 next(r for r in pa_rows if r.get("ps8")), pa_err, pa_src,
+                 b_tpu),
+    ]
     for r in rows:
         if not r["launches"] > 0:
             fail(f"{r['name']}: no launch on its path")
@@ -4683,35 +5104,63 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    laps = []
+
+    def lap(name):
+        """The seconds since the last lap, under ``name``."""
+        t = time.perf_counter()
+        laps.append((name, t - (laps[-1][2] if laps else t_start), t))
+
     phase_env(torch)
     phase_build()
+    lap("1-2 env, build")
     timer = Timer(torch, device)
     mm_rows = phase_msb_matmul(torch, timer, device)
     un_rows = phase_msb_unembed(torch, timer, device)
+    lap("3 msb_matmul, msb_unembed")
     pa_rows = phase_paged_attention(torch, timer, device)
+    lap("4 paged_attention")
     paq_rows = phase_paged_attention_quant(torch, timer, device)
+    lap("5 paged_attention_quant")
     fa_rows = phase_flash_attention(torch, timer, device)
     off_rows = phase_flash_offset(torch, timer, device)
-    grad_row = phase_flash_grad(torch, timer, device)
+    grad_rows = phase_flash_grad(torch, timer, device)
+    lap("6 flash_attention")
     del timer
     counts, ctx = phase_serve(torch, device)
+    lap("7 serve")
     q_counts = phase_serve_quant(torch, device, ctx)
+    lap("8 serve kv8/kv4")
     s_counts = phase_serve_static(torch, device, ctx)
+    lap("9 serve static")
     phase_paths(torch)
+    lap("10 paths")
     phase_front_door(torch, ctx)
+    lap("11 front door")
     tp_counts = phase_tp(torch, device, ctx)
+    lap("16 tp")
     del ctx
     phase_quantizer(torch, device)
+    lap("12 quantizer")
     f_counts = phase_families(torch, device)
+    lap("13 families")
     st_counts = phase_state_stacks(torch, device)
+    lap("14 state stacks")
     train = phase_train(torch, device)
+    lap("15 train")
     gspmd = phase_gspmd(torch, device)
+    lap("17 gspmd")
     gs_counts = phase_gspmd_serve(torch, device)
+    lap("18 gspmd serve")
     hd_counts = phase_headdim(torch, device)
+    lap("19 head_dim")
+    prog_counts, _ = phase_programs(torch, device)
+    lap("20 programs")
+    log("[phases] " + "; ".join(f"{n} {d:.1f} s" for n, d, _ in laps))
     kernels = kernel_line(mm_rows, un_rows, pa_rows, paq_rows, fa_rows,
                           counts, q_counts, s_counts, f_counts, st_counts,
-                          grad_row, train, tp_counts, off_rows, gspmd,
-                          gs_counts, hd_counts)
+                          grad_rows, train, tp_counts, off_rows, gspmd,
+                          gs_counts, hd_counts, prog_counts)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

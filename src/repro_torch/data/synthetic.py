@@ -1,7 +1,8 @@
 """Deterministic synthetic data pipeline (no external datasets offline).
 
-Port of ``repro.data.synthetic`` by copy: numpy only, so a seed gives the
-reference's batches bit for bit. Two sources:
+Port of ``repro.data.synthetic``: numpy only, so a seed gives the
+reference's tables and batches bit for bit (the chain's rows built on
+threads, its sampler a bisection of each row). Two sources:
   * ``TokenStream`` — uniform-random tokens, fully deterministic in
     (seed, step, host): the dry-run/throughput workload.
   * ``MarkovStream`` — tokens from a fixed random Markov chain, so a model
@@ -14,8 +15,10 @@ prefetched on a background thread.
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -48,11 +51,24 @@ class MarkovStream(TokenStream):
                  n_hosts=1, concentration=0.05):
         super().__init__(vocab, seq_len, global_batch, seed, host, n_hosts)
         rng = np.random.default_rng(seed)
-        logits = rng.standard_normal((vocab, vocab)) / concentration
-        logits -= logits.max(axis=1, keepdims=True)
-        p = np.exp(logits)
-        self.trans = p / p.sum(axis=1, keepdims=True)
-        self.cum = np.cumsum(self.trans, axis=1)
+        # the reference's row-wise arithmetic, in place (two tables, not
+        # five) and in blocks of rows on threads: the same bits
+        self.trans = rng.standard_normal((vocab, vocab))
+        self.cum = np.empty_like(self.trans)
+        rows = [(lo, min(lo + self.ROWS, vocab))
+                for lo in range(0, vocab, self.ROWS)]
+        with ThreadPoolExecutor(min(len(rows), os.cpu_count() or 1)) as pool:
+            list(pool.map(lambda r: self._rows(*r, concentration), rows))
+
+    ROWS = 1024        # rows of the transition table a thread takes at once
+
+    def _rows(self, lo, hi, concentration):
+        x = self.trans[lo:hi]
+        x /= concentration
+        x -= x.max(axis=1, keepdims=True)
+        np.exp(x, out=x)
+        x /= x.sum(axis=1, keepdims=True)
+        np.cumsum(x, axis=1, out=self.cum[lo:hi])
 
     def batch(self, step):
         rng = np.random.default_rng(
@@ -61,9 +77,17 @@ class MarkovStream(TokenStream):
         toks = np.empty((b, s), dtype=np.int32)
         toks[:, 0] = rng.integers(0, self.vocab, b)
         u = rng.random((b, s))
-        for t in range(1, s):
-            toks[:, t] = np.argmax(
-                self.cum[toks[:, t - 1]] > u[:, t:t + 1], axis=1)
+        # the reference's argmax(cum[prev] > u): the first token whose
+        # cumulative probability exceeds u (0 where none does), found by
+        # bisection of the nondecreasing row
+        cum, v = self.cum, self.vocab
+        for i in range(b):
+            row, ui = toks[i], u[i]
+            prev = int(row[0])
+            for t in range(1, s):
+                k = int(cum[prev].searchsorted(ui[t], side="right"))
+                prev = k if k < v else 0
+                row[t] = prev
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
 
     def entropy(self):
@@ -96,4 +120,12 @@ class Prefetcher:
         return self.q.get()
 
     def close(self):
+        """Stop filling. A fill thread blocked on the full queue is let
+        through, so it stops and lets go of the iterator (and what the
+        iterator holds: a chain's tables)."""
         self._stop = True
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass

@@ -65,6 +65,19 @@ PAD = {"tokens": 0, "seg_ids": -1, "q_pos": -1, "kv_lens": 0, "slots": -1,
 _N_CAPTURES = 0
 
 
+# the side stream each capture's eager pass runs on, one a device: cuBLAS
+# keeps a workspace (32 MiB on the H100) for every stream it runs on, so a
+# new stream a capture left one behind each time, and every rebuilt
+# engine's warm-up grew the device memory in use
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device):
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
 def jit_trace_count() -> int:
     """Dispatch-graph captures so far in this process (monotonic): on the
     CPU, first dispatches of a key. The reference's trace probe under its
@@ -255,7 +268,7 @@ class DispatchGraphs:
         slots, pads = pad_inputs(kind, size, self.max_batch)
         entry.load(pads, self.cache.table_rows(slots))
         stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = _side_stream(self.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):   # eager all-pad iteration
             self.forward(kind, entry.inputs, entry.bt, self.cache.pools)

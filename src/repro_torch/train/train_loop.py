@@ -41,7 +41,8 @@ def make_train_step(model, opt: AdamW, parallel=None):
     """(state, batch) -> (state, metrics); state = {"params", "opt"},
     updated in place. ``batch`` holds numpy arrays or tensors (moved to
     the params' device). metrics: loss, ce, router_aux, grad_norm and lr
-    (0-d tensors on the device). ``parallel``: a ``ParallelContext``;
+    (0-d tensors on the device); the params leave the step, as they do a
+    rank's, not requiring grad. ``parallel``: a ``ParallelContext``;
     on a rank the step runs on its blocks (``_rank_step``), from the
     controller it takes a ``sharding.Sharded`` state and the global batch
     and runs on every rank."""
@@ -66,6 +67,7 @@ def make_train_step(model, opt: AdamW, parallel=None):
         params, opt_state = opt.update(grads, state["opt"], params)
         for _, p in leaves(params):
             p.grad = None
+            p.requires_grad_(False)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(loss=loss.detach(), grad_norm=gnorm,
                        lr=lr_schedule(opt.cfg, opt_state["step"]))
@@ -213,7 +215,7 @@ def place_state(model, opt, state, mesh):
 def train_loop(model, opt, data_iter, *, steps, state=None, generator=None,
                device=None, parallel=None, checkpointer=None,
                checkpoint_every=0, log_every=10, straggler_monitor=None,
-               should_stop=None, log_fn=print):
+               should_stop=None, log_fn=print, on_step=None):
     """Run the training loop with checkpoint/restart and preemption
     handling, as the reference's (``parallel`` a ``ParallelContext`` of a
     process mesh: the state, made on the CPU when None, is placed on the
@@ -225,7 +227,8 @@ def train_loop(model, opt, data_iter, *, steps, state=None, generator=None,
     - saves every ``checkpoint_every`` steps and on a preemption signal
       (``should_stop()``), then stops;
     - ``straggler_monitor`` records each step's wall time (the loss read
-      back first, so the time covers the device's work).
+      back first, so the time covers the device's work);
+    - ``on_step(step, metrics)``, where given, sees every step's metrics.
     Returns (state, last metrics)."""
     step_fn = make_train_step(model, opt, parallel)
     start_step = 0
@@ -248,6 +251,8 @@ def train_loop(model, opt, data_iter, *, steps, state=None, generator=None,
         if straggler_monitor is not None:
             float(metrics["loss"])
             straggler_monitor.record(step, time.perf_counter() - t0)
+        if on_step is not None:
+            on_step(step, metrics)
         if log_every and (step % log_every == 0 or step == steps - 1):
             log_fn(f"[train] step {step} loss {float(metrics['loss']):.4f} "
                    f"gnorm {float(metrics['grad_norm']):.3f}")

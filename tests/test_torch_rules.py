@@ -22,9 +22,11 @@ from repro_torch.serve import ContinuousEngine, ServeEngine
 from repro_torch.train import AdamW, OptConfig, init_state
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+PROGRAMS = sorted((ROOT / "examples_torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
-    ROOT / "chip_window_mutant.py", ROOT / "chip_unembed_variants.py"]
+    ROOT / "chip_window_mutant.py", ROOT / "chip_unembed_variants.py",
+    ROOT / "chip_e2e_profile.py"] + PROGRAMS
 
 
 def _forbidden_imports(path):
@@ -52,12 +54,24 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 
 def test_port_imports_with_jax_blocked():
-    code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = "
+    """The package and the example programs import, and each program's
+    ``--help`` parses, with ``jax`` and ``repro`` blocked."""
+    assert len(PROGRAMS) == 5
+    load = "".join(
+        f"spec = importlib.util.spec_from_file_location('{p.stem}', "
+        f"{str(p)!r})\nmod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "try:\n    mod.main(['--help'])\nexcept SystemExit:\n    pass\n"
+        for p in PROGRAMS)
+    code = ("import sys, importlib.util, contextlib, io\n"
+            "sys.modules['jax'] = None\nsys.modules['repro'] = "
             "None\nimport repro_torch.serve, repro_torch.convert, "
             "repro_torch.core, repro_torch.kernels._build, "
             "repro_torch.train, repro_torch.data, "
             "repro_torch.launch.train, repro_torch.launch.dryrun\n"
-            "print('ok')")
+            "with contextlib.redirect_stdout(io.StringIO()):\n"
+            + "".join("    " + line + "\n" for line in load.splitlines())
+            + "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
